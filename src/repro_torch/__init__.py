@@ -1,0 +1,7 @@
+"""The PyTorch and CUDA port of the CAANS dataplane (``repro``'s counterpart).
+
+``repro_torch.core`` holds the protocol roles and the single-group service;
+``repro_torch.kernels`` the hand-written CUDA kernels for Hopper, each with
+its plain PyTorch version beside it.  Entry points run on the card unless
+the caller passes ``device="cpu"``.
+"""

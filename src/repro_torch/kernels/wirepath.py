@@ -1,0 +1,111 @@
+"""K1: the fused CAANS wire path for one Paxos group, a CUDA kernel.
+
+``wirepath_round`` launches ``csrc/wirepath.cu``, which replaces the TPU
+kernel ``repro.kernels.wirepath.cohort_wirepath_round`` in its single-group
+form ``wirepath_round``: one complete Phase-2 round (sequencing, the vote
+of all A acceptors, the learner quorum and the ring dedup) in one launch,
+with the six state tensors updated in place.  Its plain version is
+``repro_torch.core.batched.fused_round``; ``kernels.ops.fused_round``
+chooses between the two by the device of the tensors.
+
+The kernel takes any window base: one thread serves one lane and computes
+its own ring slot, so there is no block-alignment precondition.  It
+requires ``B <= N`` (distinct slots, so in-place writes never race) and
+``A <= 8``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+MAX_A = 8
+INT32_MAX = 2**31 - 1
+
+# launches of the kernel in this process; reset by whoever reads it
+launches = 0
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.library("wirepath").wirepath_round
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, dev: torch.device):
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev or not t.is_contiguous():
+        raise ValueError(
+            f"wirepath_round: {name} must be a contiguous {dtype} tensor of shape "
+            f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+def wirepath_round(
+    next_inst: torch.Tensor,  # int32[]  window base
+    crnd: torch.Tensor,  # int32[]  coordinator round
+    quorum: int,
+    alive: torch.Tensor,  # bool[A]
+    st_rnd: torch.Tensor,  # int32[A, N]  stacked acceptor rings, in place
+    st_vrnd: torch.Tensor,  # int32[A, N]
+    st_val: torch.Tensor,  # int32[A, N, V]
+    ldel: torch.Tensor,  # int32[N]  learner ring, in place
+    linst: torch.Tensor,  # int32[N]
+    lval: torch.Tensor,  # int32[N, V]
+    values: torch.Tensor,  # int32[B, V]  burst values
+    limit: int | None = None,  # first refused instance; None = no reclamation
+) -> tuple[torch.Tensor, ...]:
+    """One fused Phase-2 round on the card.  Returns ``(st_rnd, st_vrnd,
+    st_val, ldel, linst, lval, next_inst', inst[B], fresh[B], win_vrnd[B],
+    value[B, V])``: the six state tensors are the inputs, updated in place;
+    ``next_inst'`` is the advanced watermark ``next_inst + B`` (a new
+    tensor), ``inst`` the lanes' instances and ``fresh`` a bool mask."""
+    global launches
+    dev = values.device
+    if dev.type != "cuda":
+        raise ValueError(f"wirepath_round launches a CUDA kernel; got tensors on {dev}")
+    a, n = st_rnd.shape
+    b, v = values.shape
+    if not 1 <= a <= MAX_A or b > n:
+        raise ValueError(f"wirepath_round needs 1 <= A <= {MAX_A} and B <= N, got {a}, {b}, {n}")
+    i32 = torch.int32
+    _check("next_inst", next_inst, i32, (), dev)
+    _check("crnd", crnd, i32, (), dev)
+    _check("alive", alive, torch.bool, (a,), dev)
+    _check("st_rnd", st_rnd, i32, (a, n), dev)
+    _check("st_vrnd", st_vrnd, i32, (a, n), dev)
+    _check("st_val", st_val, i32, (a, n, v), dev)
+    _check("ldel", ldel, i32, (n,), dev)
+    _check("linst", linst, i32, (n,), dev)
+    _check("lval", lval, i32, (n, v), dev)
+    _check("values", values, i32, (b, v), dev)
+    lim = INT32_MAX if limit is None else int(limit)
+    next_out = torch.empty((), dtype=i32, device=dev)
+    inst = torch.empty((b,), dtype=i32, device=dev)
+    fresh = torch.empty((b,), dtype=torch.bool, device=dev)
+    win = torch.empty((b,), dtype=i32, device=dev)
+    value = torch.empty((b, v), dtype=i32, device=dev)
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            next_inst.data_ptr(), crnd.data_ptr(), alive.data_ptr(),
+            int(quorum), lim, a, n, v, b,
+            st_rnd.data_ptr(), st_vrnd.data_ptr(), st_val.data_ptr(),
+            ldel.data_ptr(), linst.data_ptr(), lval.data_ptr(),
+            values.data_ptr(), next_out.data_ptr(), inst.data_ptr(),
+            fresh.data_ptr(), win.data_ptr(), value.data_ptr(),
+            stream,
+        )  # fmt: skip
+    _build.check(rc, "wirepath_round launch")
+    launches += 1
+    return st_rnd, st_vrnd, st_val, ldel, linst, lval, next_out, inst, fresh, win, value
