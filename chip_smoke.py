@@ -9,17 +9,29 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
 2. the kernels' build time;
 3. the kernel phase: each kernel against its plain PyTorch version on the
-   card, at the main path's shapes and at adversarial windows, bit for bit;
+   card, at its path's shapes and at adversarial windows, bit for bit;
 4. the main path: ``PaxosContext(PaxosConfig(), fused=True, use_kernels=True,
    snapshots=True)`` on the card under a seeded lossy ``SimNet``, with ring
    wrap under reclamation, snapshots, an acceptor kill and revive, a crash
    and restore, and a coordinator failover and restore; the same schedule on
    the plain engine must give the same logs, seals and final state, and
    every seal is folded again by K4's plain version and must agree;
-5. times: each kernel by CUDA events at the main path's shapes beside its
-   bound and its plain version, and the main path's decided values/s and
-   per-round latency;
-6. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+5. the staged path: ``PaxosContext(PaxosConfig(), n_learners=2)`` with its
+   defaults (``fused=False``, ``use_kernels=True``) on the card under a
+   lossy ``SimNet``, with ring wrap, a kill and revive, a failover and
+   restore and a ``recover()``; the same schedule on the plain engine must
+   give the same logs, learners' tables and final state, K3 must run once
+   per ``sequence()`` and K2 once per ``vote()``;
+6. the per-role path: one ring walk of bursts through the sequencer, each
+   acceptor alone and the learner (K3, K7 x A, K8), held against the same
+   bursts through the acceptor array's vote (K2) and K8's plain version;
+7. times: each kernel by CUDA events at its path's shapes beside its bound
+   and its plain version, and the main and staged paths' decided values/s
+   and per-round latency;
+8. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+
+Each path runs with every kernel's launch count set to 0 just before it and
+read just after; a kernel of the path that never launched fails the run.
 
 Any failure raises, so the script exits non-zero and prints no result.
 """
@@ -40,14 +52,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import FaultSpec, PaxosConfig, PaxosContext, SimNet  # noqa: E402
 from repro_torch.core import batched  # noqa: E402
 from repro_torch.core.bridge import export_state  # noqa: E402
-from repro_torch.core.types import AcceptorState, CoordinatorState  # noqa: E402
+from repro_torch.core.types import AcceptorState, CoordinatorState, MsgBatch  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import acceptor as k_acceptor  # noqa: E402
+from repro_torch.kernels import coordinator as k_coordinator  # noqa: E402
 from repro_torch.kernels import digest as k_digest  # noqa: E402
+from repro_torch.kernels import learner as k_learner  # noqa: E402
 from repro_torch.kernels import wirepath as k_wirepath  # noqa: E402
 
 SEED = 20160519
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12  # no int32 row in the data sheet: the f32 non-tensor rate
+FIELDS = ("msgtype", "inst", "rnd", "vrnd", "swid", "value")
 
 CARD = ""  # "name, power limit" from nvidia-smi, set by main()
 
@@ -183,6 +199,151 @@ def check_k4(dev, n: int = 1 << 16, v: int = 16) -> int:
     return worst
 
 
+def check_k3(dev) -> int:
+    """K3 against ``batched.coordinator_sequence``: bursts of 8 and 128 at
+    aligned, misaligned and negative watermarks and at watermarks near int32
+    max, where the instances wrap."""
+    rng = np.random.default_rng(SEED + 5)
+    worst = 0
+    for b in (8, 128):
+        for base in (0, 4096, 1003, -77, 2**31 - 1 - b // 2, 2**31 - 1):
+            cstate = CoordinatorState.init(crnd=11, next_inst=base, device=dev)
+            values = torch.from_numpy(rng.integers(0, 1 << 20, (b, 16), dtype=np.int32)).to(dev)
+            active = torch.from_numpy(rng.random(b) < 0.8).to(dev)
+            gc, gp = ops.coordinator_sequence(cstate, values, active)
+            wc, wp = batched.coordinator_sequence(cstate, values, active)
+            err = max_abs_err([gc.next_inst, gc.crnd, *vars(gp).values()],
+                              [wc.next_inst, wc.crnd, *vars(wp).values()])  # fmt: skip
+            print(f"  K3 b={b} next_inst={base}: max_abs_err={err}")
+            if err:
+                raise AssertionError(f"K3 disagrees with its plain version at {base}, {b}")
+            worst = max(worst, err)
+    return worst
+
+
+def phase2_batch(rng, inst, rnd, v: int, dev, nop_share: float = 0.25) -> MsgBatch:
+    """A Phase-2 batch at ``inst``: P2As at ``rnd``, a share of NOP fillers
+    (which vote like P2As), values random."""
+    b = len(inst)
+    msgtype = np.where(rng.random(b) < nop_share, 0, 3).astype(np.int32)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+
+    return MsgBatch(
+        msgtype=t(msgtype),
+        inst=t(inst),
+        rnd=t(np.broadcast_to(rnd, (b,))),
+        vrnd=t(np.full(b, -1)),
+        swid=t(np.zeros(b)),
+        value=t(rng.integers(-(2**31), 2**31, (b, v), dtype=np.int32)),
+    )
+
+
+def recovery_batch(inst0: int, crnd: int, b: int, v: int, dev) -> MsgBatch:
+    """The shape ``PaxosContext._recover_votes`` votes: a window at an
+    arbitrary instance, lane 0 a P2A at ``crnd``, the rest NOPs at NO_ROUND."""
+    m = MsgBatch.nop(b, v, dev).replace(
+        inst=torch.arange(inst0, inst0 + b, dtype=torch.int32, device=dev)
+    )
+    m.msgtype[0] = 3
+    m.rnd[0] = crnd
+    m.value[0] = torch.arange(1, v + 1, dtype=torch.int32, device=dev)
+    return m
+
+
+def check_votes(dev, n: int = 1 << 16, v: int = 16) -> tuple[int, int, list]:
+    """K2 on the stacked rings and K7 on each acceptor's own register file
+    against the plain engine (``batched.acceptor_phase2_all`` and
+    ``batched.acceptor_phase2``), at A in {3, 5} and B in {8, 128}: aligned,
+    misaligned and ring-end windows, a dead acceptor, a stale round (every
+    lane rejected), NOP fillers, a recovery window at an arbitrary instance,
+    the state updated in place.  Returns the largest differences of K2 and
+    K7 and the vote batches K2 made, for K8's check."""
+    rng = np.random.default_rng(SEED + 6)
+    worst2 = worst7 = 0
+    made = []
+    for a, alive in ((3, [1, 1, 1]), (3, [1, 0, 1]), (5, [1, 1, 0, 1, 0])):
+        for b in (8, 128):
+            crnd = 6
+            state = AcceptorState(
+                torch.from_numpy(rng.integers(0, crnd + 2, (a, n), dtype=np.int32)).to(dev),
+                torch.from_numpy(rng.integers(-1, crnd + 2, (a, n), dtype=np.int32)).to(dev),
+                torch.from_numpy(rng.integers(-(2**31), 2**31, (a, n, v), dtype=np.int32)).to(dev),
+            )
+            twin = AcceptorState(*(x.clone() for x in vars(state).values()))
+            files = [AcceptorState(*(x[i].clone() for x in vars(state).values())) for i in range(a)]
+            twins = [AcceptorState(*(x.clone() for x in vars(f).values())) for f in files]
+            tensors = [*vars(state).values(), *(x for f in files for x in vars(f).values())]
+            ptrs = [x.data_ptr() for x in tensors]
+            alv = torch.tensor(alive, dtype=torch.bool, device=dev)
+            cases = [
+                ("aligned", phase2_batch(rng, 4096 + np.arange(b), crnd, v, dev)),
+                ("misaligned", phase2_batch(rng, 1003 + np.arange(b), crnd, v, dev)),
+                ("ring end", phase2_batch(rng, 3 * n - b // 2 + np.arange(b), crnd, v, dev)),
+                ("stale round", phase2_batch(rng, 640 + np.arange(b), -1, v, dev)),
+                ("NOP fillers", phase2_batch(rng, 2 * n + 9 + np.arange(b), crnd + 1, v, dev, 0.9)),
+                ("recovery", recovery_batch(5 * n + 31_337, crnd + 16, b, v, dev)),
+                ("scattered", phase2_batch(
+                    rng, rng.permutation(n)[:b] + rng.integers(0, 9, b) * n, crnd + 2, v, dev)),
+            ]  # fmt: skip
+            for name, msgs in cases:
+                st, got = ops.acceptor_phase2_all(state, msgs, alv)
+                _, want = batched.acceptor_phase2_all(twin, msgs, alv)
+                err2 = max_abs_err([*vars(got).values(), *vars(state).values()],
+                                   [*vars(want).values(), *vars(twin).values()])  # fmt: skip
+                err7 = 0
+                returned = [*vars(st).values()]
+                for i in range(a):
+                    fi, mine = ops.acceptor_phase2(files[i], msgs, i)
+                    _, plain = batched.acceptor_phase2(twins[i], msgs, i)
+                    returned += vars(fi).values()
+                    err7 = max(err7, max_abs_err(
+                        [*vars(mine).values(), *vars(files[i]).values()],
+                        [*vars(plain).values(), *vars(twins[i]).values()]))  # fmt: skip
+                torch.cuda.synchronize()
+                if [x.data_ptr() for x in returned] != ptrs:
+                    raise AssertionError("K2 or K7 did not update the state in place")
+                if name == "stale round" and bool((got.msgtype == 4).any()):
+                    raise AssertionError("a stale round was accepted")
+                print(f"  K2/K7 a={a} alive={alive} b={b} {name}: "
+                      f"max_abs_err K2={err2} K7={err7}")  # fmt: skip
+                if err2 or err7:
+                    raise AssertionError(f"K2 or K7 disagrees with the plain engine: {name}")
+                worst2, worst7 = max(worst2, err2), max(worst7, err7)
+                made.append((got, a))
+    return worst2, worst7, made
+
+
+def check_k8(dev, made: list, v: int = 16) -> int:
+    """K8 against ``learner.learner_quorum_plain`` on the vote batches K2
+    made above and on foreign votes: mixed vrnds, and lanes where no
+    acceptor agrees whose REJECT votes carry non-zero values (value 0)."""
+    rng = np.random.default_rng(SEED + 7)
+    cases = [(f"K2's votes a={a}", a, m.msgtype, m.vrnd, m.value) for m, a in made]
+    for a in (3, 5):
+        for b in (8, 128):
+            vtype = rng.choice([4, 4, 4, 7], (a, b)).astype(np.int32)
+            vtype[:, ::3] = 7  # no acceptor agrees on every third lane
+            cases.append((f"foreign a={a} b={b}", a, *(torch.from_numpy(x).to(dev) for x in (
+                vtype,
+                rng.integers(-3, 9, (a, b), dtype=np.int32),
+                rng.integers(1, 2**31, (a, b, v), dtype=np.int32),
+            ))))  # fmt: skip
+    worst = 0
+    for name, a, vtype, vrnd, value in cases:
+        got = k_learner.learner_quorum_window(a // 2 + 1, vtype, vrnd, value)
+        want = k_learner.learner_quorum_plain(a // 2 + 1, vtype, vrnd, value)
+        err = max_abs_err(got, want)
+        if name.startswith("foreign") and bool(got[2][::3].any()):
+            raise AssertionError("K8 gave a value on a lane where no acceptor agrees")
+        if err:
+            raise AssertionError(f"K8 disagrees with its plain version: {name}")
+        worst = max(worst, err)
+    print(f"  K8: {len(cases)} cases, max_abs_err={worst}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
@@ -303,6 +464,206 @@ def run_main_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) -> dic
         delivered=len(log),
         ring_laps=hw._next_inst_host / n,
     )
+
+
+# ---------------------------------------------------------------------------
+# staged path and per-role path
+# ---------------------------------------------------------------------------
+LAUNCHES = {  # kernel name -> (module, attribute) of its wrapper's count
+    "wirepath_round": (k_wirepath, "launches"),
+    "acceptor_vote_all": (k_wirepath, "vote_all_launches"),
+    "coordinator_sequence": (k_coordinator, "launches"),
+    "digest": (k_digest, "launches"),
+    "acceptor_phase2": (k_acceptor, "launches"),
+    "learner_quorum": (k_learner, "launches"),
+}
+
+
+def reset_launches() -> None:
+    for mod, attr in LAUNCHES.values():
+        setattr(mod, attr, 0)
+
+
+def read_launches() -> dict[str, int]:
+    return {name: getattr(mod, attr) for name, (mod, attr) in LAUNCHES.items()}
+
+
+class PlainVotes:
+    """Counts the plain engine's Phase-2 votes (``batched._phase2``) while
+    it is entered: under ``use_kernels`` on the card there must be none."""
+
+    def __init__(self):
+        self.calls = 0
+        self._orig = batched._phase2
+
+    def __enter__(self):
+        def counted(*args):
+            self.calls += 1
+            return self._orig(*args)
+
+        batched._phase2 = counted
+        return self
+
+    def __exit__(self, *exc):
+        batched._phase2 = self._orig
+
+
+def run_staged_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) -> dict:
+    """The paper's deployment as its users construct it, on the card:
+    ``PaxosContext(PaxosConfig(), n_learners=2)`` with the default
+    ``fused=False`` (the staged path: the coordinator sequences, the
+    acceptor array votes, the votes travel over the lossy ``SimNet`` to two
+    software learners).  About 1.5 N payloads in slices of N/4, so the ring
+    wraps; an acceptor kill and revive; a failover whose estimate skips one
+    burst of instances, traffic on the software coordinator, the restore,
+    and a ``recover()`` of a skipped instance.  A round is the host time of
+    ``sequence()`` + ``vote()`` + the fan-out of the votes to the learners."""
+    cfg = cfg or PaxosConfig()
+    n, b = cfg.n_instances, cfg.batch
+    net = SimNet(FaultSpec(drop=0.01, dup=0.01, reorder=0.01), seed=SEED + 8)
+    ctx = PaxosContext(cfg, net=net, n_learners=2, use_kernels=use_kernels, device=dev)
+    if ctx.fused:
+        raise AssertionError("the staged path must be the default")
+    hw = ctx.hw
+    calls = {"sequence": 0, "vote": 0}
+    round_s: list[float] = []
+    mark = {"start": None, "last": None}
+
+    def close_round():
+        if mark["start"] is not None and mark["last"] is not None:
+            round_s.append(mark["last"] - mark["start"])
+        mark["start"] = mark["last"] = None
+
+    sequence, vote, send, recv_all = hw.sequence, hw.vote, net.send, net.recv_all
+
+    def timed_sequence(values, active):
+        close_round()
+        calls["sequence"] += 1
+        mark["start"] = time.perf_counter()
+        return sequence(values, active)
+
+    def counted_vote(p2a):
+        calls["vote"] += 1
+        return vote(p2a)
+
+    def timed_send(dst, msg):
+        send(dst, msg)
+        if msg[0] == "votes" and mark["start"] is not None:
+            mark["last"] = time.perf_counter()
+
+    def timed_recv_all(dst):
+        close_round()
+        return recv_all(dst)
+
+    hw.sequence, hw.vote, net.send, net.recv_all = (
+        timed_sequence, counted_vote, timed_send, timed_recv_all)  # fmt: skip
+    data = payloads(3 * n // 2, SEED + 9)
+    step = n // 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def drain(chunk: list[bytes]) -> None:
+        for p in chunk:
+            ctx.submit(p)
+        ctx.run_until_quiescent()
+        if not ctx.quiescent():
+            raise AssertionError("a slice did not drain")
+
+    with PlainVotes() as plain_votes:
+        for s, lo in enumerate(range(0, len(data), step)):
+            chunk = data[lo : lo + step]
+            if s == 1:
+                hw.kill_acceptor(2)
+            if s == 3:
+                drain(chunk[: step // 2])
+                gap = hw._next_inst_host
+                # a burst-aligned estimate: the software coordinator's bursts
+                # are full, so the restore burns nothing forward on either engine
+                ctx.fail_coordinator(est_next_inst=gap + b)
+                drain(chunk[step // 2 :])
+                ctx.restore_hardware_coordinator()
+                ctx.recover(gap + 5)
+                chunk = []
+            drain(chunk)
+            if s == 1:
+                hw.revive_acceptor(2)
+        close_round()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    log = ctx.delivered_log
+    insts = [i for i, _ in log]
+    if len(set(insts)) != len(insts):
+        raise AssertionError("an instance was delivered twice")
+    if sorted(p for _, p in log) != sorted(data):
+        raise AssertionError("not every payload was delivered exactly once")
+    if hw._next_inst_host <= n:
+        raise AssertionError("the staged path's ring did not wrap")
+    return dict(
+        delivered_log=log,
+        learned=ctx.learned,
+        state=export_state(hw),
+        wall=wall,
+        round_s=round_s,
+        calls=calls,
+        plain_votes=plain_votes.calls,
+        stats=dict(ctx.stats),
+        delivered=len(log),
+        ring_laps=hw._next_inst_host / n,
+    )
+
+
+def run_per_role_path(dev) -> dict:
+    """The paper's per-role components (Table 1) for one ring walk of bursts
+    at ``PaxosConfig()``: ``ops.coordinator_sequence`` sequences each burst
+    (K3), each of the A acceptors votes alone on its own register file with
+    ``ops.acceptor_phase2`` (K7), and ``ops.learner_quorum`` takes the
+    stacked votes (K8).  Held against the same bursts through
+    ``ops.acceptor_phase2_all`` (K2) on a stacked twin and against K8's
+    plain version: equal registers, votes and decisions.  Differences are
+    accumulated on the card and read once."""
+    cfg = PaxosConfig()
+    a, n, v, b, q = cfg.n_acceptors, cfg.n_instances, cfg.value_words, cfg.batch, cfg.quorum
+    rng = np.random.default_rng(SEED + 10)
+    files = [AcceptorState.init(n, v, dev) for _ in range(a)]
+    stack = AcceptorState.init(n, v, dev, n_acceptors=a)
+    alive = torch.ones(a, dtype=torch.bool, device=dev)
+    cstate = CoordinatorState.init(crnd=3, next_inst=n // 2, device=dev)  # wraps mid-walk
+    walk = n // b
+    bursts = torch.from_numpy(rng.integers(-(2**31), 2**31, (walk, b, v), dtype=np.int32)).to(dev)
+    actives = torch.from_numpy(rng.random((walk, b)) < 0.9).to(dev)
+    err = torch.zeros((), dtype=torch.int64, device=dev)
+    delivered = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def diff(xs, ys):  # on the card: nothing is read until the walk ends
+        pairs = zip(xs, ys, strict=True)
+        return torch.stack([(x.long() - y.long()).abs().max() for x, y in pairs]).max()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(walk):
+        cstate, p2a = ops.coordinator_sequence(cstate, bursts[k], actives[k])
+        per = [ops.acceptor_phase2(files[i], p2a, i)[1] for i in range(a)]
+        votes = MsgBatch(*(torch.stack([getattr(p, f) for p in per]) for f in FIELDS))
+        got = ops.learner_quorum(votes.msgtype, votes.inst, votes.vrnd, votes.value, q)
+        _, staged = ops.acceptor_phase2_all(stack, p2a, alive)
+        plain = k_learner.learner_quorum_plain(q, votes.msgtype, votes.vrnd, votes.value)
+        err = torch.maximum(err, diff(vars(votes).values(), vars(staged).values()))
+        err = torch.maximum(err, diff((got[0].to(torch.int32), got[2], got[3]), plain))
+        err = torch.maximum(err, diff((got[1],), (p2a.inst,)))
+        delivered += got[0].sum()
+    for i in range(a):
+        rows = [x[i] for x in vars(stack).values()]
+        err = torch.maximum(err, diff(vars(files[i]).values(), rows))
+    worst, n_delivered = int(err), int(delivered)
+    wall = time.perf_counter() - t0
+    print(f"  per-role path: {walk} bursts of {b}, {n_delivered} lanes decided, "
+          f"max_abs_err against K2 and K8's plain version {worst}, {wall:.3f} s")  # fmt: skip
+    if worst:
+        raise AssertionError("the per-role path disagrees with the staged vote or plain K8")
+    if n_delivered != walk * b:
+        raise AssertionError("the per-role path did not decide every lane")
+    return dict(max_abs_err=worst, bursts=walk, wall=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -454,77 +815,150 @@ def time_k4(dev, n_leaf: int) -> dict:
     )
 
 
+def k2_bytes(a: int, b: int, v: int) -> int:
+    """The bytes one K2 launch reads and writes when every lane is accepted
+    by all A acceptors (then ``st_vrnd`` is not read).  Reads: the batch's
+    msgtype, inst and rnd (3*B*4) and values (B*V*4), alive (A), and the
+    promised rounds (A*B*4).  Writes: rnd and vrnd (2*A*B*4) and the V value
+    words (A*B*V*4) of each acceptor's register, and the votes: type, inst,
+    rnd, vrnd and swid (5*A*B*4) and values (A*B*V*4).  At A=3, B=128,
+    V=16: 11,267 B read + 59,904 B written = 71,171 B."""
+    read = 3 * b * 4 + b * v * 4 + a + a * b * 4
+    written = 2 * a * b * 4 + a * b * v * 4 + 5 * a * b * 4 + a * b * v * 4
+    return read + written
+
+
+def k7_bytes(b: int, v: int) -> int:
+    """K2's bytes for one acceptor, without the alive mask: at B=128, V=16,
+    10,240 B read + 19,968 B written = 30,208 B."""
+    return k2_bytes(1, b, v) - 1
+
+
+def k3_bytes(b: int) -> int:
+    """K3 reads active (B bools), the watermark and the round (8), and writes
+    msgtype, inst, rnd, vrnd and swid (5*B*4) and the new watermark (4).  At
+    B=128: 2,700 B."""
+    return b + 8 + 5 * b * 4 + 4
+
+
+def k8_bytes(a: int, b: int, v: int, agreed: int) -> int:
+    """K8 reads every vote's type and vrnd (2*A*B*4) and, on each of the
+    ``agreed`` lanes where an acceptor agrees, the first such acceptor's
+    value (V*4); it writes deliver and win (2*B*4) and the values (B*V*4).
+    At A=3, B=128, V=16 with every lane agreed: 20,480 B."""
+    return 2 * a * b * 4 + agreed * v * 4 + 2 * b * 4 + b * v * 4
+
+
+def time_staged(dev) -> dict:
+    """K3, K2, K7 and K8 at the staged and per-role paths' shape (A=3,
+    N=65,536, V=16, B=128), each over one walk of the ring: N/B consecutive
+    windows of the second lap, each with its own burst, the registers
+    restored before each timed walk.  Every promise is at or below the
+    round, every acceptor alive and every lane a P2A, so every lane is
+    accepted by every acceptor, as on the staged path with all alive, and K8
+    sees every lane agreed; each launch moves exactly the bytes counted
+    (checked below from the data)."""
+    cfg = PaxosConfig()
+    a, n, v, b, q = cfg.n_acceptors, cfg.n_instances, cfg.value_words, cfg.batch, cfg.quorum
+    crnd, walk = 5, n // b
+    rng = np.random.default_rng(SEED + 11)
+
+    def words(*shape):
+        return torch.from_numpy(rng.integers(-(2**31), 2**31, shape, dtype=np.int32)).to(dev)
+
+    host_rnd = rng.integers(0, crnd + 1, (a, n), dtype=np.int32)
+    init = dict(
+        rnd=torch.from_numpy(host_rnd).to(dev),
+        vrnd=torch.from_numpy(rng.integers(-1, crnd + 1, (a, n), dtype=np.int32)).to(dev),
+        val=words(a, n, v),
+    )
+    live = {k: x.clone() for k, x in init.items()}
+    stack = AcceptorState(live["rnd"], live["vrnd"], live["val"])
+    file0 = AcceptorState(live["rnd"][0], live["vrnd"][0], live["val"][0])  # acceptor 0's file
+
+    def restore():
+        for k, x in init.items():
+            live[k].copy_(x)
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    bases = torch.arange(n, 2 * n, b, **i32)
+    msgs = [
+        MsgBatch(
+            msgtype=torch.full((b,), 3, **i32), inst=torch.arange(n + k * b, n + (k + 1) * b, **i32),
+            rnd=torch.full((b,), crnd, **i32), vrnd=torch.full((b,), -1, **i32),
+            swid=torch.zeros(b, **i32), value=words(b, v),
+        )
+        for k in range(walk)
+    ]  # fmt: skip
+    crnd_t = torch.tensor(crnd, **i32)
+    alive = torch.ones(a, dtype=torch.bool, device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    vote_type = torch.full((walk, a, b), 4, **i32)
+    vote_vrnd = torch.full((walk, a, b), crnd, **i32)
+    vote_val = words(walk, a, b, v)
+    if not (host_rnd <= crnd).all():
+        raise AssertionError("the timed walk must accept every lane")
+
+    def vote_args(k):
+        m = msgs[k]
+        return m.msgtype, m.inst, m.rnd, m.value
+
+    runs = {
+        "coordinator_sequence": (
+            lambda k: k_coordinator.coordinator_sequence_window(bases[k], crnd_t, active),
+            lambda k: batched.coordinator_sequence(
+                CoordinatorState(bases[k], crnd_t), msgs[k].value, active),
+            k3_bytes(b), 6 * b,
+        ),
+        "acceptor_vote_all": (
+            lambda k: k_wirepath.acceptor_vote_all_window(
+                *vars(stack).values(), alive, *vote_args(k)),
+            lambda k: batched.acceptor_phase2_all(stack, msgs[k], alive),
+            k2_bytes(a, b, v), 11 * a * b,
+        ),
+        "acceptor_phase2": (
+            lambda k: k_acceptor.acceptor_phase2_window(*vars(file0).values(), 0, *vote_args(k)),
+            lambda k: batched.acceptor_phase2(file0, msgs[k], 0),
+            k7_bytes(b, v), 11 * b,
+        ),
+        "learner_quorum": (
+            lambda k: k_learner.learner_quorum_window(q, vote_type[k], vote_vrnd[k], vote_val[k]),
+            lambda k: k_learner.learner_quorum_plain(q, vote_type[k], vote_vrnd[k], vote_val[k]),
+            k8_bytes(a, b, v, b), b * (6 * a + 2),
+        ),
+    }  # fmt: skip
+    out = {}
+    for name, (kernel, plain, nbytes, ops_) in runs.items():
+        bms, by = bound_ms(nbytes, ops_)
+        out[name] = dict(
+            ms=time_walk(kernel, walk, True, restore),
+            plain_ms=time_walk(plain, walk, True, restore),
+            eager_ms=time_walk(kernel, walk, False, restore),
+            bound_ms=bms, bound_by=by, bytes_per_launch=nbytes,
+        )  # fmt: skip
+    restore()
+    return out
+
+
+def percentiles(round_s: list[float]) -> tuple[float, float]:
+    ms = np.asarray(round_s) * 1e3
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def require_launched(path: str, launches: dict[str, int], names: list[str]) -> None:
+    missing = [name for name in names if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"the {path} did not run through {missing}: {launches}")
+
+
 def main() -> None:
     global CARD
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA card: torch.cuda.is_available() is false")
-    dev = torch.device("cuda")
     CARD = card_line()
     print(CARD)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-
-    build_s = _build.build_all()
-    print(f"build: {build_s:.3f} s for {', '.join(_build.sources())}")
-    for name in _build.sources():
-        print(f"--- nvcc {name} ---\n{_build.build_log(name).strip()}")
-
-    print("kernel phase: each kernel against its plain version on the card")
-    k1_err = check_k1(dev)
-    k4_err = check_k4(dev)
-    # timed here, before the main path, and printed after it
-    t1 = time_k1(dev)
-    t4 = time_k4(dev, PaxosConfig().n_instances // 4)
-
-    print("main path: PaxosContext(PaxosConfig(), fused=True, use_kernels=True, snapshots=True)")
-    k_wirepath.launches = 0
-    k_digest.launches = 0
-    kern = run_main_path(True, dev)
-    launches = {"wirepath_round": k_wirepath.launches, "digest": k_digest.launches}
-    print(f"  launches on the main path: {launches}, fused rounds: {kern['rounds']}")
-    if launches["wirepath_round"] != kern["rounds"] or launches["digest"] == 0:
-        raise AssertionError(f"the main path did not run through every kernel: {launches}")
-    print("  the same schedule on the plain engine (use_kernels=False) on the card")
-    plain = run_main_path(False, dev)
-    for key in ("delivered_log", "full_log", "seals"):
-        if kern[key] != plain[key]:
-            raise AssertionError(f"kernel and plain runs differ in {key}")
-    for key, arr in kern["state"].items():
-        if not np.array_equal(arr, plain["state"][key]):
-            raise AssertionError(f"kernel and plain runs differ in final state {key}")
-    k4_err = max(k4_err, check_seals(kern, dev))
-    print(f"  equal: delivered logs ({len(kern['delivered_log'])}), full logs "
-          f"({kern['delivered']}), seals {kern['seals']}, final state")  # fmt: skip
-    print(f"  ring laps {kern['ring_laps']:.3f}, stats {kern['stats']}")
-
-    print(f"times on {CARD}")
-    rs = np.asarray(kern["round_s"]) * 1e3
-    prs = np.asarray(plain["round_s"]) * 1e3
-    main_metrics = dict(
-        card=CARD,
-        decided_values_per_s=kern["delivered"] / kern["wall"],
-        wall_s=kern["wall"],
-        rounds=kern["rounds"],
-        round_ms_p50=float(np.percentile(rs, 50)),
-        round_ms_p99=float(np.percentile(rs, 99)),
-        plain_decided_values_per_s=plain["delivered"] / plain["wall"],
-        plain_round_ms_p50=float(np.percentile(prs, 50)),
-        plain_round_ms_p99=float(np.percentile(prs, 99)),
-    )
-    print(f"  K1 {json.dumps(t1)}")
-    print(f"  K4 {json.dumps(t4)}")
-    print(f"  main path {json.dumps(main_metrics)}")
-
-    kernels = [
-        dict(name="wirepath_round", route="cuda", source="src/repro_torch/csrc/wirepath.cu",
-             replaces="src/repro/kernels/wirepath.py:228", launches=launches["wirepath_round"],
-             max_abs_err=k1_err, ms=t1["ms"], plain_ms=t1["plain_ms"], bound_ms=t1["bound_ms"],
-             bound_by=t1["bound_by"], library_ms=None),
-        dict(name="digest", route="cuda", source="src/repro_torch/csrc/digest.cu",
-             replaces="src/repro/kernels/digest.py:45", launches=launches["digest"],
-             max_abs_err=k4_err, ms=t4["ms"], plain_ms=t4["plain_ms"], bound_ms=t4["bound_ms"],
-             bound_by=t4["bound_by"], library_ms=None),
-    ]  # fmt: skip
-    print(json.dumps({"kernels": kernels}))
+    run(torch.device("cuda"))
     print(
         json.dumps(
             {
@@ -537,6 +971,127 @@ def main() -> None:
             }
         )
     )
+
+
+def run(dev: torch.device) -> None:
+    """Every phase on ``dev``; raises on the first failure."""
+    build_s = _build.build_all()
+    print(f"build: {build_s:.3f} s for {', '.join(_build.sources())}")
+    for name in _build.sources():
+        print(f"--- nvcc {name} ---\n{_build.build_log(name).strip()}")
+
+    print("kernel phase: each kernel against its plain version on the card")
+    errs = {"wirepath_round": check_k1(dev), "digest": check_k4(dev)}
+    errs["coordinator_sequence"] = check_k3(dev)
+    errs["acceptor_vote_all"], errs["acceptor_phase2"], made = check_votes(dev)
+    errs["learner_quorum"] = check_k8(dev, made)
+    # timed here, before the paths, and printed after them
+    times = {"wirepath_round": time_k1(dev), "digest": time_k4(dev, PaxosConfig().n_instances // 4)}
+    times.update(time_staged(dev))
+
+    print("main path: PaxosContext(PaxosConfig(), fused=True, use_kernels=True, snapshots=True)")
+    reset_launches()
+    with PlainVotes() as plain_votes:
+        kern = run_main_path(True, dev)
+    launches = read_launches()
+    print(f"  launches on the main path: {launches}, fused rounds: {kern['rounds']}, "
+          f"plain Phase-2 votes: {plain_votes.calls}")  # fmt: skip
+    require_launched("main path", launches, ["wirepath_round", "digest", "acceptor_vote_all"])
+    if launches["wirepath_round"] != kern["rounds"] or plain_votes.calls:
+        raise AssertionError(f"the main path did not vote through the kernels: {launches}")
+    print("  the same schedule on the plain engine (use_kernels=False) on the card")
+    plain = run_main_path(False, dev)
+    for key in ("delivered_log", "full_log", "seals"):
+        if kern[key] != plain[key]:
+            raise AssertionError(f"kernel and plain runs differ in {key}")
+    for key, arr in kern["state"].items():
+        if not np.array_equal(arr, plain["state"][key]):
+            raise AssertionError(f"kernel and plain runs differ in final state {key}")
+    errs["digest"] = max(errs["digest"], check_seals(kern, dev))
+    print(f"  equal: delivered logs ({len(kern['delivered_log'])}), full logs "
+          f"({kern['delivered']}), seals {kern['seals']}, final state")  # fmt: skip
+    print(f"  ring laps {kern['ring_laps']:.3f}, stats {kern['stats']}")
+
+    print("staged path: PaxosContext(PaxosConfig(), n_learners=2), fused=False, use_kernels=True")
+    reset_launches()
+    staged = run_staged_path(True, dev)
+    staged_launches = read_launches()
+    calls = staged["calls"]
+    print(f"  launches on the staged path: {staged_launches}, calls {calls}, "
+          f"plain Phase-2 votes: {staged['plain_votes']}")  # fmt: skip
+    require_launched("staged path", staged_launches, ["coordinator_sequence", "acceptor_vote_all"])
+    if (
+        staged_launches["coordinator_sequence"] != calls["sequence"]
+        or staged_launches["acceptor_vote_all"] != calls["vote"]
+        or staged["plain_votes"]
+    ):
+        raise AssertionError("the staged path did not sequence and vote through K3 and K2")
+    print("  the same schedule on the plain engine (use_kernels=False) on the card")
+    staged_plain = run_staged_path(False, dev)
+    if not staged_plain["plain_votes"]:
+        raise AssertionError("the plain staged run did not vote on the plain engine")
+    for key in ("delivered_log", "learned"):
+        if staged[key] != staged_plain[key]:
+            raise AssertionError(f"staged kernel and plain runs differ in {key}")
+    for key, arr in staged["state"].items():
+        if not np.array_equal(arr, staged_plain["state"][key]):
+            raise AssertionError(f"staged kernel and plain runs differ in final state {key}")
+    print(f"  equal: delivered logs ({staged['delivered']}), both learners' tables "
+          f"({[len(t) for t in staged['learned']]}), final state")  # fmt: skip
+    print(f"  ring laps {staged['ring_laps']:.3f}, stats {staged['stats']}")
+
+    print("per-role path: K3 -> K7 x A -> K8 over one ring walk at PaxosConfig()")
+    reset_launches()
+    roles = run_per_role_path(dev)
+    role_launches = read_launches()
+    print(f"  launches on the per-role path: {role_launches}")
+    a = PaxosConfig().n_acceptors
+    want = {"coordinator_sequence": roles["bursts"], "acceptor_phase2": a * roles["bursts"],
+            "learner_quorum": roles["bursts"]}  # fmt: skip
+    require_launched("per-role path", role_launches, list(want))
+    if any(role_launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"the per-role path's launches are not {want}")
+    errs["learner_quorum"] = max(errs["learner_quorum"], roles["max_abs_err"])
+
+    print(f"times on {CARD}")
+    path_metrics = {}
+    for name, run, base in (("main path", kern, plain), ("staged path", staged, staged_plain)):
+        p50, p99 = percentiles(run["round_s"])
+        plain_p50, plain_p99 = percentiles(base["round_s"])
+        path_metrics[name] = dict(
+            card=CARD,
+            decided_values_per_s=run["delivered"] / run["wall"],
+            wall_s=run["wall"],
+            rounds=len(run["round_s"]),
+            round_ms_p50=p50,
+            round_ms_p99=p99,
+            plain_decided_values_per_s=base["delivered"] / base["wall"],
+            plain_wall_s=base["wall"],
+            plain_round_ms_p50=plain_p50,
+            plain_round_ms_p99=plain_p99,
+        )
+    for name, t in times.items():
+        print(f"  {name} {json.dumps(t)}")
+    for name, m in path_metrics.items():
+        print(f"  {name} {json.dumps(m)}")
+
+    rows = [  # name, source, TPU kernel replaced, the path whose launches count
+        ("wirepath_round", "wirepath.cu", "src/repro/kernels/wirepath.py:228", launches),
+        ("digest", "digest.cu", "src/repro/kernels/digest.py:45", launches),
+        ("coordinator_sequence", "coordinator.cu", "src/repro/kernels/coordinator.py:46",
+         staged_launches),
+        ("acceptor_vote_all", "vote.cu", "src/repro/kernels/wirepath.py:1034", staged_launches),
+        ("acceptor_phase2", "vote.cu", "src/repro/kernels/acceptor.py:92", role_launches),
+        ("learner_quorum", "learner.cu", "src/repro/kernels/learner.py:56", role_launches),
+    ]  # fmt: skip
+    kernels = [
+        dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}", replaces=replaces,
+             launches=counts[name], max_abs_err=errs[name], ms=times[name]["ms"],
+             plain_ms=times[name]["plain_ms"], bound_ms=times[name]["bound_ms"],
+             bound_by=times[name]["bound_by"], library_ms=None)
+        for name, src, replaces, counts in rows
+    ]  # fmt: skip
+    print(json.dumps({"kernels": kernels}))
 
 
 if __name__ == "__main__":

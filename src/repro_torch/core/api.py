@@ -14,9 +14,11 @@ failure-handling contract.
 
 Everything runs on the card unless the caller asks for another device
 (``device="cpu"``).  With ``use_kernels`` (the default here; the reference
-defaults to ``False``) the fused wire path runs the hand-written round
-kernel on the card and its plain version on the CPU; ``use_kernels=False``
-selects the plain engine on any device.
+defaults to ``False``) the dataplane runs the hand-written kernels on the
+card and their plain versions on the CPU: the round kernel on the fused
+wire path, the sequencer and the acceptor array's vote on the staged path
+(the default, ``fused=False``).  ``use_kernels=False`` selects the plain
+engine on any device.
 """
 
 from __future__ import annotations
@@ -48,9 +50,8 @@ from .types import (
     PaxosConfig,
 )
 
-_MULTIGROUP = "ROADMAP.md queue 1, item 5 (multi-group)"
-_SHARDED = "ROADMAP.md queue 1, item 9 (sharded dataplane)"
-_STAGED = "ROADMAP.md queue 2, K2 and K3 (the staged path's kernels)"
+_MULTIGROUP = "ROADMAP.md queue 1, item 2 (multi-group)"
+_SHARDED = "ROADMAP.md queue 1, item 6 (sharded dataplane)"
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -80,11 +81,15 @@ class HardwareDataplane(RingReclamationMixin):
       (``batched.fused_round``) otherwise.  State stays resident and is
       updated in place.
     * ``sequence()``/``vote()``/``prepare()`` are the staged path, used when
-      votes must surface as messages (recovery, the software coordinator
-      after a failover).  Its kernels are not ported yet: on the card with
-      ``use_kernels``, ``sequence()`` and a ``vote()`` of a sequenced batch
-      raise ``NotImplementedError``; the recovery and failover traffic
-      (``prepare()``, ``vote()`` of any other batch) runs the plain engine.
+      votes must surface as messages: the default ``fused=False`` context,
+      recovery, and the software coordinator after a failover.  When
+      ``use_kernels``, ``sequence()`` runs the sequencer kernel
+      (``kernels.ops.coordinator_sequence``) and ``vote()`` the acceptor
+      array's vote kernel (``kernels.ops.acceptor_phase2_all``) on the card,
+      for every Phase-2 batch: the vote kernel addresses each lane's own
+      ring slot, so any window base runs on it.  ``prepare()`` (Phase 1)
+      runs the plain engine, as in the reference, which has no Phase-1
+      kernel.
     """
 
     def __init__(
@@ -109,11 +114,10 @@ class HardwareDataplane(RingReclamationMixin):
         self._next_inst_host = 0
         # monotone count of device programs dispatched
         self.dispatch_count = 0
-        self._seq_base: int | None = None  # provenance hint for vote()
-        self._fused = kops.fused_round if use_kernels else batched.fused_round
-
-    def _on_card_kernels(self) -> bool:
-        return self.use_kernels and self.device.type == "cuda"
+        eng = kops if use_kernels else batched
+        self._fused = eng.fused_round
+        self._seq = eng.coordinator_sequence
+        self._vote_all = eng.acceptor_phase2_all
 
     # -- ring reclamation: RingReclamationMixin at G == 1 ---------------------
     def _seq_marks(self) -> list[int]:
@@ -176,14 +180,10 @@ class HardwareDataplane(RingReclamationMixin):
 
     # -- staged path (votes surface as messages) -----------------------------
     def sequence(self, values: np.ndarray, active: np.ndarray) -> MsgBatch:
-        if self._on_card_kernels():
-            raise NotImplementedError(
-                f"the staged sequencer's kernel is not ported yet: {_STAGED}"
-            )
+        """Bind a burst to the next instance window, one dispatch."""
         self._guard_capacity(self._next_inst_host, values.shape[0])
-        self._seq_base = self._next_inst_host
         self.dispatch_count += 1
-        self.cstate, p2a = batched.coordinator_sequence(
+        self.cstate, p2a = self._seq(
             self.cstate,
             torch.from_numpy(np.ascontiguousarray(values, np.int32)).to(self.device),
             torch.from_numpy(np.asarray(active, bool)).to(self.device),
@@ -192,13 +192,12 @@ class HardwareDataplane(RingReclamationMixin):
         return p2a
 
     def vote(self, p2a: MsgBatch) -> list[MsgBatch | None]:
-        """Phase-2 vote of the whole acceptor array, one dispatch.  Dead
+        """Phase-2 vote of the whole acceptor array, one dispatch, for any
+        batch whose lanes address distinct ring slots: sequenced bursts,
+        software-coordinator batches, recovery and takeover windows.  Dead
         acceptors come back as ``None``: their votes are never sent."""
-        base, self._seq_base = self._seq_base, None
-        if base is not None and self._on_card_kernels():
-            raise NotImplementedError(f"the staged vote's kernel is not ported yet: {_STAGED}")
         self.dispatch_count += 1
-        self.stack, votes = batched.acceptor_phase2_all(self.stack, p2a, self.alive_mask)
+        self.stack, votes = self._vote_all(self.stack, p2a, self.alive_mask)
         return self._split(votes)
 
     def prepare(self, p1a: MsgBatch) -> list[MsgBatch | None]:

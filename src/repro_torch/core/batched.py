@@ -118,7 +118,7 @@ def _single(fn, astate: AcceptorState, msgs: MsgBatch, aid: int) -> MsgBatch:
         stack,
         msgs,
         torch.ones((1,), dtype=torch.bool, device=dev),
-        torch.tensor([aid], dtype=I32, device=dev),
+        torch.full((1,), aid, dtype=I32, device=dev),  # no host copy: capturable
     )
     return MsgBatch(*(getattr(out, f.name)[0] for f in dataclasses.fields(MsgBatch)))
 

@@ -9,9 +9,10 @@ re-proposes every value it finds voted.  ``restore_acceptor`` rebuilds an
 acceptor that crashed with state loss from the snapshot watermark and the
 live suffix of the learner ring before it rejoins the quorum.
 
-The batches go through the dataplane's staged ``prepare``/``vote``, which
-run the plain engine on any device: the software coordinator's traffic has
-no kernel of its own.
+The batches go through the dataplane's staged ``prepare``/``vote``: the
+Phase-1 scan runs the plain engine on any device, and the re-proposals'
+Phase-2 vote runs the acceptor array's vote kernel on the card when the
+dataplane uses kernels.
 """
 
 from __future__ import annotations

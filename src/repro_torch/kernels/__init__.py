@@ -1,9 +1,13 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``) and their dispatch.
 
-* ``wirepath`` — K1, the fused Phase-2 round of one group.
-* ``digest``   — K4, the snapshot seal's weighted fold, and its plain version.
-* ``ops``      — CPU tensors to the plain versions, CUDA tensors to the kernels.
-* ``_build``   — compiles ``csrc/*.cu`` with ``nvcc`` on first use and loads
+* ``wirepath``    — K1, the fused Phase-2 round of one group, and K2, the
+  staged vote of the acceptor array.
+* ``coordinator`` — K3, the sequencer.
+* ``digest``      — K4, the snapshot seal's weighted fold, and its plain version.
+* ``acceptor``    — K7, one acceptor's Phase-2 vote (K2's lane body).
+* ``learner``     — K8, the learner's quorum, and its plain version.
+* ``ops``         — CPU tensors to the plain versions, CUDA tensors to the kernels.
+* ``_build``      — compiles ``csrc/*.cu`` with ``nvcc`` on first use and loads
   each library with ``ctypes``.
 
 Nothing here imports ``triton`` or builds a kernel at import time.

@@ -8,7 +8,9 @@ rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts one
 ``nvcc`` per source, all at once.
 
 Every C entry point returns a ``cudaError_t`` as an int: ``check`` raises on
-a non-zero code, so a refused launch never passes silently.
+a non-zero code, so a refused launch never passes silently.  ``on_card``
+and ``require`` are the checks every wrapper makes before it passes raw
+pointers to a kernel.
 """
 
 from __future__ import annotations
@@ -113,3 +115,20 @@ def library(name: str) -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def require(what: str, name: str, t, dtype, shape: tuple, dev) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``dev``: what a kernel's raw pointer arithmetic assumes."""
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev or not t.is_contiguous():
+        raise ValueError(
+            f"{what}: {name} must be a contiguous {dtype} tensor of shape "
+            f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+def on_card(what: str, dev) -> None:
+    """Raise unless ``dev`` is a CUDA device: a wrapper launches a kernel or
+    refuses, it never computes on the CPU."""
+    if dev.type != "cuda":
+        raise ValueError(f"{what} launches a CUDA kernel; got tensors on {dev}")

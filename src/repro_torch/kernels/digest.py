@@ -58,8 +58,7 @@ def _signed(u: int) -> int:
 def digest(x: torch.Tensor) -> torch.Tensor:
     """The fold on the card; returns a 0-d int32 tensor on ``x``'s device."""
     global launches
-    if x.device.type != "cuda":
-        raise ValueError(f"digest launches a CUDA kernel; got a tensor on {x.device}")
+    _build.on_card("digest", x.device)
     bits = _bits(x).contiguous()
     n = bits.numel()
     out = torch.zeros((1,), dtype=torch.int32, device=x.device)

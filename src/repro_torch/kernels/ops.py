@@ -15,9 +15,12 @@ import torch
 
 from repro_torch.core import batched as _batched
 from repro_torch.core.batched import LearnerState
-from repro_torch.core.types import AcceptorState, CoordinatorState
+from repro_torch.core.types import AcceptorState, CoordinatorState, MsgBatch
 
+from . import acceptor as _acceptor
+from . import coordinator as _coordinator
 from . import digest as _digest
+from . import learner as _learner
 from . import wirepath as _wirepath
 
 
@@ -28,6 +31,69 @@ def _route(t: torch.Tensor, what: str) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"{what}: no kernel or plain version for device {t.device}")
+
+
+def coordinator_sequence(
+    cstate: CoordinatorState, values: torch.Tensor, active: torch.Tensor
+) -> tuple[CoordinatorState, MsgBatch]:
+    """Sequence one burst: K3 on the card, ``batched.coordinator_sequence``
+    on the CPU.  The P2A batch carries ``values`` as its value field."""
+    if not _route(values, "coordinator_sequence"):
+        return _batched.coordinator_sequence(cstate, values, active)
+    msgtype, inst, rnd, vrnd, swid, next_inst = _coordinator.coordinator_sequence_window(
+        cstate.next_inst, cstate.crnd, active
+    )
+    out = MsgBatch(msgtype=msgtype, inst=inst, rnd=rnd, vrnd=vrnd, swid=swid, value=values)
+    return CoordinatorState(next_inst=next_inst, crnd=cstate.crnd), out
+
+
+def acceptor_phase2(
+    astate: AcceptorState, msgs: MsgBatch, aid: int = 0
+) -> tuple[AcceptorState, MsgBatch]:
+    """One acceptor's Phase-2 vote, its register file updated in place: K7
+    on the card, ``batched.acceptor_phase2`` on the CPU.  The batch's slots
+    must be pairwise distinct."""
+    if not _route(msgs.value, "acceptor_phase2"):
+        return _batched.acceptor_phase2(astate, msgs, aid)
+    _, _, _, *votes = _acceptor.acceptor_phase2_window(
+        astate.rnd, astate.vrnd, astate.value, aid, msgs.msgtype, msgs.inst, msgs.rnd, msgs.value
+    )
+    return astate, MsgBatch(*votes)
+
+
+def acceptor_phase2_all(
+    stack: AcceptorState, msgs: MsgBatch, alive: torch.Tensor
+) -> tuple[AcceptorState, MsgBatch]:
+    """The whole acceptor array's Phase-2 vote, the stacked rings updated in
+    place, votes ``[A, ...]``: K2 on the card, ``batched.acceptor_phase2_all``
+    on the CPU.  The batch's slots must be pairwise distinct."""
+    if not _route(msgs.value, "acceptor_phase2_all"):
+        return _batched.acceptor_phase2_all(stack, msgs, alive)
+    _, _, _, *votes = _wirepath.acceptor_vote_all_window(
+        stack.rnd, stack.vrnd, stack.value, alive, msgs.msgtype, msgs.inst, msgs.rnd, msgs.value
+    )
+    return stack, MsgBatch(*votes)
+
+
+def learner_quorum(
+    vote_msgtype: torch.Tensor,
+    vote_inst: torch.Tensor,
+    vote_vrnd: torch.Tensor,
+    vote_value: torch.Tensor,
+    quorum: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The learner's quorum over ``(A, B)`` vote batches: K8 on the card,
+    ``learner.learner_quorum_plain`` on the CPU.  Returns ``(deliver[B]
+    bool, inst[B], win[B], value[B, V])``; the value is 0 on a lane where no
+    acceptor agrees, as the TPU kernel gives it."""
+    quorum_fn = (
+        _learner.learner_quorum_window
+        if _route(vote_value, "learner_quorum")
+        else _learner.learner_quorum_plain
+    )
+    deliver, win, value = quorum_fn(quorum, vote_msgtype, vote_vrnd, vote_value)
+    # position-aligned batches: the instance is the same across acceptors
+    return deliver.bool(), vote_inst[0], win, value
 
 
 def fused_round(

@@ -1,4 +1,5 @@
-"""K1: the fused CAANS wire path for one Paxos group, a CUDA kernel.
+"""K1, the fused CAANS wire path for one Paxos group, and K2, the staged
+vote of the acceptor array: CUDA kernels.
 
 ``wirepath_round`` launches ``csrc/wirepath.cu``, which replaces the TPU
 kernel ``repro.kernels.wirepath.cohort_wirepath_round`` in its single-group
@@ -8,10 +9,21 @@ with the six state tensors updated in place.  Its plain version is
 ``repro_torch.core.batched.fused_round``; ``kernels.ops.fused_round``
 chooses between the two by the device of the tensors.
 
-The kernel takes any window base: one thread serves one lane and computes
+K1 takes any window base: one thread serves one lane and computes
 its own ring slot, so there is no block-alignment precondition.  It
 requires ``B <= N`` (distinct slots, so in-place writes never race) and
 ``A <= 8``.
+
+``acceptor_vote_all_window`` launches the ``acceptor_vote_all`` entry point
+of ``csrc/vote.cu``, which replaces the TPU kernel
+``repro.kernels.wirepath.acceptor_vote_all_window``: the staged Phase-2
+vote of all A acceptors on one batch of headers, the stacked rings updated
+in place, one ``(A, B)`` vote batch per field.  Its plain version is
+``repro_torch.core.batched.acceptor_phase2_all``.  Lane j addresses slot
+``inst[j] mod N``, so every Phase-2 batch the dataplane votes (sequenced
+bursts, the software coordinator's, recovery and takeover windows) runs on
+it at any base.  Precondition, as the plain engine's: the batch's slots are
+pairwise distinct (so ``B <= N``, which is checked).
 """
 
 from __future__ import annotations
@@ -21,14 +33,17 @@ import ctypes
 import torch
 
 from . import _build
+from .acceptor import vote_io
 
 MAX_A = 8
 INT32_MAX = 2**31 - 1
 
-# launches of the kernel in this process; reset by whoever reads it
+# launches of K1 and of K2 in this process; reset by whoever reads them
 launches = 0
+vote_all_launches = 0
 
 _fn = None
+_vote_fn = None
 
 
 def _kernel():
@@ -43,11 +58,7 @@ def _kernel():
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, dev: torch.device):
-    if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev or not t.is_contiguous():
-        raise ValueError(
-            f"wirepath_round: {name} must be a contiguous {dtype} tensor of shape "
-            f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-        )
+    _build.require("wirepath_round", name, t, dtype, shape, dev)
 
 
 def wirepath_round(
@@ -71,8 +82,7 @@ def wirepath_round(
     tensor), ``inst`` the lanes' instances and ``fresh`` a bool mask."""
     global launches
     dev = values.device
-    if dev.type != "cuda":
-        raise ValueError(f"wirepath_round launches a CUDA kernel; got tensors on {dev}")
+    _build.on_card("wirepath_round", dev)
     a, n = st_rnd.shape
     b, v = values.shape
     if not 1 <= a <= MAX_A or b > n:
@@ -109,3 +119,51 @@ def wirepath_round(
     _build.check(rc, "wirepath_round launch")
     launches += 1
     return st_rnd, st_vrnd, st_val, ldel, linst, lval, next_out, inst, fresh, win, value
+
+
+def _vote_kernel():
+    global _vote_fn
+    if _vote_fn is None:
+        fn = _build.library("vote").acceptor_vote_all
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+        _vote_fn = fn
+    return _vote_fn
+
+
+def acceptor_vote_all_window(
+    st_rnd: torch.Tensor,  # int32[A, N]  stacked acceptor rings, in place
+    st_vrnd: torch.Tensor,  # int32[A, N]
+    st_val: torch.Tensor,  # int32[A, N, V]
+    alive: torch.Tensor,  # bool[A]
+    msgtype: torch.Tensor,  # int32[B]
+    inst: torch.Tensor,  # int32[B]  the lanes' instances, distinct slots
+    msg_rnd: torch.Tensor,  # int32[B]
+    msg_val: torch.Tensor,  # int32[B, V]
+) -> tuple[torch.Tensor, ...]:
+    """The staged vote of the whole acceptor array on the card.  Returns
+    ``(st_rnd, st_vrnd, st_val, vote_type, vote_inst, vote_rnd, vote_vrnd,
+    vote_swid, vote_value)``: the stacked rings are the inputs, updated in
+    place; the votes are ``(A, B)`` and ``(A, B, V)``."""
+    global vote_all_launches
+    what = "acceptor_vote_all_window"
+    a, n = st_rnd.shape
+    votes = vote_io(what, (a,), n, msgtype, inst, msg_rnd, msg_val)
+    dev, (b, v) = msg_val.device, msg_val.shape
+    _build.require(what, "alive", alive, torch.bool, (a,), dev)
+    _build.require(what, "st_rnd", st_rnd, torch.int32, (a, n), dev)
+    _build.require(what, "st_vrnd", st_vrnd, torch.int32, (a, n), dev)
+    _build.require(what, "st_val", st_val, torch.int32, (a, n, v), dev)
+    fn = _vote_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            alive.data_ptr(), a, n, v, b,
+            msgtype.data_ptr(), inst.data_ptr(), msg_rnd.data_ptr(), msg_val.data_ptr(),
+            st_rnd.data_ptr(), st_vrnd.data_ptr(), st_val.data_ptr(),
+            *(t.data_ptr() for t in votes), stream,
+        )  # fmt: skip
+    _build.check(rc, f"{what} launch")
+    vote_all_launches += 1
+    return (st_rnd, st_vrnd, st_val, *votes)
