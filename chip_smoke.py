@@ -1,4 +1,4 @@
-"""Drive the port's single-group CAANS service on one NVIDIA GPU and check it.
+"""Drive the port's CAANS service on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,8 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
 2. the kernels' build time;
 3. the kernel phase: each kernel against its plain PyTorch version on the
-   card, at its path's shapes and at adversarial windows, bit for bit;
+   card, at its path's shapes and at adversarial windows, bit for bit; the
+   round kernel K1 at one group and in its cohort and multi-group forms;
 4. the main path: ``PaxosContext(PaxosConfig(), fused=True, use_kernels=True,
    snapshots=True)`` on the card under a seeded lossy ``SimNet``, with ring
    wrap under reclamation, snapshots, an acceptor kill and revive, a crash
@@ -25,10 +26,16 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
 6. the per-role path: one ring walk of bursts through the sequencer, each
    acceptor alone and the learner (K3, K7 x A, K8), held against the same
    bursts through the acceptor array's vote (K2) and K8's plain version;
-7. times: each kernel by CUDA events at its path's shapes beside its bound
-   and its plain version, and the main and staged paths' decided values/s
-   and per-round latency;
-8. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+7. the multi-group path: ``PaxosContext(PaxosConfig(n_groups=8,
+   persistent_rounds=1, realign_after=4), use_kernels=True, snapshots=True)``
+   under a lossy ``SimNet``, uniform then skewed load, per-group failover,
+   crash and restore, retire, create and adopt (``run_multigroup_path``);
+   the plain engine's run must give the same group logs, seals, state,
+   dispatch count, fold width and plan, and K1's cohort form must run once
+   per fused dispatch;
+8. times: each kernel by CUDA events at its path's shapes beside its bound
+   and its plain version, and each path's decided values/s and latency;
+9. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -63,7 +70,6 @@ from repro_torch.kernels import wirepath as k_wirepath  # noqa: E402
 SEED = 20160519
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12  # no int32 row in the data sheet: the f32 non-tensor rate
-FIELDS = ("msgtype", "inst", "rnd", "vrnd", "swid", "value")
 
 CARD = ""  # "name, power limit" from nvidia-smi, set by main()
 
@@ -134,6 +140,11 @@ def max_abs_err(xs, ys) -> int:
         if x.numel():
             err = max(err, int((x.to(torch.int64) - y.to(torch.int64)).abs().max()))
     return err
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def check_k1(dev, n: int = 1 << 16, v: int = 16) -> int:
@@ -212,8 +223,8 @@ def check_k3(dev) -> int:
             active = torch.from_numpy(rng.random(b) < 0.8).to(dev)
             gc, gp = ops.coordinator_sequence(cstate, values, active)
             wc, wp = batched.coordinator_sequence(cstate, values, active)
-            err = max_abs_err([gc.next_inst, gc.crnd, *vars(gp).values()],
-                              [wc.next_inst, wc.crnd, *vars(wp).values()])  # fmt: skip
+            err = max_abs_err([gc.next_inst, gc.crnd, *gp.tensors()],
+                              [wc.next_inst, wc.crnd, *wp.tensors()])  # fmt: skip
             print(f"  K3 b={b} next_inst={base}: max_abs_err={err}")
             if err:
                 raise AssertionError(f"K3 disagrees with its plain version at {base}, {b}")
@@ -290,8 +301,8 @@ def check_votes(dev, n: int = 1 << 16, v: int = 16) -> tuple[int, int, list]:
             for name, msgs in cases:
                 st, got = ops.acceptor_phase2_all(state, msgs, alv)
                 _, want = batched.acceptor_phase2_all(twin, msgs, alv)
-                err2 = max_abs_err([*vars(got).values(), *vars(state).values()],
-                                   [*vars(want).values(), *vars(twin).values()])  # fmt: skip
+                err2 = max_abs_err([*got.tensors(), *vars(state).values()],
+                                   [*want.tensors(), *vars(twin).values()])  # fmt: skip
                 err7 = 0
                 returned = [*vars(st).values()]
                 for i in range(a):
@@ -299,8 +310,8 @@ def check_votes(dev, n: int = 1 << 16, v: int = 16) -> tuple[int, int, list]:
                     _, plain = batched.acceptor_phase2(twins[i], msgs, i)
                     returned += vars(fi).values()
                     err7 = max(err7, max_abs_err(
-                        [*vars(mine).values(), *vars(files[i]).values()],
-                        [*vars(plain).values(), *vars(twins[i]).values()]))  # fmt: skip
+                        [*mine.tensors(), *vars(files[i]).values()],
+                        [*plain.tensors(), *vars(twins[i]).values()]))  # fmt: skip
                 torch.cuda.synchronize()
                 if [x.data_ptr() for x in returned] != ptrs:
                     raise AssertionError("K2 or K7 did not update the state in place")
@@ -341,6 +352,142 @@ def check_k8(dev, made: list, v: int = 16) -> int:
             raise AssertionError(f"K8 disagrees with its plain version: {name}")
         worst = max(worst, err)
     print(f"  K8: {len(cases)} cases, max_abs_err={worst}")
+    return worst
+
+
+def mg_state(rng, g, a, n, v, b, bases, crnds, dev):
+    """Random protocol-valid ``(G, ...)`` slabs for one cohort round: each
+    group's promises straddle its round and part of its learner ring already
+    holds its window's instances (duplicates)."""
+    top = max(max(crnds), 0) + 3
+    linst = rng.integers(-1, 1 << 20, (g, n), dtype=np.int32)
+    for gi, base in enumerate(bases):
+        inst = (np.int64(base) + np.arange(b)).astype(np.int64)
+        inst = ((inst + 2**31) % 2**32 - 2**31).astype(np.int32)  # int32 wrap
+        dup = rng.random(b) < 0.3
+        linst[gi, inst[dup].astype(np.int64) % n] = inst[dup]
+
+    def t(x, dtype=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+
+    stack = AcceptorState(
+        t(rng.integers(0, top, (g, a, n), dtype=np.int32)),
+        t(rng.integers(-1, top, (g, a, n), dtype=np.int32)),
+        t(rng.integers(-(2**31), 2**31, (g, a, n, v), dtype=np.int32)),
+    )
+    lstate = batched.LearnerState(
+        t(rng.integers(0, 2, (g, n), dtype=np.int32)),
+        t(linst),
+        t(rng.integers(-(2**31), 2**31, (g, n, v), dtype=np.int32)),
+    )
+    return stack, lstate
+
+
+def clone_slabs(stack, lstate):
+    return (AcceptorState(*(x.clone() for x in vars(stack).values())),
+            batched.LearnerState(*(x.clone() for x in vars(lstate).values())))  # fmt: skip
+
+
+def cohort_cases(n: int, b: int):
+    """The kernel phase's cohort cases at G=8: GB in {1, 2, 8}; gsel a single
+    block, a subset and all blocks; disabled members inside selected
+    (folded) blocks; enabled members of a block in lockstep at a base that
+    is aligned, misaligned, at the ring end or across 2^31 (the int32 wrap
+    of ``ni + lane``); inert members at divergent bases."""
+    g = 8
+    block_bases = [4096, 1003, 3 * n - b // 2, 2**31 - b // 2, 5 * n + 13, 640, 2 * n + 77, 9]
+    sels = {
+        1: {"single": [7], "subset": [1, 4, 6], "all": list(range(8))},
+        2: {"single": [2], "subset": [0, 3], "all": [0, 1, 2, 3]},
+        8: {"all": [0]},
+    }
+    out = []
+    for gb, by_name in sels.items():
+        for name, gsel in by_name.items():
+            bases = [block_bases[gi // gb] for gi in range(g)]
+            enabled = [1] * g
+            for blk in gsel:
+                if gb > 1:  # one inert member per selected folded block
+                    k = blk * gb + 1
+                    enabled[k] = 0
+                    bases[k] = 7 * n + 3 * k  # a divergent base: it must not matter
+            if gb == 1 and name != "single":
+                enabled[gsel[-1]] = 0  # an inert one-group block
+            out.append(dict(gb=gb, sel=name, gsel=gsel, bases=bases, enabled=enabled))
+    return out
+
+
+def check_k1_cohort(dev, n: int = 1 << 16, v: int = 16) -> int:
+    """K1 in cohort form (``ops.cohort_fused_round``) against its plain
+    version (``batched.cohort_fused_round``) at A=3, N=65,536, V=16, G=8,
+    B in {16, 128}, over ``cohort_cases``, with dead acceptors (one group
+    below quorum), a frozen group (NO_ROUND), a reclaim limit inside a
+    window and one that wrapped past int32 max (negative: it refuses every
+    lane but those whose instance wrapped too), the state updated in place;
+    and the full-width slice (``ops.multigroup_fused_round``) against
+    ``batched.multigroup_fused_round``.  Returns the largest difference."""
+    rng = np.random.default_rng(SEED + 12)
+    g, a, q = 8, 3, 2
+    alive = np.ones((g, a), bool)
+    alive[2, 1] = False  # one dead acceptor: still a quorum
+    alive[5, [0, 2]] = False  # two dead: below quorum, nothing decides
+    worst = 0
+    for b in (16, 128):
+        for case in cohort_cases(n, b) + [dict(gb=8, sel="full width", gsel=None, bases=None)]:
+            full = case["gsel"] is None
+            bases = case["bases"] or [4096 + 128 * (gi % 2) for gi in range(g)]
+            enabled = case.get("enabled") or [1, 1, 0, 1, 1, 1, 1, 1]
+            crnds = [int(c) for c in rng.integers(1, 7, g)]
+            crnds[6] = -1  # a frozen group
+            marks = [0] * g
+            marks[3] = 2**31 - 100  # its limit wraps to a negative number
+            limit = np.asarray(marks, np.int32) + n  # the reference's expression
+            limit[1] = np.int32(bases[1] + b // 2)  # refuses the upper half
+            stack, lstate = mg_state(rng, g, a, n, v, b, bases, crnds, dev)
+            twin = clone_slabs(stack, lstate)
+            ptrs = [x.data_ptr() for x in (*vars(stack).values(), *vars(lstate).values())]
+
+            def t(x, dt=torch.int32):
+                return torch.from_numpy(np.asarray(x)).to(dev, dt)
+
+            ni, cr, al, en = t(bases), t(crnds), t(alive, torch.bool), t(enabled)
+            if full:
+                values = t(rng.integers(-(2**31), 2**31, (g, b, v), dtype=np.int32))
+                cstate = CoordinatorState(ni, cr)
+                act = torch.ones((g, b), dtype=torch.bool, device=dev)
+                got = ops.multigroup_fused_round(cstate, stack, lstate, values, act, al, q, en,
+                                                 limit, group_block=8)  # fmt: skip
+                want = batched.multigroup_fused_round(cstate, *twin, values, act, al, q, en, limit)
+                outs = [got[0].next_inst, got[0].crnd, *got[3:]]
+                ref = [want[0].next_inst, want[0].crnd, *want[3:]]
+            else:
+                gb, gsel = case["gb"], case["gsel"]
+                values = t(rng.integers(-(2**31), 2**31, (len(gsel) * gb, b, v), dtype=np.int32))
+                got = ops.cohort_fused_round(stack, lstate, gsel, ni, cr, al, q, values, en, limit,
+                                             group_block=gb)  # fmt: skip
+                want = batched.cohort_fused_round(*twin, gsel, ni, cr, al, q, values, en, limit,
+                                                  group_block=gb)  # fmt: skip
+                outs, ref = list(got[2:]), list(want[2:])
+                rows = [blk * gb + k for blk in gsel for k in range(gb)]
+                for r, gi in enumerate(rows):  # inert, frozen and sub-quorum rows decide nothing
+                    if (not enabled[gi] or gi in (5, 6)) and bool(got[2][r].any()):
+                        raise AssertionError(f"group {gi} decided while inert or refused")
+                    inert = not enabled[gi] or gi == 6
+                    if inert and (bool(got[4][r].any()) or bool((got[3][r] != -1).any())):
+                        raise AssertionError(f"inert group {gi}: win not NO_ROUND or value not 0")
+            sync(dev)
+            now = [x.data_ptr() for x in (*vars(stack).values(), *vars(lstate).values())]
+            if now != ptrs:
+                raise AssertionError("K1 (cohort form) did not update the state in place")
+            state = [*vars(stack).values(), *vars(lstate).values()]
+            plain = [*vars(twin[0]).values(), *vars(twin[1]).values()]
+            err = max_abs_err([*state, *(x.to(torch.int32) for x in outs)],
+                              [*plain, *(x.to(torch.int32) for x in ref)])  # fmt: skip
+            print(f"  K1-cohort b={b} gb={case['gb']} {case['sel']} gsel={case['gsel']} "
+                  f"enabled={enabled}: max_abs_err={err}")  # fmt: skip
+            if err:
+                raise AssertionError(f"K1 (cohort form) disagrees with its plain version: {case}")
+            worst = max(worst, err)
     return worst
 
 
@@ -476,6 +623,7 @@ LAUNCHES = {  # kernel name -> (module, attribute) of its wrapper's count
     "digest": (k_digest, "launches"),
     "acceptor_phase2": (k_acceptor, "launches"),
     "learner_quorum": (k_learner, "launches"),
+    "K1-cohort": (k_wirepath, "cohort_launches"),
 }
 
 
@@ -488,24 +636,26 @@ def read_launches() -> dict[str, int]:
     return {name: getattr(mod, attr) for name, (mod, attr) in LAUNCHES.items()}
 
 
-class PlainVotes:
-    """Counts the plain engine's Phase-2 votes (``batched._phase2``) while
-    it is entered: under ``use_kernels`` on the card there must be none."""
+class PlainCalls:
+    """Counts the calls of a plain-engine function of ``batched`` while it is
+    entered: ``_phase2`` (a Phase-2 vote) or ``_rows_round`` (a multi-group
+    round).  Under ``use_kernels`` on the card there must be none."""
 
-    def __init__(self):
+    def __init__(self, name: str = "_phase2"):
         self.calls = 0
-        self._orig = batched._phase2
+        self._name = name
+        self._orig = getattr(batched, name)
 
     def __enter__(self):
         def counted(*args):
             self.calls += 1
             return self._orig(*args)
 
-        batched._phase2 = counted
+        setattr(batched, self._name, counted)
         return self
 
     def __exit__(self, *exc):
-        batched._phase2 = self._orig
+        setattr(batched, self._name, self._orig)
 
 
 def run_staged_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) -> dict:
@@ -569,7 +719,7 @@ def run_staged_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) -> d
         if not ctx.quiescent():
             raise AssertionError("a slice did not drain")
 
-    with PlainVotes() as plain_votes:
+    with PlainCalls() as plain_votes:
         for s, lo in enumerate(range(0, len(data), step)):
             chunk = data[lo : lo + step]
             if s == 1:
@@ -644,11 +794,11 @@ def run_per_role_path(dev) -> dict:
     for k in range(walk):
         cstate, p2a = ops.coordinator_sequence(cstate, bursts[k], actives[k])
         per = [ops.acceptor_phase2(files[i], p2a, i)[1] for i in range(a)]
-        votes = MsgBatch(*(torch.stack([getattr(p, f) for p in per]) for f in FIELDS))
+        votes = MsgBatch(*(torch.stack([getattr(p, f) for p in per]) for f in MsgBatch.FIELDS))
         got = ops.learner_quorum(votes.msgtype, votes.inst, votes.vrnd, votes.value, q)
         _, staged = ops.acceptor_phase2_all(stack, p2a, alive)
         plain = k_learner.learner_quorum_plain(q, votes.msgtype, votes.vrnd, votes.value)
-        err = torch.maximum(err, diff(vars(votes).values(), vars(staged).values()))
+        err = torch.maximum(err, diff(votes.tensors(), staged.tensors()))
         err = torch.maximum(err, diff((got[0].to(torch.int32), got[2], got[3]), plain))
         err = torch.maximum(err, diff((got[1],), (p2a.inst,)))
         delivered += got[0].sum()
@@ -664,6 +814,184 @@ def run_per_role_path(dev) -> dict:
     if n_delivered != walk * b:
         raise AssertionError("the per-role path did not decide every lane")
     return dict(max_abs_err=worst, bursts=walk, wall=wall)
+
+
+# ---------------------------------------------------------------------------
+# multi-group path
+# ---------------------------------------------------------------------------
+def multigroup_config() -> PaxosConfig:
+    """The multi-group service at the paper's widths: 8 groups of A=3,
+    N=65,536, 64-byte values, bursts of 128; no persistent waves (not
+    ported), realignment after 4 fragmented rounds."""
+    return PaxosConfig(n_groups=8, persistent_rounds=1, realign_after=4)
+
+
+def run_multigroup_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) -> dict:
+    """The multi-group service on the card under a seeded lossy ``SimNet``:
+    a uniform phase of N/4 payloads to each group (so the full-width fold
+    engages); a skewed phase of 1.25 N more to group 0 (its ring wraps, a
+    snapshot of it every N/4) while the other groups trickle small bursts
+    (cohorts of fold width 1 or 2 form), each slice of N/4 started with the
+    trickling groups burned forward to group 0's watermark and ended with a
+    snapshot of every group; then an acceptor kill and revive in
+    group 1, a coordinator failover of group 2 with the others under load
+    and its restore, a crash and restore of an acceptor in group 4,
+    ``retire_group(7)`` + ``create_group()``, and ``retire_group(6)`` +
+    ``adopt_group`` of group 3's snapshot; last, traffic to every group and
+    a snapshot of each.  A dispatch's latency is the host time of
+    ``pipeline_cohort`` plus that of its read-back."""
+    cfg = cfg or multigroup_config()
+    g, n, b = cfg.n_groups, cfg.n_instances, cfg.batch
+    net = SimNet(FaultSpec(drop=0.01, dup=0.01, reorder=0.01), seed=SEED + 13)
+    ctx = PaxosContext(cfg, net=net, use_kernels=use_kernels, snapshots=True, device=dev)
+    hw = ctx.hw
+    dispatch_s: list[float] = []
+    folds: dict[int, int] = {}
+    cohort = hw.pipeline_cohort
+
+    def timed_cohort(gids, values, active, defer=False):
+        t0 = time.perf_counter()
+        handle = cohort(gids, values, active, defer=True)
+        spent = time.perf_counter() - t0
+        folds[hw.last_gb] = folds.get(hw.last_gb, 0) + 1
+        resolve = handle.resolve
+
+        def timed_resolve():
+            t1 = time.perf_counter()
+            out = resolve()
+            dispatch_s.append(spent + time.perf_counter() - t1)
+            return out
+
+        handle.resolve = timed_resolve
+        return handle if defer else handle.resolve()
+
+    hw.pipeline_cohort = timed_cohort
+    rng = np.random.default_rng(SEED + 14)
+    count = [0]
+    sent: list[list[bytes]] = [[] for _ in range(g)]  # the current tenant's
+    retired: list[tuple[int, list]] = []
+    seals, prefixes = [], []
+    lossy = net.faults
+
+    def submit(gid: int, k: int) -> None:
+        for _ in range(k):
+            head = f"{gid}:{count[0]}:".encode()
+            count[0] += 1
+            p = head + rng.bytes(int(rng.integers(0, cfg.max_payload_bytes + 1 - len(head))))
+            sent[gid].append(p)
+            ctx.submit(p, group=gid)
+
+    def drain() -> None:
+        ctx.run_until_quiescent()
+        if not ctx.quiescent():
+            raise AssertionError("a slice did not drain")
+
+    def snap(gid: int) -> None:
+        seals.append(ctx.snapshot_group(gid).seal)
+        prefixes.append(ctx.snapshots.entries(gid))
+
+    sync(dev)
+    t0 = time.perf_counter()
+    quarter, slice_ = n // 4, 8 * b
+    for lo in range(0, quarter, slice_):  # uniform
+        for gid in range(g):
+            submit(gid, min(slice_, quarter - lo))
+        drain()
+    for gid in range(g):
+        snap(gid)
+    for _ in range(5):  # skewed: 1.25 N to group 0, the others trickle
+        # the realignment sweep burns a trickling group forward to the
+        # leader's watermark in one jump; a group that lagged group 0 by N
+        # would then pass its reclaim boundary.  So each slice starts with
+        # the trickling groups at group 0's block-aligned watermark
+        top = -(-hw.next_inst_host[0] // b) * b
+        for gid in range(1, g):
+            hw.burn_forward(gid, max(top, hw.next_inst_host[gid]))
+        for lo in range(0, quarter, slice_):
+            submit(0, min(slice_, quarter - lo))
+            for gid in range(1, g):
+                submit(gid, int(rng.integers(0, 12)))
+            drain()
+        for gid in range(g):  # group 0's ring wraps
+            snap(gid)
+    hw.kill_acceptor(1, 0)
+    for gid in range(g):
+        submit(gid, 100)
+    drain()
+    hw.revive_acceptor(1, 0)
+    # failover of group 2 from a burst-aligned estimate of its watermark
+    # (the instances it skips are gaps, one filled by recover() below); the
+    # window runs lossless so the software coordinator's bursts are full and
+    # the restore burns nothing forward, which the reference does only under
+    # use_kernels: the kernel and plain runs stay comparable
+    gap = hw.next_inst_host[2]
+    ctx.fail_coordinator(est_next_inst=-(-gap // b) * b, group=2)
+    net.faults = FaultSpec()
+    for _ in range(2):
+        submit(2, b)
+        for gid in (0, 1, 3, 4, 5, 6, 7):
+            submit(gid, 40)
+        drain()
+    net.faults = lossy
+    ctx.restore_hardware_coordinator(group=2)
+    ctx.recover(gap, group=2)
+    drain()
+    ctx.crash_acceptor(1, group=4)
+    for gid in range(g):
+        submit(gid, 60)
+    drain()
+    snap(4)
+    ctx.restore_acceptor(1, group=4)
+    retired.append((7, ctx.retire_group(7)))
+    if ctx.create_group() != 7:
+        raise AssertionError("create_group did not reuse the lowest free slot")
+    # the new tenant starts at 0: move it to the service's block-aligned
+    # watermark and drain it (an empty snapshot), for the same reason as
+    # the burns of the skewed phase
+    hw.burn_forward(7, -(-max(hw.next_inst_host) // b) * b)
+    snap(7)
+    retired.append((6, ctx.retire_group(6)))
+    # an aligned snapshot watermark: adopt_group realigns only under use_kernels
+    hw.burn_forward(3, -(-hw.next_inst_host[3] // b) * b)
+    snap(3)
+    prefix = ctx.full_group_log(3)
+    if ctx.adopt_group(ctx.snapshots.snapshot(3), prefix) != 6:
+        raise AssertionError("adopt_group did not reuse the lowest free slot")
+    for tenant, log in retired:
+        if sorted(p for _, p in log) != sorted(sent[tenant]):
+            raise AssertionError(f"retired group {tenant} did not deliver each payload once")
+        sent[tenant] = []
+    for gid in range(g):
+        submit(gid, 200)
+    drain()
+    for gid in range(g):
+        snap(gid)
+    sync(dev)
+    wall = time.perf_counter() - t0
+
+    logs = [ctx.full_group_log(gid) for gid in range(g)]
+    for gid, log in enumerate(logs):
+        own = log[len(prefix) :] if gid == 6 else log
+        if len({i for i, _ in own}) != len(own):
+            raise AssertionError(f"group {gid}: an instance was delivered twice")
+        if sorted(p for _, p in own) != sorted(sent[gid]):
+            raise AssertionError(f"group {gid}: not every payload was delivered exactly once")
+    return dict(
+        logs=logs,
+        retired=retired,
+        seals=seals,
+        prefixes=prefixes,
+        state=export_state(hw),
+        dispatch_count=hw.dispatch_count,
+        last_gb=hw.last_gb,
+        report=ctx.planner.report(),
+        wall=wall,
+        dispatch_s=dispatch_s,
+        folds=folds,
+        stats=dict(ctx.stats),
+        delivered=ctx.stats["delivered"],
+        ring_laps=hw.next_inst_host[0] / n,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -940,6 +1268,87 @@ def time_staged(dev) -> dict:
     return out
 
 
+def k1_cohort_bytes(a: int, b: int, v: int, c: int, nb: int) -> int:
+    """The bytes one cohort K1 launch reads and writes over ``c`` selected
+    groups in ``nb`` blocks when every lane is accepted by all A acceptors
+    and is fresh: ``k1_bytes``'s terms per group, less the watermark and
+    instance outputs the cohort entry does not write (4 + B*4), plus the
+    limit and enabled words it reads (8), plus one gsel word per block.  At
+    A=3, B=128, V=16: 56,467 B per group."""
+    return c * (k1_bytes(a, b, v) - 4 - b * 4 + 8) + 4 * nb
+
+
+def time_k1_cohort(dev) -> dict:
+    """K1 in cohort form at the multi-group path's shape (G=8, A=3,
+    N=65,536, V=16, B=128, reclamation on), over one walk of the ring as
+    ``time_k1`` does: N/B consecutive windows of the second lap, the same
+    for every group, each launch with its own burst, the state restored
+    before each timed walk.  Two selections: every group in one folded block
+    (GB=8, the uniform phase's dispatch) and one group (GB=1, gsel=[3], a
+    hot group's dispatch).  Every lane is accepted and fresh, checked from
+    the data, so each launch moves exactly ``k1_cohort_bytes``."""
+    cfg = multigroup_config()
+    g, a, n, v, b, q = 8, cfg.n_acceptors, cfg.n_instances, cfg.value_words, cfg.batch, cfg.quorum
+    crnd, walk = 5, n // b
+    rng = np.random.default_rng(SEED + 15)
+
+    def words(*shape):
+        return rng.integers(-(2**31), 2**31, shape, dtype=np.int32)
+
+    inst = np.arange(n, 2 * n, dtype=np.int32)  # the walk's instances, every group
+    host = dict(
+        rnd=rng.integers(0, crnd + 1, (g, a, n), dtype=np.int32),
+        vrnd=rng.integers(-1, crnd + 1, (g, a, n), dtype=np.int32),
+        val=words(g, a, n, v),
+        ldel=np.ones((g, n), np.int32),
+        linst=np.broadcast_to(inst - n, (g, n)).copy(),
+        lval=words(g, n, v),
+    )
+    init = {k: torch.from_numpy(np.ascontiguousarray(x)).to(dev) for k, x in host.items()}
+    live = {k: x.clone() for k, x in init.items()}
+    stack = AcceptorState(live["rnd"], live["vrnd"], live["val"])
+    lstate = batched.LearnerState(live["ldel"], live["linst"], live["lval"])
+    bursts = torch.from_numpy(words(walk, g, b, v)).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    bases = torch.arange(n, 2 * n, b, **i32)[:, None].expand(walk, g).contiguous()
+    crnd_t = torch.full((g,), crnd, **i32)
+    limit = torch.full((g,), 2 * n, **i32)  # the reclaim mark one lap back
+    alive = torch.ones((g, a), dtype=torch.bool, device=dev)
+    enabled = torch.ones((g,), **i32)
+    accept = (crnd >= host["rnd"]) & (inst < 2 * n)[None, None]
+    if not accept.all():
+        raise AssertionError("the timed walk must accept and deliver every lane")
+
+    def restore():
+        for k, x in init.items():
+            live[k].copy_(x)
+
+    out = {}
+    for name, gsel, gb, rows in (("gb8", [0], 8, slice(0, 8)), ("gb1", [3], 1, slice(3, 4))):
+        gsel_t = torch.tensor(gsel, **i32)
+        c = len(gsel) * gb
+
+        def kernel(k, gsel_t=gsel_t, gb=gb, rows=rows):
+            k_wirepath._cohort_launch(gsel_t, gb, bases[k], crnd_t, q, alive,
+                                      *vars(stack).values(), *vars(lstate).values(),
+                                      bursts[k, rows], enabled, limit)  # fmt: skip
+
+        def plain(k, gsel_t=gsel_t, gb=gb, rows=rows):
+            batched.cohort_fused_round(stack, lstate, gsel_t, bases[k], crnd_t, alive, q,
+                                       bursts[k, rows], enabled, limit, group_block=gb)  # fmt: skip
+
+        nbytes = k1_cohort_bytes(a, b, v, c, len(gsel))
+        bms, by = bound_ms(nbytes, c * b * (4 * a + 2 * a + 8 + v))
+        out[name] = dict(
+            ms=time_walk(kernel, walk, True, restore),
+            plain_ms=time_walk(plain, walk, True, restore),
+            eager_ms=time_walk(kernel, walk, False, restore),
+            bound_ms=bms, bound_by=by, bytes_per_launch=nbytes, groups=c,
+        )  # fmt: skip
+    restore()
+    return dict(out["gb8"], gb1=out["gb1"])
+
+
 def percentiles(round_s: list[float]) -> tuple[float, float]:
     ms = np.asarray(round_s) * 1e3
     return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
@@ -985,13 +1394,15 @@ def run(dev: torch.device) -> None:
     errs["coordinator_sequence"] = check_k3(dev)
     errs["acceptor_vote_all"], errs["acceptor_phase2"], made = check_votes(dev)
     errs["learner_quorum"] = check_k8(dev, made)
+    errs["K1-cohort"] = check_k1_cohort(dev)
     # timed here, before the paths, and printed after them
     times = {"wirepath_round": time_k1(dev), "digest": time_k4(dev, PaxosConfig().n_instances // 4)}
     times.update(time_staged(dev))
+    times["K1-cohort"] = time_k1_cohort(dev)
 
     print("main path: PaxosContext(PaxosConfig(), fused=True, use_kernels=True, snapshots=True)")
     reset_launches()
-    with PlainVotes() as plain_votes:
+    with PlainCalls() as plain_votes:
         kern = run_main_path(True, dev)
     launches = read_launches()
     print(f"  launches on the main path: {launches}, fused rounds: {kern['rounds']}, "
@@ -1053,6 +1464,36 @@ def run(dev: torch.device) -> None:
         raise AssertionError(f"the per-role path's launches are not {want}")
     errs["learner_quorum"] = max(errs["learner_quorum"], roles["max_abs_err"])
 
+    print("multi-group path: PaxosContext(PaxosConfig(n_groups=8, persistent_rounds=1, "
+          "realign_after=4), use_kernels=True, snapshots=True)")  # fmt: skip
+    reset_launches()
+    with PlainCalls() as plain_votes, PlainCalls("_rows_round") as plain_rounds:
+        mg = run_multigroup_path(True, dev)
+    mg_launches = read_launches()
+    dispatches = len(mg["dispatch_s"])
+    print(f"  launches on the multi-group path: {mg_launches}, fused dispatches: {dispatches}, "
+          f"plain Phase-2 votes: {plain_votes.calls}, plain rounds: {plain_rounds.calls}")
+    require_launched("multi-group path", mg_launches, ["K1-cohort", "digest", "acceptor_vote_all"])
+    if mg_launches["K1-cohort"] != dispatches or plain_votes.calls or plain_rounds.calls:
+        raise AssertionError(f"the multi-group path did not run through the kernels: {mg_launches}")
+    print("  the same schedule on the plain engine (use_kernels=False) on the card")
+    with PlainCalls("_rows_round") as plain_rounds:
+        mg_plain = run_multigroup_path(False, dev)
+    if plain_rounds.calls != len(mg_plain["dispatch_s"]):
+        raise AssertionError("the plain multi-group run did not run the plain engine")
+    for key in ("logs", "retired", "seals", "dispatch_count", "last_gb", "report"):
+        if mg[key] != mg_plain[key]:
+            raise AssertionError(f"multi-group kernel and plain runs differ in {key}")
+    for key, arr in mg["state"].items():
+        if not np.array_equal(arr, mg_plain["state"][key]):
+            raise AssertionError(f"multi-group kernel and plain runs differ in final state {key}")
+    errs["digest"] = max(errs["digest"], check_seals(mg, dev))
+    print(f"  equal: {len(mg['logs'])} group logs ({[len(x) for x in mg['logs']]}), retired "
+          f"logs, {len(mg['seals'])} seals, final state, dispatch_count {mg['dispatch_count']}, "
+          f"last_gb {mg['last_gb']}, planner report {mg['report']}")  # fmt: skip
+    print(f"  fold widths seen (width: dispatches): {dict(sorted(mg['folds'].items()))}, "
+          f"group 0 ring laps {mg['ring_laps']:.3f}, stats {mg['stats']}")  # fmt: skip
+
     print(f"times on {CARD}")
     path_metrics = {}
     for name, run, base in (("main path", kern, plain), ("staged path", staged, staged_plain)):
@@ -1070,6 +1511,21 @@ def run(dev: torch.device) -> None:
             plain_round_ms_p50=plain_p50,
             plain_round_ms_p99=plain_p99,
         )
+    p50, p99 = percentiles(mg["dispatch_s"])
+    plain_p50, plain_p99 = percentiles(mg_plain["dispatch_s"])
+    path_metrics["multi-group path"] = dict(
+        card=CARD,
+        decided_values_per_s=mg["delivered"] / mg["wall"],
+        wall_s=mg["wall"],
+        dispatches=len(mg["dispatch_s"]),
+        dispatch_ms_p50=p50,
+        dispatch_ms_p99=p99,
+        fold_widths=mg["folds"],
+        plain_decided_values_per_s=mg_plain["delivered"] / mg_plain["wall"],
+        plain_wall_s=mg_plain["wall"],
+        plain_dispatch_ms_p50=plain_p50,
+        plain_dispatch_ms_p99=plain_p99,
+    )
     for name, t in times.items():
         print(f"  {name} {json.dumps(t)}")
     for name, m in path_metrics.items():
@@ -1083,6 +1539,7 @@ def run(dev: torch.device) -> None:
         ("acceptor_vote_all", "vote.cu", "src/repro/kernels/wirepath.py:1034", staged_launches),
         ("acceptor_phase2", "vote.cu", "src/repro/kernels/acceptor.py:92", role_launches),
         ("learner_quorum", "learner.cu", "src/repro/kernels/learner.py:56", role_launches),
+        ("K1-cohort", "wirepath.cu", "src/repro/kernels/wirepath.py:228", mg_launches),
     ]  # fmt: skip
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}", replaces=replaces,

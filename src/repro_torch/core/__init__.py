@@ -1,18 +1,19 @@
-"""CAANS core, single group: consensus as a device service.
+"""CAANS core: consensus as a device service, one group or G groups.
 
 Layers:
   * ``types``     — Paxos header/state as structure-of-arrays tensors
   * ``paxos``     — scalar reference role semantics (a copy of the reference's)
   * ``batched``   — the plain batched engine (plain version of the round kernel)
-  * ``plan``      — burst quantization and packing
-  * ``api``       — drop-in submit / deliver / recover (paper Fig. 4)
+  * ``plan``      — the cohort dispatch planner, burst quantization, packing
+  * ``api``       — drop-in submit / deliver / recover (paper Fig. 4), single-
+                    and multi-group dataplanes
   * ``snapshot``  — sealed snapshot store + ring reclamation
   * ``failover``  — coordinator takeover and acceptor restore
   * ``network``   — seeded lossy message fabric (a copy of the reference's)
   * ``bridge``    — state export/import through numpy, in the reference's names
 """
 
-from .api import HardwareDataplane, PaxosContext  # noqa: F401
+from .api import HardwareDataplane, MultiGroupDataplane, PaxosContext  # noqa: F401
 from .network import FaultSpec, SimNet  # noqa: F401
 from .snapshot import GroupSnapshot, RingOverflowError, SnapshotStore  # noqa: F401
 from .types import (  # noqa: F401

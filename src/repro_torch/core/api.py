@@ -1,30 +1,37 @@
-"""The drop-in CAANS application API (paper Fig. 4), single group.
+"""The drop-in CAANS application API (paper Fig. 4).
 
     submit(ctx, value, size)             -> propose a value
     ctx.deliver = cb(value, size, inst)  (registered callback)
     recover(ctx, inst, nop, size)        -> learn a previously decided instance
 
-The PyTorch counterpart of ``repro.core.api`` for one Paxos group.  A
-``PaxosContext`` wires software proposers and learners to the device
-dataplane (``HardwareDataplane``): the coordinator, the acceptor array and
-the learner's dedup ring, resident on one device.  Messages between the host
-roles travel over the fault-injected ``SimNet``; retransmission on timeout
-and duplicate suppression at the learners implement the paper's §3.1
-failure-handling contract.
+The PyTorch counterpart of ``repro.core.api``.  A ``PaxosContext`` wires
+software proposers and learners to the device dataplane: the coordinator,
+the acceptor array and the learner's dedup ring, resident on one device,
+for one Paxos group (``HardwareDataplane``) or for G groups that share one
+fused dispatch per cohort (``MultiGroupDataplane``, ``PaxosConfig(n_groups=G)``).
+Messages between the host roles travel over the fault-injected ``SimNet``;
+retransmission on timeout and duplicate suppression at the learners
+implement the paper's §3.1 failure-handling contract.
 
 Everything runs on the card unless the caller asks for another device
 (``device="cpu"``).  With ``use_kernels`` (the default here; the reference
 defaults to ``False``) the dataplane runs the hand-written kernels on the
 card and their plain versions on the CPU: the round kernel on the fused
 wire path, the sequencer and the acceptor array's vote on the staged path
-(the default, ``fused=False``).  ``use_kernels=False`` selects the plain
-engine on any device.
+(the default, ``fused=False``), and the round kernel in its multi-group and
+cohort forms for every fused dispatch of a grouped context.
+``use_kernels=False`` selects the plain engine on any device.
+
+Not ported yet: persistent waves (``PaxosConfig.persistent_rounds > 1`` on a
+grouped context) and the sharded dataplane (``mesh=``); both raise.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
-from collections.abc import Callable
+import functools
+from collections.abc import Callable, Sequence
 from typing import Any
 
 import numpy as np
@@ -50,8 +57,9 @@ from .types import (
     PaxosConfig,
 )
 
-_MULTIGROUP = "ROADMAP.md queue 1, item 2 (multi-group)"
+_PERSISTENT = "ROADMAP.md queue 1, item 3 (persistent waves, K5)"
 _SHARDED = "ROADMAP.md queue 1, item 6 (sharded dataplane)"
+INT32_MAX = 2**31 - 1
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -147,6 +155,14 @@ class HardwareDataplane(RingReclamationMixin):
         limit = None
         if self.reclaimed_host is not None:
             limit = self.reclaimed_host + self.cfg.n_instances
+            if limit > INT32_MAX:
+                # the reference raises here too (at its int32 conversion),
+                # before any state or counter moves; a wrapped limit would
+                # refuse every lane in silence
+                raise OverflowError(
+                    f"reclaim limit {limit} (watermark {self.reclaimed_host} + "
+                    f"N={self.cfg.n_instances}) is past int32 max"
+                )
         dev = self.device
         self.dispatch_count += 1
         self.cstate, self.stack, self.lstate, fresh, inst, _win, value = self._fused(
@@ -208,15 +224,447 @@ class HardwareDataplane(RingReclamationMixin):
     def _split(self, stacked: MsgBatch) -> list[MsgBatch | None]:
         """Stacked [A, ...] message batches -> per-acceptor list, None when
         dead (a crashed switch emits nothing)."""
-        fields = [f.name for f in dataclasses.fields(MsgBatch)]
         return [
-            MsgBatch(*(getattr(stacked, f)[aid] for f in fields)) if self.alive[aid] else None
+            MsgBatch(*(x[aid] for x in stacked.tensors())) if self.alive[aid] else None
             for aid in range(self.cfg.n_acceptors)
         ]
 
 
+class _DeferredRound:
+    """Handle for a dispatched cohort round whose host read-back is deferred:
+    the launch is in flight (or done) on the device, and ``resolve()`` makes
+    the device-to-host copy and selects the cohort's rows.  The pump
+    dispatches wave N+1 before it resolves wave N; the host watermark
+    mirrors advanced at dispatch time, so planning never waits on a
+    resolve."""
+
+    def __init__(self, fresh, value, inst: np.ndarray, rows: Sequence[int]):
+        self._fresh = fresh  # device tensors, rows before selection
+        self._value = value
+        self._inst = inst  # host instance windows, already in cohort order
+        self._rows = list(rows)  # the cohort's rows of fresh and value
+
+    def resolve(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        fresh = np.take(self._fresh.cpu().numpy(), self._rows, axis=0)
+        value = np.take(self._value.cpu().numpy(), self._rows, axis=0)
+        return fresh, self._inst, value
+
+
+class _GroupView:
+    """The staged single-group surface over one group's rows of the
+    ``(G, A, N)`` slabs: the ``prepare``/``vote``/``cfg``/``device`` that
+    ``core.failover`` and recovery expect from a ``HardwareDataplane``.  It
+    reads and writes only group ``gid``'s rows, through contiguous row views
+    updated in place; no other group's registers are touched.  With
+    ``use_kernels`` on the card ``vote()`` runs the acceptor array's vote
+    kernel on those views; ``prepare()`` (Phase 1) runs the plain engine.
+    Recovery and failover traffic only."""
+
+    def __init__(self, mg: MultiGroupDataplane, gid: int):
+        self.mg = mg
+        self.gid = gid
+
+    @property
+    def cfg(self) -> PaxosConfig:
+        return self.mg.cfg
+
+    @property
+    def device(self) -> torch.device:
+        return self.mg.device
+
+    def _rows(self) -> tuple[AcceptorState, torch.Tensor]:
+        mg = self.mg
+        row = mg._slab_row(self.gid)
+        stack = AcceptorState(mg.stack.rnd[row], mg.stack.vrnd[row], mg.stack.value[row])
+        return stack, mg.alive_mask[row]
+
+    def vote(self, p2a: MsgBatch) -> list[MsgBatch | None]:
+        stack, alive = self._rows()
+        self.mg.dispatch_count += 1
+        _, votes = self.mg._vote_all(stack, p2a, alive)
+        return self._split(votes)
+
+    def prepare(self, p1a: MsgBatch) -> list[MsgBatch | None]:
+        stack, alive = self._rows()
+        self.mg.dispatch_count += 1
+        _, outs = batched.acceptor_phase1_all(stack, p1a, alive)
+        return self._split(outs)
+
+    def _split(self, stacked: MsgBatch) -> list[MsgBatch | None]:
+        alive = self.mg.alive[self.gid]
+        return [
+            MsgBatch(*(x[aid] for x in stacked.tensors()), gid=self.gid) if alive[aid] else None
+            for aid in range(self.cfg.n_acceptors)
+        ]
+
+
+class MultiGroupDataplane(RingReclamationMixin):
+    """G device-resident Paxos groups sharing one fused dispatch per cohort:
+    consensus as a service.
+
+    State is the single-group layout grown a leading group axis: ``(G,)``
+    coordinator watermarks and rounds, ``(G, A, N)`` acceptor rings,
+    ``(G, N)`` learner rings and a ``(G, A)`` liveness mask, all updated in
+    place.  ``pipeline`` advances every enabled group one Phase-2 round and
+    ``pipeline_cohort`` the groups of one cohort; with ``use_kernels`` both
+    run the round kernel (``kernels.ops.multigroup_fused_round``,
+    ``kernels.ops.cohort_fused_round``) on the card and its plain version on
+    the CPU, at any window base.  ``use_kernels=False`` runs the plain
+    engine, full width, with non-members held inert.  The fold width the
+    reference kernel would use (``last_gb``), ``dispatch_count`` and the
+    planner's decisions do not depend on the engine.
+
+    Per-group failover: ``freeze_group`` parks a group's round at NO_ROUND,
+    so the shared dispatch decides nothing for it, and ``restore_group``
+    hands it back at the software coordinator's watermark.  ``group_view``
+    is one group's staged surface for recovery and takeover.
+
+    Membership: ``cfg.n_groups`` is a capacity; a host free-list over the
+    group axis lets tenants come and go (``create_group``, ``adopt_group``,
+    ``retire_group``) without touching any other group's slab rows.
+    """
+
+    def __init__(
+        self,
+        cfg: PaxosConfig,
+        use_kernels: bool = True,
+        device: torch.device | str | None = None,
+    ):
+        if cfg.n_groups < 1:
+            raise ValueError(f"n_groups must be >= 1, got {cfg.n_groups}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        g, a = cfg.n_groups, cfg.n_acceptors
+        self.cstate, self.stack, self.lstate = batched.init_multigroup_state(
+            g, a, cfg.n_instances, cfg.value_words, self.device
+        )
+        self.alive = [[True] * a for _ in range(g)]  # host mirror
+        self.alive_mask = torch.ones((g, a), dtype=torch.bool, device=self.device)
+        # membership: every slot starts live; the free-list (sorted, lowest
+        # first: deterministic allocation) holds vacant slots
+        self.live_host: list[bool] = [True] * g
+        self._free: list[int] = []
+        self.use_kernels = use_kernels
+        # host mirrors of each group's watermark and round: the plan, the
+        # reclamation guard and the drains read them without a device sync
+        self.next_inst_host: list[int] = [0] * g
+        self.crnd_host: list[int] = [0] * g
+        self.dispatch_count = 0  # monotone count of device programs
+        self.last_gb: int | None = None  # fold width of the last dispatch
+        self._vote_all = (kops if use_kernels else batched).acceptor_phase2_all
+
+    # -- ring reclamation: RingReclamationMixin per group --------------------
+    def _seq_marks(self) -> list[int]:
+        return self.next_inst_host
+
+    @property
+    def reclaimed_host(self) -> list[int] | None:
+        """Per-group reclamation watermarks (None while disabled); the list
+        is the mixin's live state."""
+        return self._reclaim_marks
+
+    def set_reclaimed(self, gid: int, upto: int) -> None:
+        """Advance group ``gid``'s reclamation watermark after a snapshot
+        drain of the instances below ``upto``."""
+        self._check_gid(gid)
+        self._reclaim_set(gid, upto)
+
+    def _guard_capacity(self, gids, b: int) -> None:
+        for gid in gids:
+            self._reclaim_guard(gid, self.next_inst_host[gid], b)
+
+    # -- the shared pre-dispatch plan ------------------------------------------
+    def _fold_width(self) -> int:
+        return self.cfg.n_groups
+
+    def _plan_round(self, b: int, enabled: list[bool] | None):
+        """Resolve the enabled mask against membership and frozen rounds and
+        pick the fold width (``plan.fold_width_full``).  Returns
+        ``(enabled, use_k, group_block)``; ``use_k`` is ``use_kernels``:
+        the round kernel takes any window base."""
+        live, crnd = self.live_host, self.crnd_host
+        if enabled is None:
+            enabled = [lv and c != NO_ROUND for lv, c in zip(live, crnd, strict=True)]
+        else:
+            enabled = [
+                bool(e) and lv and c != NO_ROUND
+                for e, lv, c in zip(enabled, live, crnd, strict=True)
+            ]
+        en_gids = [i for i, e in enumerate(enabled) if e]
+        gb = plan_mod.fold_width_full(en_gids, self.next_inst_host, self._fold_width())
+        return enabled, self.use_kernels, gb
+
+    def _check_fold(self, gids: Sequence[int], gb: int) -> None:
+        """The reference kernel's fold precondition, from the host mirrors:
+        the enabled members of each ``gb``-block share one watermark."""
+        if not plan_mod._block_lockstep(gids, self.next_inst_host, gb):
+            raise RuntimeError(f"groups {list(gids)} are not in lockstep at fold width {gb}")
+
+    def _empty_round(self, g: int, b: int):
+        """The all-disabled result: nothing would decide, no dispatch."""
+        return (
+            np.zeros((g, b), np.int32),
+            np.zeros((g, b), np.int32),
+            np.zeros((g, b, self.cfg.value_words), np.int32),
+        )
+
+    def _to_dev(self, x: np.ndarray, dtype=np.int32) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(self.device)
+
+    # -- fused fast path: all groups advance one round in one dispatch ------
+    def pipeline(self, values: np.ndarray, active: np.ndarray, enabled: list[bool] | None = None):
+        """One dispatch for all G groups.  ``values`` is ``(G, B, V)``,
+        ``active`` ``(G, B)``.  A disabled group (frozen, vacant, or masked
+        by ``enabled``) rides inert: presented at NO_ROUND, its watermark
+        unmoved.  Returns host ``(fresh, inst, value)`` with a leading group
+        axis."""
+        g, b = values.shape[0], values.shape[1]
+        enabled, use_k, gb = self._plan_round(b, enabled)
+        if not any(enabled):
+            return self._empty_round(g, b)
+        en_gids = [gid for gid in range(g) if enabled[gid]]
+        self._guard_capacity(en_gids, b)
+        lim = self._reclaim_limits_np()
+        en = self._to_dev(np.asarray(enabled), bool)
+        cs = self.cstate
+        vals, act = self._to_dev(values), self._to_dev(active, bool)
+        self.dispatch_count += 1
+        if use_k:
+            self._check_fold(en_gids, gb)
+            new_c, self.stack, self.lstate, fresh, inst, _win, value = kops.multigroup_fused_round(
+                cs, self.stack, self.lstate, vals, act, self.alive_mask, self.cfg.quorum,
+                en.to(torch.int32), lim, group_block=gb,
+            )  # fmt: skip
+        else:
+            eff = CoordinatorState(next_inst=cs.next_inst, crnd=torch.where(en, cs.crnd, NO_ROUND))
+            new_c, self.stack, self.lstate, fresh, inst, _win, value = (
+                batched.multigroup_fused_round(
+                    eff, self.stack, self.lstate, vals, act, self.alive_mask, self.cfg.quorum,
+                    reclaim_limit=lim,
+                )
+            )  # fmt: skip
+        # disabled groups keep their watermark and their true round
+        self.cstate = CoordinatorState(
+            next_inst=torch.where(en, new_c.next_inst, cs.next_inst), crnd=cs.crnd
+        )
+        for gid in en_gids:
+            self.next_inst_host[gid] += b
+        self.last_gb = gb  # the plan's fold width, whatever the engine
+        return fresh.cpu().numpy(), inst.cpu().numpy(), value.cpu().numpy()
+
+    # -- cohort dispatch: one tier of a RoundPlan ------------------------------
+    def _cohort_prologue(self, gids, values: np.ndarray):
+        """Membership mask and per-member instance windows of a cohort."""
+        gids = list(gids)
+        be = values.shape[1]
+        if values.shape[0] != len(gids):
+            raise ValueError(f"{values.shape[0]} burst rows for cohort {gids}")
+        marks = self.next_inst_host
+        member = np.zeros((self.cfg.n_groups,), np.int32)
+        member[gids] = 1
+        inst = np.stack([np.arange(marks[gid], marks[gid] + be, dtype=np.int32) for gid in gids])
+        return gids, member, self.use_kernels, inst
+
+    def pipeline_cohort(self, gids, values: np.ndarray, active: np.ndarray, defer: bool = False):
+        """Advance exactly the cohort ``gids`` one ``BE``-sized round.
+
+        ``values`` is compact ``(len(gids), BE, V)`` in cohort order,
+        ``active`` ``(len(gids), BE)``.  Non-members neither move nor
+        change.  With ``use_kernels`` the round kernel visits only the group
+        blocks holding members (``plan.cohort_blocks``).  Returns host
+        ``(fresh, inst, value)`` in cohort row order, or with ``defer=True``
+        a ``_DeferredRound`` whose ``resolve()`` gives the same; the host
+        watermark mirrors advance at dispatch time either way."""
+        gids, member, use_k, inst = self._cohort_prologue(gids, values)
+        g, v = self.cfg.n_groups, self.cfg.value_words
+        be = values.shape[1]
+        self._guard_capacity(gids, be)
+        lim = self._reclaim_limits_np()
+        # the compact mapping is the dispatch plan whichever engine runs it
+        gb, blocks = plan_mod.cohort_blocks(gids, self.next_inst_host, self._fold_width())
+        self.last_gb = gb
+        self.dispatch_count += 1
+        en = self._to_dev(member)
+        if use_k:
+            self._check_fold(gids, gb)
+            # compact layout: row j*gb + k <-> group blocks[j]*gb + k
+            rowof = {blk * gb + k: j * gb + k for j, blk in enumerate(blocks) for k in range(gb)}
+            kvals = np.zeros((len(blocks) * gb, be, v), np.int32)
+            kvals[:, :, 0] = NOP_SENTINEL
+            for row, gid in enumerate(gids):
+                kvals[rowof[gid]] = values[row]
+            self.stack, self.lstate, dfresh, _win, dvalue = kops.cohort_fused_round(
+                self.stack, self.lstate, blocks, self.cstate.next_inst, self.cstate.crnd,
+                self.alive_mask, self.cfg.quorum, self._to_dev(kvals), en, lim, group_block=gb,
+            )  # fmt: skip
+            rows = [rowof[gid] for gid in gids]
+        else:
+            # plain engine: full width, non-members presented at NO_ROUND
+            vals_f, act_f = plan_mod.scatter_rows(gids, values, active, g, v)
+            cs = self.cstate
+            eff = CoordinatorState(
+                next_inst=cs.next_inst, crnd=torch.where(en != 0, cs.crnd, NO_ROUND)
+            )
+            _c, self.stack, self.lstate, dfresh, _i, _w, dvalue = batched.multigroup_fused_round(
+                eff, self.stack, self.lstate, self._to_dev(vals_f), self._to_dev(act_f, bool),
+                self.alive_mask, self.cfg.quorum, reclaim_limit=lim,
+            )  # fmt: skip
+            rows = gids
+        self.cstate = CoordinatorState(
+            next_inst=self.cstate.next_inst + en * be, crnd=self.cstate.crnd
+        )
+        for gid in gids:
+            self.next_inst_host[gid] += be
+        handle = _DeferredRound(dfresh, dvalue, inst, rows=rows)
+        return handle if defer else handle.resolve()
+
+    def _wave_block(self, be: int, bases) -> int:
+        raise NotImplementedError(f"persistent waves are not ported yet: {_PERSISTENT}")
+
+    def pipeline_persistent(self, gids, values: np.ndarray, active: np.ndarray, defer=False):
+        raise NotImplementedError(f"persistent waves are not ported yet: {_PERSISTENT}")
+
+    def burn_forward(self, gid: int, target: int) -> None:
+        """Advance a group's watermark to ``target`` without proposing
+        anything: the skipped instances are NOP holes, never decided and
+        recoverable as no-ops (paper §3.1 gap fill).  The planner's
+        realignment sweep uses it."""
+        self._check_gid(gid)
+        if target < self.next_inst_host[gid]:
+            raise ValueError(
+                f"burn_forward moves only forward: {target} < "
+                f"{self.next_inst_host[gid]} (group {gid})"
+            )
+        self.cstate.next_inst[gid] = target
+        self.next_inst_host[gid] = target
+
+    # -- per-group liveness and failover -------------------------------------
+    def _check_gid(self, gid: int) -> None:
+        if not 0 <= gid < self.cfg.n_groups:
+            raise ValueError(f"group {gid} out of range [0, {self.cfg.n_groups})")
+
+    def kill_acceptor(self, gid: int, aid: int) -> None:
+        self._check_gid(gid)
+        self.alive[gid][aid] = False
+        self.alive_mask[gid, aid] = False
+
+    def revive_acceptor(self, gid: int, aid: int) -> None:
+        self._check_gid(gid)
+        self.alive[gid][aid] = True
+        self.alive_mask[gid, aid] = True
+
+    def wipe_acceptor(self, gid: int, aid: int) -> None:
+        """Crash with state loss: reset one acceptor's registers of one
+        group in place; ``core.failover.restore_acceptor`` rebuilds them."""
+        self._check_gid(gid)
+        row = self._slab_row(gid)
+        self.stack.rnd[row, aid] = 0
+        self.stack.vrnd[row, aid] = NO_ROUND
+        self.stack.value[row, aid] = 0
+
+    def freeze_group(self, gid: int) -> None:
+        """Park a group's hardware round at NO_ROUND while a software
+        coordinator owns it: the shared dispatch decides nothing for it."""
+        self._check_gid(gid)
+        self.cstate.crnd[gid] = NO_ROUND
+        self.crnd_host[gid] = NO_ROUND
+
+    def restore_group(self, gid: int, next_inst: int, crnd: int) -> None:
+        """Hand a group back to the hardware sequencer at the watermark and
+        round the software coordinator reached.  With ``use_kernels`` the
+        watermark is burned forward to the reference kernel's block
+        boundary, as the reference does: the round kernel here needs no
+        alignment, but instance numbers must match the reference's."""
+        self._check_gid(gid)
+        if self.use_kernels:
+            bb = plan_mod.wire_block(self.cfg.batch)
+            next_inst = -(-next_inst // bb) * bb
+        self.cstate.next_inst[gid] = next_inst
+        self.cstate.crnd[gid] = crnd
+        self.next_inst_host[gid] = next_inst
+        self.crnd_host[gid] = crnd
+
+    def group_view(self, gid: int) -> _GroupView:
+        """One group's staged surface (recovery and takeover traffic)."""
+        self._check_gid(gid)
+        return _GroupView(self, gid)
+
+    # -- membership: a free-list over the group axis --------------------------
+    def _check_live(self, gid: int) -> None:
+        self._check_gid(gid)
+        if not self.live_host[gid]:
+            raise ValueError(f"group {gid} is retired")
+
+    def live_groups(self) -> list[int]:
+        """Live group ids, ascending (the routing domain)."""
+        return [g for g in range(self.cfg.n_groups) if self.live_host[g]]
+
+    def _slab_row(self, gid: int) -> int:
+        """Slab row of group ``gid``: the identity (the sharded dataplane,
+        not ported, translates through its placement)."""
+        return gid
+
+    def _reset_group_slab(self, gid: int) -> None:
+        """Reset one group's acceptor and learner rows to a fresh tenant's."""
+        row = self._slab_row(gid)
+        self.stack.rnd[row] = 0
+        self.stack.vrnd[row] = NO_ROUND
+        self.stack.value[row] = 0
+        self.lstate.delivered[row] = 0
+        self.lstate.inst[row] = -1
+        self.lstate.value[row] = 0
+
+    def create_group(self) -> int:
+        """Claim the lowest free slot: fresh rings, watermark and round 0,
+        every acceptor alive.  Raises at capacity."""
+        if not self._free:
+            raise RuntimeError(f"no free group slots (capacity n_groups={self.cfg.n_groups})")
+        gid = self._free.pop(0)
+        self._reset_group_slab(gid)
+        self.live_host[gid] = True
+        for aid in range(self.cfg.n_acceptors):
+            self.revive_acceptor(gid, aid)
+        self.restore_group(gid, 0, 0)
+        if self.reclaimed_host is not None:
+            self.reclaimed_host[gid] = 0
+        return gid
+
+    def adopt_group(self, watermark: int) -> int:
+        """Claim a free slot for a tenant bootstrapping from a transferred
+        snapshot: sequencer and reclamation watermarks start at the
+        snapshot's (the sequencer's realigned forward under ``use_kernels``,
+        as in ``restore_group``).  Requires reclamation.  Returns the gid."""
+        if self.reclaimed_host is None:
+            raise ValueError("adopt_group requires reclamation enabled")
+        if watermark < 0:
+            raise ValueError(f"negative snapshot watermark {watermark}")
+        gid = self.create_group()
+        self.restore_group(gid, watermark, 0)
+        self.reclaimed_host[gid] = watermark
+        return gid
+
+    def retire_group(self, gid: int) -> list[tuple[int, bytes]]:
+        """Retire a live group: drain its learner ring to host ``(inst,
+        value_bytes)`` pairs in instance order, park its round at NO_ROUND
+        and free its slot.  No slab row moves; the slot is reset at the
+        next ``create_group``."""
+        self._check_live(gid)
+        row = self._slab_row(gid)
+        ld = self.lstate.delivered[row].cpu().numpy()
+        li = self.lstate.inst[row].cpu().numpy()
+        lv = self.lstate.value[row].cpu().numpy()
+        slots = np.nonzero(ld != 0)[0]
+        order = slots[np.argsort(li[slots], kind="stable")]
+        drained = [(int(li[s]), lv[s].tobytes()) for s in order]
+        self.live_host[gid] = False
+        self.freeze_group(gid)
+        bisect.insort(self._free, gid)
+        return drained
+
+
 class PaxosContext:
-    """Drop-in replacement context (the paper's ``paxos_ctx``), one group."""
+    """Drop-in replacement context (the paper's ``paxos_ctx``), for one group
+    or, with ``PaxosConfig(n_groups=G)``, for G groups on one dataplane."""
 
     def __init__(
         self,
@@ -234,15 +682,43 @@ class PaxosContext:
         self.cfg = cfg or PaxosConfig()
         if mesh is not None:
             raise NotImplementedError(f"the sharded dataplane is not ported yet: {_SHARDED}")
-        if self.cfg.n_groups != 1:
-            raise NotImplementedError(
-                f"multi-group contexts are not ported yet: {_MULTIGROUP}"
-            )
         self.deliver_cb = deliver
         self.net = net or SimNet()
-        self.hw = HardwareDataplane(self.cfg, use_kernels=use_kernels, device=device)
-        self.fused = fused
-        self.group_log: list[list[tuple[int, bytes]]] = [[]]
+        self.n_groups = self.cfg.n_groups
+        self.grouped = self.n_groups > 1
+        self.planner: plan_mod.DispatchPlanner | None = None
+        if self.grouped:
+            # the multi-group service is wire-path only: every group rides
+            # the fused dispatch; staged traffic exists per group for
+            # recovery and failover (group views)
+            if self.cfg.persistent_rounds > 1:
+                raise NotImplementedError(
+                    f"persistent_rounds={self.cfg.persistent_rounds}: persistent waves are not "
+                    f"ported yet ({_PERSISTENT}); pass PaxosConfig(persistent_rounds=1)"
+                )
+            if n_learners != 1:
+                raise ValueError(
+                    "multi-group context drives the fused wire path and a "
+                    "single learner role per group (n_learners must be 1)"
+                )
+            self.hw: Any = MultiGroupDataplane(self.cfg, use_kernels=use_kernels, device=device)
+            self.fused = True
+            self._softco_g: dict[int, SoftCoordinator] = {}
+            self.learned_g: list[dict[int, bytes]] = [dict() for _ in range(self.n_groups)]
+            self._partial_g: list[dict[int, dict[int, tuple[int, bytes]]]] = [
+                dict() for _ in range(self.n_groups)
+            ]
+            # burst sizing, cohort tiering and the realignment sweep
+            self.planner = plan_mod.DispatchPlanner(
+                batch=self.cfg.batch,
+                n_instances=self.cfg.n_instances,
+                realign_after=self.cfg.realign_after,
+                persistent_rounds=self.cfg.persistent_rounds,
+            )
+        else:
+            self.hw = HardwareDataplane(self.cfg, use_kernels=use_kernels, device=device)
+            self.fused = fused
+        self.group_log: list[list[tuple[int, bytes]]] = [[] for _ in range(self.n_groups)]
         self._delivered_seqs: set = set()
         self.retransmit_after = retransmit_after
         self.n_learners = n_learners
@@ -252,8 +728,11 @@ class PaxosContext:
             dict() for _ in range(n_learners)
         ]
         self.delivered_log: list[tuple[int, bytes]] = []
-        self._pending: dict[Any, _Pending] = {}  # client seq -> payload
+        # client seq -> payload; a grouped context keys by (group, seq): each
+        # group is an independent Paxos with its own sequence space
+        self._pending: dict[Any, _Pending] = {}
         self._next_client_seq = 0
+        self._next_client_seq_g = [0] * self.n_groups
         self._next_epoch = 1  # round-allocator epochs
         self._softco: SoftCoordinator | None = None  # failover coordinator
         # snapshots: the rings are watermark-gated (no silent overwrite on
@@ -263,15 +742,19 @@ class PaxosContext:
             if not self.fused:
                 # the drain source is the device learner ring, which only
                 # the fused wire path maintains
-                raise ValueError("snapshots require the fused wire path (fused=True)")
+                raise ValueError(
+                    "snapshots require the fused wire path (fused=True, or any grouped context)"
+                )
             self.snapshots = SnapshotStore(self.hw.device)
             self.hw.enable_reclamation()
         self.stats = {"submitted": 0, "delivered": 0, "retransmits": 0}
 
     # -- paper API -----------------------------------------------------------
     def _check_group(self, group: int) -> None:
-        if group != 0:
-            raise ValueError(f"group {group} out of range [0, 1)")
+        if not 0 <= group < self.n_groups:
+            raise ValueError(f"group {group} out of range [0, {self.n_groups})")
+        if self.grouped and not self.hw.live_host[group]:
+            raise ValueError(f"group {group} is retired")
 
     def submit(self, payload: bytes, group: int = 0) -> int:
         """paxos_submit(ctx, value, size).  Oversized payloads fail here, at
@@ -286,9 +769,14 @@ class PaxosContext:
                 f"minus the 8-byte seq/len header) — raise "
                 f"PaxosConfig.value_words"
             )
-        seq = self._next_client_seq
-        self._next_client_seq += 1
-        self._pending[seq] = _Pending(payload)
+        if self.grouped:
+            seq = self._next_client_seq_g[group]
+            self._next_client_seq_g[group] += 1
+            self._pending[(group, seq)] = _Pending(payload, group=group)
+        else:
+            seq = self._next_client_seq
+            self._next_client_seq += 1
+            self._pending[seq] = _Pending(payload)
         self.net.send("coordinator", ("submit", seq, payload, group))
         self.stats["submitted"] += 1
         return seq
@@ -320,6 +808,12 @@ class PaxosContext:
     # -- internals -----------------------------------------------------------
     def _pump_coordinator(self) -> None:
         inbox = self.net.recv_all("coordinator")
+        if self.grouped:
+            self._pump_coordinator_groups(
+                [(m[1], m[2], m[3]) for m in inbox if m[0] == "submit"],
+                [(m[1], m[2], m[3]) for m in inbox if m[0] == "recover"],
+            )
+            return
         for m in inbox:
             if m[0] == "recover":
                 self._run_recover(m[1], m[2])
@@ -401,31 +895,165 @@ class PaxosContext:
             [self._encode(seq, payload) for seq, payload in chunk], be, self.cfg.value_words
         )
 
+    # -- multi-group internals (G groups on one dataplane) -------------------
+    def _pump_coordinator_groups(
+        self,
+        submits: list[tuple[int, bytes, int]],
+        recovers: list[tuple[int, bytes, int]],
+    ) -> None:
+        """Group-keyed coordinator pump: recovery first, then the groups
+        under a software coordinator (staged, per group), then the cohort
+        waves of the dispatch planner for every hardware-sequenced group.
+
+        Each chunk wave splits the loaded groups into cohorts, one dispatch
+        per distinct right-sized burst; frozen, vacant and idle groups are
+        members of no cohort and burn no instances.  With ``async_pump`` a
+        wave's read-back is deferred until the next wave is dispatched (host
+        ordering only: planning reads the host mirrors, and every wave is
+        resolved before ``pump`` returns, in the serial loop's order)."""
+        # traffic to a retired group is dropped at the door: its slot may
+        # already belong to the free-list or to a new tenant
+        live = self.hw.live_host
+        submits = [s for s in submits if live[s[2]]]
+        for inst, nop, gid in recovers:
+            if live[gid]:
+                self._run_recover_group(gid, inst, nop)
+        queues: list[list[tuple[int, bytes]]] = [[] for _ in range(self.n_groups)]
+        for seq, payload, gid in submits:
+            queues[gid].append((seq, payload))
+        b = self.cfg.batch
+
+        for gid in list(self._softco_g):
+            q, queues[gid] = queues[gid], []
+            for i in range(0, len(q), b):
+                be = self._burst_size(len(q[i : i + b]))
+                vals, active = self._pack_chunk(q[i : i + b], be)
+                p2a = self._soft_sequence_group(gid, vals, active)
+                for aid, v in enumerate(self.hw.group_view(gid).vote(p2a)):
+                    if v is not None:
+                        # learners route on the batch's group tag
+                        self._learn_group(v.gid, aid, _to_host(v))
+
+        hw = self.hw
+        in_flight: list[tuple[tuple[int, ...], _DeferredRound]] = []
+        while any(queues):
+            pending = [len(q) for q in queues]
+            chunks = [q[:b] for q in queues]
+            queues = [q[b:] for q in queues]
+            rp = self.planner.plan_round(
+                [len(c) for c in chunks],
+                hw.next_inst_host,
+                hw.live_host,
+                hw.crnd_host,
+                pending=pending,
+            )
+            for gid, target in rp.realign:
+                hw.burn_forward(gid, target)
+            wave = []
+            for cohort in rp.cohorts:
+                if self._wave_depth_clamped(cohort) > 1:
+                    raise NotImplementedError(f"persistent waves are not ported yet: {_PERSISTENT}")
+                packed = [self._pack_chunk(chunks[gid], cohort.burst) for gid in cohort.gids]
+                vals = np.stack([v for v, _ in packed])
+                act = np.stack([a for _, a in packed])
+                wave.append((cohort.gids, hw.pipeline_cohort(cohort.gids, vals, act, defer=True)))
+            if self.cfg.async_pump:
+                # this wave is in flight: deliver the previous one meanwhile
+                for gids_, handle in in_flight:
+                    self._resolve_wave(gids_, handle)
+                in_flight = wave
+            else:
+                for gids_, handle in wave:
+                    self._resolve_wave(gids_, handle)
+        for gids_, handle in in_flight:
+            self._resolve_wave(gids_, handle)
+
+    def _wave_depth_clamped(self, cohort: plan_mod.Cohort) -> int:
+        """A cohort's planned wave depth, clamped by each member's reclaim
+        headroom (instances until its first unreclaimed slot, in bursts)."""
+        kk = cohort.rounds
+        if kk <= 1:
+            return kk
+        lim = self.hw._reclaim_limits_np()
+        if lim is not None:
+            for gid in cohort.gids:
+                kk = min(kk, (int(lim[gid]) - self.hw.next_inst_host[gid]) // cohort.burst)
+        return max(1, kk)
+
+    def _resolve_wave(self, gids: tuple[int, ...], handle: _DeferredRound) -> None:
+        """Host read-back and delivery of one dispatched cohort round."""
+        fresh, inst, value = handle.resolve()
+        for row, gid in enumerate(gids):
+            for j in np.nonzero(fresh[row])[0]:
+                raw = value[row, j].tobytes()
+                ii = int(inst[row, j])
+                self.learned_g[gid].setdefault(ii, raw)
+                self._deliver_group(gid, ii, raw)
+
+    def _burst_size(self, longest: int) -> int:
+        """Engine-agnostic burst sizing (``plan.quantize_burst``), noted in
+        the planner's burst shapes."""
+        be = plan_mod.quantize_burst(longest, self.cfg.batch)
+        if self.planner is not None:
+            self.planner.note_burst(be)
+        return be
+
+    def _soft_sequence_group(self, gid: int, vals: np.ndarray, active: np.ndarray) -> MsgBatch:
+        """Sequence a burst on group ``gid``'s software coordinator."""
+        return self._soft_p2a(self._softco_g[gid], vals, active, gid=gid)
+
+    def _learn_group(self, gid: int, aid: int, votes: dict) -> None:
+        """Per-group software learner (staged traffic: failover, recovery)."""
+        self._quorum_learn(
+            self.learned_g[gid],
+            self._partial_g[gid],
+            aid,
+            votes,
+            functools.partial(self._deliver_group, gid),
+        )
+
+    def _deliver_group(self, gid: int, inst: int, raw: bytes) -> None:
+        self._deliver_value(inst, raw, group=gid)
+
+    def _run_recover_group(self, gid: int, inst: int, nop: bytes) -> None:
+        """Per-group recovery against one group's view; decided votes go
+        straight to the group's learn surface."""
+        votes = self._recover_votes(self.hw.group_view(gid), inst, nop, gid=gid)
+        for aid, v in enumerate(votes or []):
+            if v is not None:
+                self._learn_group(v.gid, aid, _to_host(v))
+
     def _deliver(self, inst: int, raw: bytes) -> None:
+        self._deliver_value(inst, raw)
+
+    def _deliver_value(self, inst: int, raw: bytes, group: int | None = None) -> None:
         """The delivery contract: discard internal fillers, suppress
         duplicates (a retransmit decided twice, paper §3.1), settle the
-        pending entry, log, and fire the application callback."""
+        pending entry, log, and fire the application callback.  ``group``
+        selects the per-group sequence space and delivery log."""
         words = np.frombuffer(raw, "<i4")
         if words[0] == NOP_SENTINEL:
             return  # internal filler, discarded by the library
         seq = int(words[0])
-        if seq in self._delivered_seqs:
+        key: Any = seq if group is None else (group, seq)
+        if key in self._delivered_seqs:
             return
-        self._delivered_seqs.add(seq)
+        self._delivered_seqs.add(key)
         payload = raw[8 : 8 + int(words[1])]
-        self._pending.pop(seq, None)
+        self._pending.pop(key, None)
         self.delivered_log.append((inst, payload))
-        self.group_log[0].append((inst, payload))
+        self.group_log[0 if group is None else group].append((inst, payload))
         self.stats["delivered"] += 1
         if self.deliver_cb:
             self.deliver_cb(payload, len(payload), inst)
 
     def _retransmit(self) -> None:
-        for seq, p in list(self._pending.items()):
+        for key, p in list(self._pending.items()):
             p.age += 1
             if p.age >= self.retransmit_after:
                 p.age = 0
                 self.stats["retransmits"] += 1
+                seq = key[1] if isinstance(key, tuple) else key
                 self.net.send("coordinator", ("submit", seq, p.payload, p.group))
 
     def _encode(self, seq: int, payload: bytes) -> np.ndarray:
@@ -448,8 +1076,9 @@ class PaxosContext:
 
     def full_group_log(self, gid: int = 0) -> list[tuple[int, bytes]]:
         """The complete delivery history: the compacted snapshot prefix (if
-        any) stitched before the live ``group_log``."""
-        self._check_group(gid)
+        any) stitched before the live ``group_log``; a retired group's too."""
+        if not 0 <= gid < self.n_groups:
+            raise ValueError(f"group {gid} out of range [0, {self.n_groups})")
         if self.snapshots is None:
             return self.group_log[gid]
         return self.snapshots.log_prefix(gid) + self.group_log[gid]
@@ -462,10 +1091,13 @@ class PaxosContext:
         store = self._require_snapshots()
         self._check_group(gid)
         hw = self.hw
-        seq_mark = hw._next_inst_host
-        ld = hw.lstate.delivered.cpu().numpy()
-        li = hw.lstate.inst.cpu().numpy()
-        lv = hw.lstate.value.cpu().numpy()
+        if self.grouped:
+            row = hw._slab_row(gid)
+            seq_mark = hw.next_inst_host[gid]
+            ld, li, lv = (x[row].cpu().numpy() for x in vars(hw.lstate).values())
+        else:
+            seq_mark = hw._next_inst_host
+            ld, li, lv = (x.cpu().numpy() for x in vars(hw.lstate).values())
         upto = seq_mark if upto is None else upto
         wm = store.watermark(gid)
         if not wm <= upto <= seq_mark:
@@ -482,15 +1114,19 @@ class PaxosContext:
             cut += 1
         store.absorb_log(gid, log[:cut])
         self.group_log[gid] = log[cut:]
-        hw.set_reclaimed(upto)
+        if self.grouped:
+            hw.set_reclaimed(gid, upto)
+        else:
+            hw.set_reclaimed(upto)
         return store.snapshot(gid)
 
     def crash_acceptor(self, aid: int, group: int = 0) -> None:
         """Crash an acceptor WITH state loss: liveness drops and its register
         file is reset.  Revive with ``restore_acceptor``."""
         self._check_group(group)
-        self.hw.kill_acceptor(aid)
-        self.hw.wipe_acceptor(aid)
+        ids = (group, aid) if self.grouped else (aid,)
+        self.hw.kill_acceptor(*ids)
+        self.hw.wipe_acceptor(*ids)
 
     def restore_acceptor(self, aid: int, group: int = 0) -> int:
         """Revive a crashed acceptor by state transfer: instances below the
@@ -501,7 +1137,63 @@ class PaxosContext:
 
         self._check_group(group)
         wm = self.snapshots.watermark(group) if self.snapshots else 0
-        return _restore(self.hw, aid, watermark=wm)
+        return _restore(self.hw, aid, gid=group if self.grouped else None, watermark=wm)
+
+    # -- dynamic membership ----------------------------------------------------
+    def _require_grouped(self) -> None:
+        if not self.grouped:
+            raise ValueError("dynamic membership requires a group-keyed context (n_groups > 1)")
+
+    def live_groups(self) -> list[int]:
+        """Live group ids, ascending: the routing domain."""
+        return self.hw.live_groups() if self.grouped else [0]
+
+    def _reset_tenant(self, gid: int) -> None:
+        self.learned_g[gid] = {}
+        self._partial_g[gid] = {}
+        self.group_log[gid] = []
+        self._next_client_seq_g[gid] = 0
+        if self.snapshots is not None:
+            self.snapshots.reset_group(gid)
+
+    def create_group(self) -> int:
+        """Admit a tenant on the lowest free slot: fresh rings, watermark,
+        round and client-sequence space, empty logs.  Returns its gid."""
+        self._require_grouped()
+        gid = self.hw.create_group()
+        self._reset_tenant(gid)
+        return gid
+
+    def adopt_group(
+        self, snap: GroupSnapshot, log_prefix: list[tuple[int, bytes]] | None = None
+    ) -> int:
+        """Admit a tenant bootstrapping from a transferred snapshot: its
+        sequencer and reclamation watermarks start at ``snap.watermark``, and
+        the store is seeded from the transfer after its seal is verified.
+        ``log_prefix`` seeds the stitched history.  Returns the new gid."""
+        self._require_grouped()
+        store = self._require_snapshots()
+        gid = self.hw.adopt_group(int(snap.watermark))
+        self._reset_tenant(gid)
+        store.seed(gid, snap, log_prefix)
+        return gid
+
+    def retire_group(self, gid: int) -> list[tuple[int, bytes]]:
+        """Reclaim a tenant's slot: its round parks at NO_ROUND and the slot
+        joins the free-list.  Undelivered submissions to it are dropped, its
+        in-flight coordinator traffic is purged now (a recreated slot must
+        not sequence the old tenant's submits) and its dedup keys are
+        forgotten.  Returns the stitched delivery history."""
+        self._require_grouped()
+        self.hw.retire_group(gid)  # raises unless live
+        self._softco_g.pop(gid, None)
+        self.net.purge("coordinator", lambda m: m[3] == gid)
+        for key in [k for k in self._pending if isinstance(k, tuple) and k[0] == gid]:
+            del self._pending[key]
+        self._delivered_seqs = {
+            k for k in self._delivered_seqs if not (isinstance(k, tuple) and k[0] == gid)
+        }
+        return self.full_group_log(gid)
 
     # -- failover ------------------------------------------------------------
     def fail_coordinator(self, est_next_inst: int | None = None, group: int = 0):
@@ -512,6 +1204,8 @@ class PaxosContext:
         from .failover import takeover
 
         self._check_group(group)
+        if self.grouped:
+            return self._fail_coordinator_group(group, est_next_inst)
         est = est_next_inst if est_next_inst is not None else int(self.hw.cstate.next_inst)
         epoch = self._next_epoch
         self._next_epoch += 1
@@ -526,8 +1220,37 @@ class PaxosContext:
         self._softco = SoftCoordinator(cid=1, crnd=res.crnd, next_inst=res.next_inst)
         return res
 
+    def _fail_coordinator_group(self, gid: int, est_next_inst: int | None):
+        """Per-group failover: only ``gid`` moves to a software coordinator
+        (its hardware round parks at NO_ROUND, inert in the shared
+        dispatch); every other group keeps its hardware sequencer."""
+        from .failover import takeover_group
+
+        est = est_next_inst if est_next_inst is not None else int(self.hw.cstate.next_inst[gid])
+        epoch = self._next_epoch
+        self._next_epoch += 1
+        res = takeover_group(
+            self.hw,
+            gid,
+            coordinator_id=1,
+            epoch=epoch,
+            est_next_inst=est,
+            window=self.cfg.batch * 2,
+            quorum=self.cfg.quorum,
+        )
+        self._softco_g[gid] = SoftCoordinator(cid=1, crnd=res.crnd, next_inst=res.next_inst)
+        self.hw.freeze_group(gid)
+        return res
+
     def restore_hardware_coordinator(self, group: int = 0) -> None:
         self._check_group(group)
+        if self.grouped:
+            co = self._softco_g.pop(group, None)
+            if co is not None:
+                # only this group's watermark and round move; the block
+                # realignment under use_kernels happens in restore_group
+                self.hw.restore_group(group, int(co.next_inst), int(co.crnd))
+            return
         if self._softco is None:
             return
         nxt = int(self._softco.next_inst)
@@ -545,9 +1268,11 @@ class PaxosContext:
         self.hw._next_inst_host = nxt  # resync the host watermark mirror
         self._softco = None
 
-    def _soft_p2a(self, co: SoftCoordinator, vals: np.ndarray, active: np.ndarray) -> MsgBatch:
+    def _soft_p2a(
+        self, co: SoftCoordinator, vals: np.ndarray, active: np.ndarray, gid: int | None = None
+    ) -> MsgBatch:
         """Software-coordinator sequencing: bind a burst to the coordinator's
-        next window."""
+        next window; ``gid`` tags the batch with its group."""
         b = vals.shape[0]
         dev = self.hw.device
         inst = np.arange(co.next_inst, co.next_inst + b, dtype=np.int32)
@@ -559,21 +1284,25 @@ class PaxosContext:
             vrnd=torch.full((b,), NO_ROUND, dtype=I32, device=dev),
             swid=torch.full((b,), co.cid, dtype=I32, device=dev),
             value=torch.from_numpy(np.ascontiguousarray(vals, np.int32)).to(dev),
+            gid=gid,
         )
 
     def _run_recover(self, inst: int, nop: bytes) -> None:
         """Phase 1 + Phase 2 for one instance with a no-op value (paper
         §3.1); decided votes fan out to the software learners over SimNet."""
-        for aid, v in enumerate(self._recover_votes(inst, nop) or []):
+        for aid, v in enumerate(self._recover_votes(self.hw, inst, nop) or []):
             if v is None:
                 continue
             for lid in range(self.n_learners):
                 self.net.send(("learner", lid), ("votes", aid, _to_host(v)))
 
-    def _recover_votes(self, inst: int, nop: bytes) -> list[MsgBatch | None] | None:
+    def _recover_votes(
+        self, surface, inst: int, nop: bytes, gid: int | None = None
+    ) -> list[MsgBatch | None] | None:
         """Phase-1 scan one instance, choose the required value (a discovered
         vote, else the no-op), Phase-2 it, and return the per-acceptor vote
-        batches (None = no quorum of promises)."""
+        batches (None = no quorum of promises).  ``surface`` is the
+        dataplane or one group's view; ``gid`` tags the batches."""
         from .failover import allocate_round
 
         epoch = self._next_epoch
@@ -584,12 +1313,12 @@ class PaxosContext:
         # fillers carry a contiguous window starting at the target, so the
         # batch addresses distinct ring slots; at NO_ROUND they never accept
         window = torch.arange(inst, inst + b, dtype=I32, device=dev)
-        p1a = MsgBatch.nop(b, self.cfg.value_words, dev).replace(inst=window)
+        p1a = MsgBatch.nop(b, self.cfg.value_words, dev).replace(inst=window, gid=gid)
         p1a.msgtype[0] = MSG_P1A
         p1a.rnd[0] = crnd
         best: tuple[int, bytes | None] = (NO_ROUND, None)
         got = 0
-        for v in self.hw.prepare(p1a):
+        for v in surface.prepare(p1a):
             if v is None:
                 continue
             host = _to_host(v)
@@ -606,11 +1335,11 @@ class PaxosContext:
         else:
             value_words = self._encode(-1, nop)
             value_words[0] = NOP_SENTINEL
-        p2a = MsgBatch.nop(b, self.cfg.value_words, dev).replace(inst=window)
+        p2a = MsgBatch.nop(b, self.cfg.value_words, dev).replace(inst=window, gid=gid)
         p2a.msgtype[0] = MSG_P2A
         p2a.rnd[0] = crnd
         p2a.value[0] = torch.from_numpy(value_words)
-        return self.hw.vote(p2a)
+        return surface.vote(p2a)
 
 
 def _to_host(m: MsgBatch) -> dict:

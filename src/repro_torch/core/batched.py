@@ -1,10 +1,12 @@
 """Batched multi-instance Paxos dataplane in plain PyTorch: the plain engine.
 
-The counterpart of ``repro.core.batched`` for one Paxos group.  Every
-function processes a batch of Paxos headers (``MsgBatch``) in one shot, with
-the reference's ``vmap`` over acceptors written out as a leading acceptor
-axis ``A``.  ``fused_round`` is also the plain version of the fused round
-kernel (``kernels/wirepath.py``): the two agree bit for bit.
+The counterpart of ``repro.core.batched``.  Every function processes a
+batch of Paxos headers (``MsgBatch``) in one shot, with the reference's
+``vmap`` over acceptors (and over groups) written out as a leading axis.
+``fused_round`` is the plain version of the fused round kernel at one group,
+``multigroup_fused_round`` and ``cohort_fused_round`` at G groups and in
+cohort form (``kernels/wirepath.py``): each agrees with the kernel bit for
+bit.
 
 Unlike the reference, which returns new immutable arrays, the register
 files (``AcceptorState``, ``LearnerState``) are updated in place, as the
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .types import (
@@ -120,7 +123,7 @@ def _single(fn, astate: AcceptorState, msgs: MsgBatch, aid: int) -> MsgBatch:
         torch.ones((1,), dtype=torch.bool, device=dev),
         torch.full((1,), aid, dtype=I32, device=dev),  # no host copy: capturable
     )
-    return MsgBatch(*(getattr(out, f.name)[0] for f in dataclasses.fields(MsgBatch)))
+    return MsgBatch(*(x[0] for x in out.tensors()))
 
 
 def acceptor_phase2(
@@ -244,3 +247,190 @@ def fused_round(
     )
     lstate, fresh = learner_update(lstate, deliver, inst, value)
     return cstate, stack, lstate, fresh, inst, win, value
+
+
+# ---------------------------------------------------------------------------
+# Multi-group wire path: G independent Paxos groups, one program
+# ---------------------------------------------------------------------------
+INT32_MAX = 2**31 - 1
+
+
+def init_multigroup_state(
+    n_groups: int,
+    n_acceptors: int,
+    n_instances: int,
+    value_words: int,
+    device: torch.device | str = "cpu",
+) -> tuple[CoordinatorState, AcceptorState, LearnerState]:
+    """Fresh ``(G,)``-stacked coordinator, acceptor and learner state."""
+    g, n, v = n_groups, n_instances, value_words
+    cstate = CoordinatorState(
+        next_inst=torch.zeros((g,), dtype=I32, device=device),
+        crnd=torch.zeros((g,), dtype=I32, device=device),
+    )
+    stack = AcceptorState.init(n, v, device, n_acceptors=n_acceptors)
+    stack = AcceptorState(*(x.expand((g,) + x.shape).clone() for x in vars(stack).values()))
+    one = LearnerState.init(n, v, device)
+    lstate = LearnerState(*(x.expand((g,) + x.shape).clone() for x in vars(one).values()))
+    return cstate, stack, lstate
+
+
+def group_vector(x, g: int, dev: torch.device) -> torch.Tensor:
+    """A per-group int32 vector on ``dev`` from a tensor, array or list."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x, np.int32))
+    return x.to(dev, I32).reshape((g,))
+
+
+def _limits(reclaim_limit, g: int, dev: torch.device) -> torch.Tensor:
+    """Per-group reclaim limits.  ``None`` is int32 max, as the reference's
+    round kernel has it, so the instance 2**31 - 1 alone is refused (the
+    reference's jnp oracle applies no gate there: the two differ at that
+    one instance, and the port follows the kernel on every engine)."""
+    if reclaim_limit is None:
+        return torch.full((g,), INT32_MAX, dtype=I32, device=dev)
+    return group_vector(reclaim_limit, g, dev)
+
+
+def _rows_round(
+    stack: AcceptorState,  # (G, A, N[, V]), in place
+    lstate: LearnerState,  # (G, N[, V]), in place
+    rows: torch.Tensor,  # int64[C]  distinct slab rows
+    next_inst: torch.Tensor,  # int32[C]  window bases
+    crnd: torch.Tensor,  # int32[C]
+    enabled: torch.Tensor,  # bool[C]
+    alive: torch.Tensor,  # bool[C, A]
+    limit: torch.Tensor,  # int32[C]  first refused instance
+    values: torch.Tensor,  # int32[C, B, V]
+    quorum: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Phase-2 round for C slab rows at once, the arithmetic of the
+    round kernel's lane body broadcast over a leading row axis: a lane is
+    accepted by acceptor ``a`` iff its row is enabled, ``a`` is alive, the
+    round is no lower than the promise and the instance is below the
+    reclaim limit.  A disabled row changes no state and gives fresh 0, win
+    NO_ROUND and value 0.  Returns ``(fresh[C, B], inst[C, B], win[C, B],
+    value[C, B, V])``."""
+    c, b, _v = values.shape
+    a, n = stack.rnd.shape[1], stack.rnd.shape[2]
+    dev = values.device
+    inst = next_inst[:, None] + torch.arange(b, dtype=I32, device=dev)[None, :]  # wraps
+    slots = _slots(inst, n)  # (C, B)
+    gi, ai, si = rows[:, None, None], torch.arange(a, device=dev)[None, :, None], slots[:, None]
+    cur_rnd = stack.rnd[gi, ai, si]  # (C, A, B)
+    cur_vrnd = stack.vrnd[gi, ai, si]
+    cur_val = stack.value[gi, ai, si]  # (C, A, B, V)
+    cr = crnd[:, None, None]
+    permit = inst < limit[:, None]
+    accept = enabled[:, None, None] & alive[:, :, None] & (cr >= cur_rnd) & permit[:, None, :]
+    stack.rnd[gi, ai, si] = torch.where(accept, cr, cur_rnd)
+    stack.vrnd[gi, ai, si] = torch.where(accept, cr, cur_vrnd)
+    stack.value[gi, ai, si] = torch.where(accept[..., None], values[:, None], cur_val)
+    # learner quorum down the acceptor axis: every accepting acceptor votes
+    # the row's round and the burst value
+    vote_vrnd = torch.where(accept, cr, NO_ROUND)
+    win = vote_vrnd.amax(dim=1)  # (C, B)
+    agree = accept & (vote_vrnd == win[:, None])
+    deliver = agree.to(I32).sum(dim=1) >= quorum
+    value = torch.where(agree.any(dim=1)[..., None], values, 0)
+    # ring dedup, in place
+    ri = rows[:, None]
+    ld, li = lstate.delivered[ri, slots], lstate.inst[ri, slots]
+    fresh = deliver & ~((ld != 0) & (li == inst))
+    lstate.delivered[ri, slots] = ld | deliver.to(I32)
+    lstate.inst[ri, slots] = torch.where(fresh, inst, li)
+    lstate.value[ri, slots] = torch.where(fresh[..., None], value, lstate.value[ri, slots])
+    return fresh, inst, win, value
+
+
+def multigroup_fused_round(
+    cstate: CoordinatorState,  # (G,)
+    stack: AcceptorState,  # (G, A, N[, V])
+    lstate: LearnerState,  # (G, N[, V])
+    values: torch.Tensor,  # int32[G, B, V]
+    active: torch.Tensor,  # bool[G, B]
+    alive: torch.Tensor,  # bool[G, A]
+    quorum: int,
+    enabled=None,  # 0/1 per group; None = all
+    reclaim_limit=None,  # int32[G]; None = no reclamation
+) -> tuple[
+    CoordinatorState,
+    AcceptorState,
+    LearnerState,
+    torch.Tensor,
+    torch.Tensor,
+    torch.Tensor,
+    torch.Tensor,
+]:
+    """``fused_round`` over a leading group axis, as one broadcast program:
+    G independent groups advance one Phase-2 round.  A disabled group is
+    presented at NO_ROUND and decides nothing.  As in the reference, the
+    returned watermark advances for EVERY group (callers mixing enabled and
+    disabled groups correct it), and the returned round is the presented
+    one.  ``active`` is not read: sequenced NOP fillers vote like P2As.
+    Returns the ``fused_round`` tuple with a leading ``(G,)`` axis."""
+    del active
+    g, b = values.shape[:2]
+    dev = values.device
+    en = (
+        torch.ones((g,), dtype=torch.bool, device=dev)
+        if enabled is None
+        else group_vector(enabled, g, dev) != 0
+    )
+    crnd = torch.where(en, cstate.crnd, NO_ROUND)
+    limit = _limits(reclaim_limit, g, dev)
+    rows = torch.arange(g, device=dev)
+    fresh, inst, win, value = _rows_round(
+        stack, lstate, rows, cstate.next_inst, crnd, en, alive, limit, values, quorum
+    )
+    new_c = CoordinatorState(next_inst=cstate.next_inst + b, crnd=crnd)
+    return new_c, stack, lstate, fresh, inst, win, value
+
+
+def cohort_rows(gsel, group_block: int, dev: torch.device) -> torch.Tensor:
+    """Slab rows of a cohort dispatch in compact order: row ``j*GB + k`` is
+    group ``gsel[j]*GB + k``."""
+    if not isinstance(gsel, torch.Tensor):
+        gsel = torch.from_numpy(np.asarray(gsel, np.int64))
+    ks = torch.arange(group_block, device=dev)
+    return (gsel.to(dev, torch.int64)[:, None] * group_block + ks[None, :]).reshape(-1)
+
+
+def cohort_fused_round(
+    stack: AcceptorState,  # (G, A, N[, V])
+    lstate: LearnerState,  # (G, N[, V])
+    gsel,  # int[NB]  selected group blocks
+    next_inst: torch.Tensor,  # int32[G]
+    crnd: torch.Tensor,  # int32[G]
+    alive: torch.Tensor,  # bool[G, A]
+    quorum: int,
+    values: torch.Tensor,  # int32[NB*GB, B, V]  compact cohort burst
+    enabled,  # 0/1 per group: the cohort's members
+    reclaim_limit=None,  # int32[G]; None = no reclamation
+    *,
+    group_block: int = 1,
+) -> tuple[AcceptorState, LearnerState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the cohort round kernel, with its compact-row
+    contract: gather the rows of the group blocks ``gsel`` names, run one
+    round on them at each group's own window base, write the rows back.
+    Members of a selected block that are not enabled ride inert.  Returns
+    ``(stack, lstate, fresh[C, B], win[C, B], value[C, B, V])`` with
+    ``C = NB * group_block`` rows in compact order."""
+    g = stack.rnd.shape[0]
+    dev = values.device
+    rows = cohort_rows(gsel, group_block, dev)
+    en = group_vector(enabled, g, dev) != 0
+    limit = _limits(reclaim_limit, g, dev)
+    fresh, _inst, win, value = _rows_round(
+        stack,
+        lstate,
+        rows,
+        next_inst[rows],
+        torch.where(en, crnd, NO_ROUND)[rows],
+        en[rows],
+        alive[rows],
+        limit[rows],
+        values,
+        quorum,
+    )
+    return stack, lstate, fresh, win, value

@@ -1,15 +1,18 @@
-"""Carry a single-group dataplane's state across packages through numpy.
+"""Carry a dataplane's state across packages through numpy.
 
-``export_state`` reads a ``HardwareDataplane`` into a dict of numpy arrays
-under the reference's field names; ``import_state`` loads such a dict into
-the port's dataplane in place.  ``export_state`` only reads attributes by
-those names, so it reads the reference's ``repro.core.HardwareDataplane``
-just as well: its state, loaded into the port, runs on identically.
+``export_state`` reads a ``HardwareDataplane`` or a ``MultiGroupDataplane``
+into a dict of numpy arrays under the reference's field names;
+``import_state`` loads such a dict into the port's dataplane of the same
+kind in place.  ``export_state`` only reads attributes by those names, so
+it reads the reference's dataplanes just as well: their state, loaded into
+the port, runs on identically.
 
-Keys: ``cstate.next_inst``, ``cstate.crnd``, ``stack.rnd``, ``stack.vrnd``,
-``stack.value``, ``lstate.delivered``, ``lstate.inst``, ``lstate.value``,
-``alive``, ``next_inst_host`` (the host watermark mirror) and
-``reclaimed_host`` (the reclamation mark, -1 while reclamation is off).
+Keys of both: ``cstate.next_inst``, ``cstate.crnd``, ``stack.rnd``,
+``stack.vrnd``, ``stack.value``, ``lstate.delivered``, ``lstate.inst``,
+``lstate.value``, ``alive``, ``next_inst_host`` (the host watermark mirror)
+and ``reclaimed_host`` (the reclamation marks, -1 while reclamation is off).
+A multi-group dataplane's arrays carry a leading group axis, and it adds its
+host mirrors ``crnd_host``, ``live_host`` and ``free`` (the free-list).
 """
 
 from __future__ import annotations
@@ -40,13 +43,25 @@ def _get(hw, key: str):
     return getattr(getattr(hw, obj), field)
 
 
+def _grouped(hw) -> bool:
+    return hasattr(hw, "next_inst_host")
+
+
 def export_state(hw) -> dict[str, np.ndarray]:
     """The dataplane's device state and host marks as numpy copies."""
     out = {key: _np(_get(hw, key)) for key in ("cstate.next_inst", "cstate.crnd", *_TENSORS)}
     out["alive"] = _np(hw.alive_mask).astype(bool)
-    out["next_inst_host"] = np.array(hw._next_inst_host, np.int64)
     marked = hw.reclaimed_host
-    out["reclaimed_host"] = np.array(-1 if marked is None else marked, np.int64)
+    if not _grouped(hw):
+        out["next_inst_host"] = np.array(hw._next_inst_host, np.int64)
+        out["reclaimed_host"] = np.array(-1 if marked is None else marked, np.int64)
+        return out
+    g = len(hw.next_inst_host)
+    out["next_inst_host"] = np.array(hw.next_inst_host, np.int64)
+    out["crnd_host"] = np.array(hw.crnd_host, np.int64)
+    out["live_host"] = np.array(hw.live_host, bool)
+    out["free"] = np.array(hw._free, np.int64)
+    out["reclaimed_host"] = np.array([-1] * g if marked is None else marked, np.int64)
     return out
 
 
@@ -59,14 +74,27 @@ def import_state(hw, arrays: dict[str, np.ndarray]) -> None:
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{key}: shape {tuple(src.shape)} != {tuple(dst.shape)}")
         dst.copy_(src)
-    hw.cstate = CoordinatorState.init(
-        crnd=int(arrays["cstate.crnd"]),
-        next_inst=int(arrays["cstate.next_inst"]),
-        device=hw.device,
-    )
     alive = np.asarray(arrays["alive"], bool)
-    hw.alive = [bool(a) for a in alive]
     hw.alive_mask.copy_(torch.from_numpy(alive))
-    hw._next_inst_host = int(arrays["next_inst_host"])
-    mark = int(arrays["reclaimed_host"])
-    hw._reclaim_marks = None if mark < 0 else [mark]
+    marks = [int(m) for m in np.asarray(arrays["reclaimed_host"]).reshape(-1)]
+    hw._reclaim_marks = None if marks[0] < 0 else marks
+    if not _grouped(hw):
+        hw.cstate = CoordinatorState.init(
+            crnd=int(arrays["cstate.crnd"]),
+            next_inst=int(arrays["cstate.next_inst"]),
+            device=hw.device,
+        )
+        hw.alive = [bool(a) for a in alive]
+        hw._next_inst_host = int(arrays["next_inst_host"])
+        return
+    hw.cstate = CoordinatorState(
+        *(
+            torch.from_numpy(np.asarray(arrays[k], np.int32)).to(hw.device)
+            for k in ("cstate.next_inst", "cstate.crnd")
+        )
+    )
+    hw.alive = [[bool(a) for a in row] for row in alive]
+    hw.next_inst_host = [int(x) for x in arrays["next_inst_host"]]
+    hw.crnd_host = [int(x) for x in arrays["crnd_host"]]
+    hw.live_host = [bool(x) for x in arrays["live_host"]]
+    hw._free = [int(x) for x in arrays["free"]]

@@ -1,6 +1,6 @@
 """Coordinator failover (paper §3.1 + §6.4) and acceptor state restore.
 
-The counterpart of ``repro.core.failover`` for one Paxos group.  When the
+The counterpart of ``repro.core.failover``.  When the
 hardware coordinator fails, a software coordinator takes over by the safe
 procedure: it claims a strictly higher round (rounds are partitioned by
 coordinator id, so two coordinators never share one), runs batched Phase 1
@@ -110,6 +110,30 @@ def takeover(
     return TakeoverResult(crnd=crnd, next_inst=next_inst, reproposed=reproposed, scanned=scanned)
 
 
+def takeover_group(
+    mg,  # MultiGroupDataplane
+    gid: int,
+    *,
+    coordinator_id: int,
+    epoch: int,
+    est_next_inst: int,
+    window: int,
+    quorum: int,
+) -> TakeoverResult:
+    """``takeover`` scoped to one group of a multi-group dataplane through
+    its view (``mg.group_view(gid)``): the scan, the re-proposals and the
+    catch-up touch only that group's rows; every other group's registers,
+    watermark and round are left as they are."""
+    return takeover(
+        mg.group_view(gid),
+        coordinator_id=coordinator_id,
+        epoch=epoch,
+        est_next_inst=est_next_inst,
+        window=window,
+        quorum=quorum,
+    )
+
+
 def rebuild_acceptor_rows(
     ld: np.ndarray,
     li: np.ndarray,
@@ -135,17 +159,25 @@ def rebuild_acceptor_rows(
     return rnd, vrnd, val
 
 
-def restore_acceptor(hw, aid: int, *, watermark: int = 0) -> int:
+def restore_acceptor(hw, aid: int, *, gid: int | None = None, watermark: int = 0) -> int:
     """Rebuild a wiped acceptor from the snapshot watermark and the live ring
     suffix ``[watermark, next_inst)`` of the learner ring, write its rows in
-    place and rejoin it to the quorum.  Returns the number of adopted
-    (decided) instances."""
-    ld = hw.lstate.delivered.cpu().numpy()
-    li = hw.lstate.inst.cpu().numpy()
-    lv = hw.lstate.value.cpu().numpy()
-    crnd = int(hw.cstate.crnd)
-    rnd, vrnd, val = rebuild_acceptor_rows(ld, li, lv, crnd, watermark, int(hw._next_inst_host))
-    for dst, src in ((hw.stack.rnd, rnd), (hw.stack.vrnd, vrnd), (hw.stack.value, val)):
+    place and rejoin it to the quorum.  ``gid`` names the group on a
+    multi-group dataplane (``hw`` is then a ``MultiGroupDataplane``).
+    Returns the number of adopted (decided) instances."""
+    learner, acceptors = list(vars(hw.lstate).values()), list(vars(hw.stack).values())
+    if gid is None:
+        crnd, hi = int(hw.cstate.crnd), int(hw._next_inst_host)
+    else:  # the group's rows of the slabs, as views
+        row = hw._slab_row(gid)
+        learner, acceptors = [x[row] for x in learner], [x[row] for x in acceptors]
+        crnd, hi = int(hw.crnd_host[gid]), int(hw.next_inst_host[gid])
+    ld, li, lv = (x.cpu().numpy() for x in learner)
+    rnd, vrnd, val = rebuild_acceptor_rows(ld, li, lv, crnd, watermark, hi)
+    for dst, src in zip(acceptors, (rnd, vrnd, val), strict=True):
         dst[aid].copy_(torch.from_numpy(src))
-    hw.revive_acceptor(aid)
+    if gid is None:
+        hw.revive_acceptor(aid)
+    else:
+        hw.revive_acceptor(gid, aid)
     return int((vrnd != NO_ROUND).sum())

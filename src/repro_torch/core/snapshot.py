@@ -123,6 +123,14 @@ class RingReclamationMixin:
             )
         self._reclaim_marks[gid] = upto
 
+    def _reclaim_limits_np(self) -> np.ndarray | None:
+        """int32[G] first-refused-instance vector, or None when disabled:
+        the reference's expression, so a mark within N of int32 max wraps
+        to a negative limit (numpy int32 addition) exactly as it does."""
+        if self._reclaim_marks is None:
+            return None
+        return np.asarray(self._reclaim_marks, np.int32) + self.cfg.n_instances
+
     def _reclaim_guard(self, gid: int, base: int, burst: int) -> None:
         if self._reclaim_marks is None:
             return
@@ -248,3 +256,39 @@ class SnapshotStore:
             values=values.copy(),
             seal=_seal(insts, values, self.device),
         )
+
+    # -- transfer / lifecycle ----------------------------------------------
+    def seed(
+        self,
+        gid: int,
+        snap: GroupSnapshot,
+        log_prefix: list[tuple[int, bytes]] | None = None,
+    ) -> None:
+        """Install a transferred snapshot under ``gid``, verifying its seal
+        (the divergence check: a corrupted or diverged transfer is rejected,
+        not trusted).  Used when a freshly created group member bootstraps
+        from a peer's snapshot (vertical-Paxos state transfer)."""
+        if gid in self._insts or self.watermark(gid):
+            raise ValueError(f"group {gid} already has snapshot state")
+        insts = np.asarray(snap.insts, np.int32).reshape((-1,))
+        values = np.asarray(snap.values, np.int32)
+        if insts.size:
+            values = values.reshape((insts.size, -1))
+        if _seal(insts, values, self.device) != snap.seal:
+            raise ValueError(
+                f"snapshot seal mismatch for group {gid}: transfer is "
+                f"corrupt or replicas diverged"
+            )
+        if insts.size:
+            self._insts[gid] = insts
+            self._values[gid] = values
+        self._watermark[gid] = int(snap.watermark)
+        if log_prefix:
+            self._log[gid] = list(log_prefix)
+
+    def reset_group(self, gid: int) -> None:
+        """Forget a group's snapshot state (slot retired / recreated)."""
+        self._insts.pop(gid, None)
+        self._values.pop(gid, None)
+        self._watermark.pop(gid, None)
+        self._log.pop(gid, None)

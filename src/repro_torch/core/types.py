@@ -33,15 +33,25 @@ I32 = torch.int32
 
 @dataclasses.dataclass(frozen=True)
 class PaxosConfig:
-    """Static protocol configuration, with the reference's defaults.  The
-    reference's multi-group knobs (``realign_after``, ``persistent_rounds``,
-    ``async_pump``) arrive with the multi-group slice."""
+    """Static protocol configuration, with the reference's defaults."""
 
     n_acceptors: int = 3  # 2f+1
     n_instances: int = DEFAULT_INSTANCES
     value_words: int = DEFAULT_VALUE_WORDS
     batch: int = 128  # dataplane batch ("packets per burst")
-    n_groups: int = 1  # device-resident Paxos groups (G); only 1 is ported
+    n_groups: int = 1  # device-resident Paxos groups (G)
+    # consecutive fragmented rounds (enabled groups over more than one
+    # watermark class) after which the planner burns divergent groups
+    # forward to a common block boundary; None = never realign, so instance
+    # numbering stays identical to independent per-group deployments
+    realign_after: int | None = None
+    # persistent-wave depth cap: up to K full rounds of a cohort in one
+    # dispatch.  The port plans waves but runs none yet: a grouped context
+    # takes only 1 (ROADMAP.md queue 1, item 3)
+    persistent_rounds: int = 8
+    # double-buffered pump: plan and pack wave N+1 before wave N's host
+    # read-back; pump() stays synchronous and delivery order is unchanged
+    async_pump: bool = True
 
     @property
     def f(self) -> int:
@@ -61,7 +71,8 @@ class PaxosConfig:
 @dataclasses.dataclass
 class MsgBatch:
     """A batch of Paxos headers: every field ``[..., B]``, ``value``
-    ``[..., B, V]``.  The reference's ``gid`` tag comes with multi-group."""
+    ``[..., B, V]``.  ``gid`` is the consensus group the batch belongs to on
+    a multi-group dataplane (a plain int; ``None`` = group 0, untagged)."""
 
     msgtype: torch.Tensor
     inst: torch.Tensor
@@ -69,6 +80,13 @@ class MsgBatch:
     vrnd: torch.Tensor
     swid: torch.Tensor
     value: torch.Tensor
+    gid: int | None = None
+
+    FIELDS = ("msgtype", "inst", "rnd", "vrnd", "swid", "value")
+
+    def tensors(self) -> list[torch.Tensor]:
+        """The six header fields, in order (``gid`` left out)."""
+        return [getattr(self, f) for f in self.FIELDS]
 
     @classmethod
     def nop(

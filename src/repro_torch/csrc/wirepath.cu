@@ -1,36 +1,118 @@
-// K1: one fused Phase-2 round of a single Paxos group, for Hopper (sm_90a).
+// K1: one fused Phase-2 round of Paxos groups, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `cohort_wirepath_round` of
-// src/repro/kernels/wirepath.py (its G=1 slice `wirepath_round`), whose body
-// is `_phase2_block`: coordinator sequencing, the Phase-2 vote of all A
-// acceptors, the learner quorum and the learner ring dedup, in one launch,
-// with the six state tensors updated in place.
+// src/repro/kernels/wirepath.py, whose body is `_phase2_block`:
+// coordinator sequencing, the Phase-2 vote of all A acceptors, the learner
+// quorum and the learner ring dedup, in one launch, with the six state
+// tensors updated in place.  Two entries share one lane body (`phase2_lane`):
+//   wirepath_round         the single-group slice (`wirepath_round` there);
+//   cohort_wirepath_round  the cohort form over (G, ...) slabs, and through
+//                          it the full-width `multigroup_wirepath_round`.
 //
-// Design.  One thread per lane j of the B-lane window; lane j addresses ring
-// slot (next_inst + j) mod N and writes its instance; thread 0 writes the
-// advanced watermark next_inst + B to a separate scalar, so no lane's read
-// of next_inst races with it.  The A-axis vote, max, agree count and first
-// agreeing acceptor stay in registers (A <= MAX_A).  Per-lane addressing
-// needs no block alignment of the window, so any window base is served and
-// there is no fallback path.  B <= N keeps the B slots distinct, so the
+// Design.  One thread per lane j of a B-lane window; lane j of group g
+// addresses ring slot (next_inst[g] + j) mod N, the non-negative modulo,
+// so any window base is served, a wrapped (negative) instance included, and
+// there is no block-alignment precondition and no fallback path.  The
+// A-axis vote, max, agree count and first agreeing acceptor stay in
+// registers (A <= MAX_A).  B <= N keeps a group's B slots distinct, so the
 // in-place writes of different lanes never touch the same registers.
+//
+// Single group: thread 0 writes the advanced watermark next_inst + B to a
+// separate scalar, so no lane's read of next_inst races with it.
+//
+// Cohort form: one block per (compact row, 128 lanes).  Row r serves group
+// gsel[r / GB] * GB + r % GB and writes its fresh/win/value outputs at row
+// r; the selected blocks are distinct (the wrapper checks), so no two rows
+// touch one group.  Per-group next_inst, crnd and limit come as int32[G]
+// device vectors, so a reclaim limit that wrapped past int32 max stays
+// wrapped and refuses every lane of its group, as the reference's does.  A
+// member of a selected block that is not enabled is inert: it touches no
+// state and gives fresh 0, win NO_ROUND (-1), value 0 -- what the
+// reference's kernel gives it at NO_ROUND on a substituted window, and
+// state-exact, since that window is written back unchanged.  Each row uses
+// its own group's window base, so GB (the TPU's group fold) changes no
+// result here.
 //
 // Bound.  Only the bytes the kernel reads and writes count; vrnd, the
 // acceptors' values and the learner's values are written, never read.
+// Per group (single-group entry):
 //   reads:  rnd A*B*4 + ldel, linst 2*B*4 + burst B*V*4 + alive A
 //           + next_inst, crnd 8
 //   writes: rnd, vrnd, val A*B*(2+V)*4 + ldel, linst, lval B*(2+V)*4
 //           + next_out 4 + inst, win 2*B*4 + fresh B + value B*V*4
 // (the acceptor and learner writes are the most a launch makes: every lane
-// accepted by all A acceptors and fresh, as on the main path with every
-// acceptor alive).  At A=3, B=128, V=16: 10,763 B read + 46,212 B written =
-// 56,975 B, 17.0 ns at the card's 3.35 TB/s -- far below a launch's
-// latency, so a launch of this size is bound by launch latency, not by
-// device memory.
+// accepted by all A acceptors and fresh).  At A=3, B=128, V=16: 10,763 B
+// read + 46,212 B written = 56,975 B, 17.0 ns at the card's 3.35 TB/s.  The
+// cohort entry moves the same per selected group, less next_out and inst,
+// plus limit and enabled (8) and its gsel word.  Both are far below a
+// launch's latency, so a launch of this size is bound by launch latency,
+// not by device memory.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define MAX_A 8
+
+// One lane of one group's window: the vote of the A acceptors, the quorum
+// and the ring dedup.  The pointers are the group's own rings and the
+// lane's own burst words and outputs.
+__device__ __forceinline__ void phase2_lane(
+    int inst, int crnd, const unsigned char* __restrict__ alive,
+    int quorum, int limit, int A, int N, int V,
+    int* __restrict__ st_rnd,    // int32[A, N]      in place
+    int* __restrict__ st_vrnd,   // int32[A, N]      in place
+    int* __restrict__ st_val,    // int32[A, N, V]   in place
+    int* __restrict__ ldel,      // int32[N]         in place
+    int* __restrict__ linst,     // int32[N]         in place
+    int* __restrict__ lval,      // int32[N, V]      in place
+    const int* __restrict__ mval,  // int32[V]  the lane's burst value
+    bool* __restrict__ fresh,      // the lane's outputs
+    int* __restrict__ win_out,
+    int* __restrict__ vout)        // int32[V]
+{
+    int slot = inst % N;
+    if (slot < 0) slot += N;  // the non-negative modulo of jnp's `%`
+    const bool permit = inst < limit;
+
+    bool accept[MAX_A];
+    int win = -1;  // max over acceptors of (accept ? crnd : NO_ROUND)
+    for (int a = 0; a < A; ++a) {
+        accept[a] = alive[a] != 0 && crnd >= st_rnd[(size_t)a * N + slot] && permit;
+        const int vote = accept[a] ? crnd : -1;
+        win = vote > win ? vote : win;
+    }
+    int count = 0;
+    bool any_agree = false;
+    for (int a = 0; a < A; ++a) {
+        const bool agree = accept[a] && crnd == win;
+        count += agree;
+        any_agree |= agree;
+    }
+    const bool deliver = count >= quorum;
+
+    for (int a = 0; a < A; ++a) {
+        if (!accept[a]) continue;
+        const size_t r = (size_t)a * N + slot;
+        st_rnd[r] = crnd;
+        st_vrnd[r] = crnd;
+        int* dst = st_val + r * V;
+        for (int k = 0; k < V; ++k) dst[k] = mval[k];
+    }
+
+    // the decided value is the first agreeing acceptor's vote: the burst
+    // value if any acceptor agrees, else 0 -- also where deliver is false
+    for (int k = 0; k < V; ++k) vout[k] = any_agree ? mval[k] : 0;
+    *win_out = win;
+
+    const bool dup = ldel[slot] != 0 && linst[slot] == inst;
+    const bool is_fresh = deliver && !dup;
+    *fresh = is_fresh;
+    ldel[slot] |= (int)deliver;
+    if (is_fresh) {
+        linst[slot] = inst;
+        int* ldst = lval + (size_t)slot * V;
+        for (int k = 0; k < V; ++k) ldst[k] = vout[k];
+    }
+}
 
 __global__ void wirepath_round_kernel(
     const int* __restrict__ next_inst_p,  // int32[]  window base (any value)
@@ -52,56 +134,53 @@ __global__ void wirepath_round_kernel(
 {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
     if (j >= B) return;
-    const int crnd = *crnd_p;
     // int32 wraparound, as the reference's int32 arithmetic
     const int inst = (int)((unsigned)(*next_inst_p) + (unsigned)j);
     if (j == 0) *next_out = (int)((unsigned)(*next_inst_p) + (unsigned)B);
     inst_out[j] = inst;
-    int slot = inst % N;
-    if (slot < 0) slot += N;  // the non-negative modulo of jnp's `%`
-    const bool permit = inst < limit;
+    phase2_lane(inst, *crnd_p, alive, quorum, limit, A, N, V,
+                st_rnd, st_vrnd, st_val, ldel, linst, lval,
+                values + (size_t)j * V, fresh + j, win_out + j, value_out + (size_t)j * V);
+}
 
-    bool accept[MAX_A];
-    int win = -1;  // max over acceptors of (accept ? crnd : NO_ROUND)
-    for (int a = 0; a < A; ++a) {
-        accept[a] = alive[a] != 0 && crnd >= st_rnd[(size_t)a * N + slot] && permit;
-        const int vote = accept[a] ? crnd : -1;
-        win = vote > win ? vote : win;
+__global__ void cohort_wirepath_round_kernel(
+    const int* __restrict__ gsel,       // int32[NB]  selected group blocks
+    int gb,                             // groups per block (GB)
+    const int* __restrict__ next_inst,  // int32[G]  window bases (any value)
+    const int* __restrict__ crnd,       // int32[G]
+    const int* __restrict__ limit,      // int32[G]  first refused instance
+    const unsigned char* __restrict__ alive,  // bool[G, A]
+    const int* __restrict__ enabled,    // int32[G]  0 = inert
+    int quorum, int A, int N, int V, int B,
+    int* __restrict__ st_rnd,    // int32[G, A, N]      in place
+    int* __restrict__ st_vrnd,   // int32[G, A, N]      in place
+    int* __restrict__ st_val,    // int32[G, A, N, V]   in place
+    int* __restrict__ ldel,      // int32[G, N]         in place
+    int* __restrict__ linst,     // int32[G, N]         in place
+    int* __restrict__ lval,      // int32[G, N, V]      in place
+    const int* __restrict__ values,  // int32[C, B, V]  compact burst
+    bool* __restrict__ fresh,    // bool[C, B]   out, compact
+    int* __restrict__ win_out,   // int32[C, B]  out, compact
+    int* __restrict__ value_out) // int32[C, B, V]  out, compact
+{
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    const int r = blockIdx.y;  // compact row
+    if (j >= B) return;
+    const int g = gsel[r / gb] * gb + r % gb;
+    const size_t lane = (size_t)r * B + j;
+    int* vout = value_out + lane * V;
+    if (!enabled[g]) {
+        fresh[lane] = false;
+        win_out[lane] = -1;
+        for (int k = 0; k < V; ++k) vout[k] = 0;
+        return;
     }
-    int count = 0;
-    bool any_agree = false;
-    for (int a = 0; a < A; ++a) {
-        const bool agree = accept[a] && crnd == win;
-        count += agree;
-        any_agree |= agree;
-    }
-    const bool deliver = count >= quorum;
-
-    const int* mval = values + (size_t)j * V;
-    for (int a = 0; a < A; ++a) {
-        if (!accept[a]) continue;
-        const size_t r = (size_t)a * N + slot;
-        st_rnd[r] = crnd;
-        st_vrnd[r] = crnd;
-        int* dst = st_val + r * V;
-        for (int k = 0; k < V; ++k) dst[k] = mval[k];
-    }
-
-    // the decided value is the first agreeing acceptor's vote: the burst
-    // value if any acceptor agrees, else 0 -- also where deliver is false
-    int* vout = value_out + (size_t)j * V;
-    for (int k = 0; k < V; ++k) vout[k] = any_agree ? mval[k] : 0;
-    win_out[j] = win;
-
-    const bool dup = ldel[slot] != 0 && linst[slot] == inst;
-    const bool is_fresh = deliver && !dup;
-    fresh[j] = is_fresh;
-    ldel[slot] |= (int)deliver;
-    if (is_fresh) {
-        linst[slot] = inst;
-        int* ldst = lval + (size_t)slot * V;
-        for (int k = 0; k < V; ++k) ldst[k] = vout[k];
-    }
+    const int inst = (int)((unsigned)next_inst[g] + (unsigned)j);  // int32 wrap
+    const size_t an = (size_t)A * N;
+    phase2_lane(inst, crnd[g], alive + (size_t)g * A, quorum, limit[g], A, N, V,
+                st_rnd + g * an, st_vrnd + g * an, st_val + g * an * V,
+                ldel + (size_t)g * N, linst + (size_t)g * N, lval + (size_t)g * N * V,
+                values + lane * V, fresh + lane, win_out + lane, vout);
 }
 
 extern "C" int wirepath_round(
@@ -121,5 +200,29 @@ extern "C" int wirepath_round(
         (int*)st_rnd, (int*)st_vrnd, (int*)st_val,
         (int*)ldel, (int*)linst, (int*)lval,
         (const int*)values, (int*)next_out, (int*)inst, (bool*)fresh, (int*)win, (int*)value);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int cohort_wirepath_round(
+    const void* gsel, int nb, int gb,
+    const void* next_inst, const void* crnd, const void* limit,
+    const void* alive, const void* enabled,
+    int quorum, int G, int A, int N, int V, int B,
+    void* st_rnd, void* st_vrnd, void* st_val,
+    void* ldel, void* linst, void* lval,
+    const void* values, void* fresh, void* win, void* value,
+    void* stream)
+{
+    if (A < 1 || A > MAX_A || B < 1 || B > N || V < 1 || gb < 1 || nb < 1
+        || G % gb != 0 || nb * gb > G)
+        return (int)cudaErrorInvalidValue;
+    const int threads = 128;
+    const dim3 grid((B + threads - 1) / threads, nb * gb);
+    cohort_wirepath_round_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        (const int*)gsel, gb, (const int*)next_inst, (const int*)crnd, (const int*)limit,
+        (const unsigned char*)alive, (const int*)enabled, quorum, A, N, V, B,
+        (int*)st_rnd, (int*)st_vrnd, (int*)st_val,
+        (int*)ldel, (int*)linst, (int*)lval,
+        (const int*)values, (bool*)fresh, (int*)win, (int*)value);
     return (int)cudaGetLastError();
 }

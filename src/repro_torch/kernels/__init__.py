@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``) and their dispatch.
 
-* ``wirepath``    — K1, the fused Phase-2 round of one group, and K2, the
+* ``wirepath``    — K1, the fused Phase-2 round (one group, G groups, a cohort), and K2, the
   staged vote of the acceptor array.
 * ``coordinator`` — K3, the sequencer.
 * ``digest``      — K4, the snapshot seal's weighted fold, and its plain version.

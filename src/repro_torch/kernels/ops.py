@@ -139,6 +139,113 @@ def fused_round(
     return new_c, stack, lstate, fresh, inst, win, value
 
 
+def multigroup_fused_round(
+    cstate: CoordinatorState,
+    stack: AcceptorState,
+    lstate: LearnerState,
+    values: torch.Tensor,
+    active: torch.Tensor,
+    alive: torch.Tensor,
+    quorum: int,
+    enabled=None,
+    reclaim_limit=None,
+    *,
+    group_block: int = 1,
+) -> tuple[
+    CoordinatorState,
+    AcceptorState,
+    LearnerState,
+    torch.Tensor,
+    torch.Tensor,
+    torch.Tensor,
+    torch.Tensor,
+]:
+    """One fused Phase-2 round of all G groups: K1 in multi-group form on
+    the card, ``batched.multigroup_fused_round`` on the CPU, state updated
+    in place either way.  ``enabled`` (0/1 per group) holds groups inert;
+    ``reclaim_limit`` is the per-group limit vector (it may hold wrapped,
+    negative limits).  The returned watermark advances for every group and
+    the returned round is the presented one (NO_ROUND where disabled).
+    ``group_block`` is the reference kernel's fold, accepted for its
+    signature: K1 maps one group per row at any window base."""
+    if not _route(values, "multigroup_fused_round"):
+        return _batched.multigroup_fused_round(
+            cstate, stack, lstate, values, active, alive, quorum, enabled, reclaim_limit
+        )
+    g, b = values.shape[:2]
+    dev = values.device
+    en = None if enabled is None else _batched.group_vector(enabled, g, dev)
+    lim = None if reclaim_limit is None else _batched.group_vector(reclaim_limit, g, dev)
+    *_, fresh, win, value = _wirepath.multigroup_wirepath_round(
+        cstate.next_inst,
+        cstate.crnd,
+        quorum,
+        alive,
+        stack.rnd,
+        stack.vrnd,
+        stack.value,
+        lstate.delivered,
+        lstate.inst,
+        lstate.value,
+        values,
+        en,
+        lim,
+        group_block=group_block,
+    )
+    inst = cstate.next_inst[:, None] + torch.arange(b, dtype=torch.int32, device=dev)[None, :]
+    crnd = cstate.crnd if en is None else torch.where(en != 0, cstate.crnd, -1)
+    return CoordinatorState(cstate.next_inst + b, crnd), stack, lstate, fresh, inst, win, value
+
+
+def cohort_fused_round(
+    stack: AcceptorState,
+    lstate: LearnerState,
+    gsel,
+    next_inst: torch.Tensor,
+    crnd: torch.Tensor,
+    alive: torch.Tensor,
+    quorum: int,
+    values: torch.Tensor,
+    enabled,
+    reclaim_limit=None,
+    *,
+    group_block: int = 1,
+) -> tuple[AcceptorState, LearnerState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The cohort-compacted fused round: K1 in cohort form on the card,
+    ``batched.cohort_fused_round`` on the CPU.  Only the group blocks
+    ``gsel`` names are visited; ``values`` and the outputs are compact (row
+    ``j*GB + k`` is group ``gsel[j]*GB + k``), ``enabled`` marks the cohort's
+    members.  Stateless for the coordinator: the dataplane advances its own
+    watermarks.  Returns ``(stack, lstate, fresh[C, B], win[C, B],
+    value[C, B, V])``."""
+    if not _route(values, "cohort_fused_round"):
+        return _batched.cohort_fused_round(
+            stack, lstate, gsel, next_inst, crnd, alive, quorum, values, enabled,
+            reclaim_limit, group_block=group_block,
+        )  # fmt: skip
+    g = stack.rnd.shape[0]
+    dev = values.device
+    lim = None if reclaim_limit is None else _batched.group_vector(reclaim_limit, g, dev)
+    *_, fresh, win, value = _wirepath.cohort_wirepath_round(
+        gsel,
+        next_inst,
+        crnd,
+        quorum,
+        alive,
+        stack.rnd,
+        stack.vrnd,
+        stack.value,
+        lstate.delivered,
+        lstate.inst,
+        lstate.value,
+        values,
+        _batched.group_vector(enabled, g, dev),
+        lim,
+        group_block=group_block,
+    )
+    return stack, lstate, fresh, win, value
+
+
 def digest(x: torch.Tensor) -> torch.Tensor:
     """The weighted fold of one array: K4 on the card, plain on the CPU."""
     return _digest.digest(x) if _route(x, "digest") else _digest.digest_plain(x)

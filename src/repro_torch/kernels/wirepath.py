@@ -1,18 +1,24 @@
-"""K1, the fused CAANS wire path for one Paxos group, and K2, the staged
-vote of the acceptor array: CUDA kernels.
+"""K1, the fused CAANS wire path, and K2, the staged vote of the acceptor
+array: CUDA kernels.
 
-``wirepath_round`` launches ``csrc/wirepath.cu``, which replaces the TPU
-kernel ``repro.kernels.wirepath.cohort_wirepath_round`` in its single-group
-form ``wirepath_round``: one complete Phase-2 round (sequencing, the vote
-of all A acceptors, the learner quorum and the ring dedup) in one launch,
-with the six state tensors updated in place.  Its plain version is
-``repro_torch.core.batched.fused_round``; ``kernels.ops.fused_round``
-chooses between the two by the device of the tensors.
+``wirepath_round`` and ``cohort_wirepath_round`` launch the two entries of
+``csrc/wirepath.cu``, which replaces the TPU kernel
+``repro.kernels.wirepath.cohort_wirepath_round``: one complete Phase-2
+round (sequencing, the vote of all A acceptors, the learner quorum and the
+ring dedup) in one launch, with the six state tensors updated in place.
+``wirepath_round`` serves one group; its plain version is
+``repro_torch.core.batched.fused_round``.  ``cohort_wirepath_round`` serves
+the groups of the blocks ``gsel`` selects in ``(G, ...)`` slabs, and
+``multigroup_wirepath_round`` is its every-block slice; their plain
+versions are ``batched.cohort_fused_round`` and
+``batched.multigroup_fused_round``.  ``kernels.ops`` chooses between kernel
+and plain version by the device of the tensors.
 
-K1 takes any window base: one thread serves one lane and computes
-its own ring slot, so there is no block-alignment precondition.  It
-requires ``B <= N`` (distinct slots, so in-place writes never race) and
-``A <= 8``.
+K1 takes any window base: one thread serves one lane and computes its own
+ring slot, so there is no block-alignment precondition, and ``group_block``
+(the TPU kernel's group fold) changes no result.  It requires ``B <= N``
+(distinct slots, so in-place writes never race), ``A <= 8`` and, in cohort
+form, distinct selected blocks (checked here).
 
 ``acceptor_vote_all_window`` launches the ``acceptor_vote_all`` entry point
 of ``csrc/vote.cu``, which replaces the TPU kernel
@@ -30,19 +36,23 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
 from .acceptor import vote_io
 
 MAX_A = 8
-INT32_MAX = 2**31 - 1
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
-# launches of K1 and of K2 in this process; reset by whoever reads them
+# launches of K1 (single group and cohort form) and of K2 in this process;
+# reset by whoever reads them
 launches = 0
+cohort_launches = 0
 vote_all_launches = 0
 
 _fn = None
+_cohort_fn = None
 _vote_fn = None
 
 
@@ -99,6 +109,9 @@ def wirepath_round(
     _check("lval", lval, i32, (n, v), dev)
     _check("values", values, i32, (b, v), dev)
     lim = INT32_MAX if limit is None else int(limit)
+    if not INT32_MIN <= lim <= INT32_MAX:
+        # a C int would wrap it and refuse every lane in silence
+        raise OverflowError(f"wirepath_round: limit {lim} is outside int32")
     next_out = torch.empty((), dtype=i32, device=dev)
     inst = torch.empty((b,), dtype=i32, device=dev)
     fresh = torch.empty((b,), dtype=torch.bool, device=dev)
@@ -119,6 +132,155 @@ def wirepath_round(
     _build.check(rc, "wirepath_round launch")
     launches += 1
     return st_rnd, st_vrnd, st_val, ldel, linst, lval, next_out, inst, fresh, win, value
+
+
+def _cohort_kernel():
+    global _cohort_fn
+    if _cohort_fn is None:
+        fn = _build.library("wirepath").cohort_wirepath_round
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, p, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+        _cohort_fn = fn
+    return _cohort_fn
+
+
+def _host_gsel(gsel, n_blocks: int) -> np.ndarray:
+    """The selected group blocks as host int32, checked distinct and in
+    range: two rows on one group would race in place."""
+    gs = gsel.cpu().numpy() if isinstance(gsel, torch.Tensor) else np.asarray(gsel)
+    gs = gs.astype(np.int64).reshape((-1,))
+    if gs.size == 0 or len(set(gs.tolist())) != gs.size or gs.min() < 0 or gs.max() >= n_blocks:
+        raise ValueError(
+            f"cohort_wirepath_round: gsel {gs.tolist()} must be distinct blocks in [0, {n_blocks})"
+        )
+    return gs.astype(np.int32)
+
+
+def cohort_wirepath_round(
+    gsel,  # int[NB]  selected group blocks (host sequence or tensor)
+    next_inst: torch.Tensor,  # int32[G]  per-group window base
+    crnd: torch.Tensor,  # int32[G]  per-group coordinator round
+    quorum: int,
+    alive: torch.Tensor,  # bool[G, A]
+    st_rnd: torch.Tensor,  # int32[G, A, N]  stacked acceptor rings, in place
+    st_vrnd: torch.Tensor,  # int32[G, A, N]
+    st_val: torch.Tensor,  # int32[G, A, N, V]
+    ldel: torch.Tensor,  # int32[G, N]  learner rings, in place
+    linst: torch.Tensor,  # int32[G, N]
+    lval: torch.Tensor,  # int32[G, N, V]
+    values: torch.Tensor,  # int32[NB*GB, B, V]  compact cohort burst
+    enabled: torch.Tensor | None = None,  # int32[G] 0/1; None = all
+    limit: torch.Tensor | None = None,  # int32[G] first refused inst; None = none
+    *,
+    group_block: int = 1,
+) -> tuple[torch.Tensor, ...]:
+    """One fused Phase-2 round for the groups of the selected blocks, on the
+    card.  Row ``j*GB + k`` of ``values`` and of the outputs belongs to
+    group ``gsel[j]*GB + k``; a member that is not enabled rides inert.
+    ``limit`` is a device vector, so a limit that wrapped past int32 max
+    stays wrapped and refuses its group's lanes, as the reference's does.
+    Returns ``(st_rnd, st_vrnd, st_val, ldel, linst, lval, fresh[C, B],
+    win_vrnd[C, B], value[C, B, V])``: the six state tensors are the inputs,
+    updated in place; ``fresh`` is a bool mask."""
+    what = "cohort_wirepath_round"
+    dev = values.device
+    _build.on_card(what, dev)
+    g, a, n = st_rnd.shape
+    c, b, v = values.shape
+    gb = group_block
+    if not 1 <= a <= MAX_A or b > n or gb < 1 or g % gb:
+        raise ValueError(
+            f"{what} needs 1 <= A <= {MAX_A}, B <= N and GB | G, got {a}, {b}, {n}, {gb}, {g}"
+        )
+    gs = _host_gsel(gsel, g // gb)
+    if c != gs.size * gb:
+        raise ValueError(f"{what}: {c} burst rows for {gs.size} blocks of {gb}")
+    i32 = torch.int32
+    if enabled is None:
+        enabled = torch.ones((g,), dtype=i32, device=dev)
+    if limit is None:
+        limit = torch.full((g,), INT32_MAX, dtype=i32, device=dev)
+    for name, t, dtype, shape in (
+        ("next_inst", next_inst, i32, (g,)),
+        ("crnd", crnd, i32, (g,)),
+        ("limit", limit, i32, (g,)),
+        ("alive", alive, torch.bool, (g, a)),
+        ("enabled", enabled, i32, (g,)),
+        ("st_rnd", st_rnd, i32, (g, a, n)),
+        ("st_vrnd", st_vrnd, i32, (g, a, n)),
+        ("st_val", st_val, i32, (g, a, n, v)),
+        ("ldel", ldel, i32, (g, n)),
+        ("linst", linst, i32, (g, n)),
+        ("lval", lval, i32, (g, n, v)),
+        ("values", values, i32, (c, b, v)),
+    ):
+        _build.require(what, name, t, dtype, shape, dev)
+    return _cohort_launch(
+        torch.from_numpy(gs).to(dev), gb, next_inst, crnd, quorum, alive,
+        st_rnd, st_vrnd, st_val, ldel, linst, lval, values, enabled, limit,
+    )  # fmt: skip
+
+
+def _cohort_launch(
+    gsel: torch.Tensor,  # int32[NB] on the card, checked by the caller
+    gb: int,
+    next_inst, crnd, quorum, alive, st_rnd, st_vrnd, st_val, ldel, linst, lval, values,
+    enabled: torch.Tensor,
+    limit: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """Launch the cohort entry on checked inputs (CUDA-graph capturable:
+    no host copy).  ``cohort_wirepath_round`` is the checked wrapper."""
+    global cohort_launches
+    g, a, n = st_rnd.shape
+    c, b, v = values.shape
+    dev = values.device
+    fresh = torch.empty((c, b), dtype=torch.bool, device=dev)
+    win = torch.empty((c, b), dtype=torch.int32, device=dev)
+    value = torch.empty((c, b, v), dtype=torch.int32, device=dev)
+    fn = _cohort_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            gsel.data_ptr(), gsel.numel(), gb,
+            next_inst.data_ptr(), crnd.data_ptr(), limit.data_ptr(),
+            alive.data_ptr(), enabled.data_ptr(),
+            int(quorum), g, a, n, v, b,
+            st_rnd.data_ptr(), st_vrnd.data_ptr(), st_val.data_ptr(),
+            ldel.data_ptr(), linst.data_ptr(), lval.data_ptr(),
+            values.data_ptr(), fresh.data_ptr(), win.data_ptr(), value.data_ptr(),
+            stream,
+        )  # fmt: skip
+    _build.check(rc, "cohort_wirepath_round launch")
+    cohort_launches += 1
+    return st_rnd, st_vrnd, st_val, ldel, linst, lval, fresh, win, value
+
+
+def multigroup_wirepath_round(
+    next_inst: torch.Tensor,  # int32[G]
+    crnd: torch.Tensor,  # int32[G]
+    quorum: int,
+    alive: torch.Tensor,  # bool[G, A]
+    st_rnd: torch.Tensor,  # int32[G, A, N]
+    st_vrnd: torch.Tensor,  # int32[G, A, N]
+    st_val: torch.Tensor,  # int32[G, A, N, V]
+    ldel: torch.Tensor,  # int32[G, N]
+    linst: torch.Tensor,  # int32[G, N]
+    lval: torch.Tensor,  # int32[G, N, V]
+    values: torch.Tensor,  # int32[G, B, V]
+    enabled: torch.Tensor | None = None,
+    limit: torch.Tensor | None = None,
+    *,
+    group_block: int = 1,
+) -> tuple[torch.Tensor, ...]:
+    """One fused Phase-2 round for all G groups: the every-block slice of
+    ``cohort_wirepath_round`` (``gsel = arange(G // GB)``), whose compact
+    rows are the ``(G, ...)`` layout."""
+    return cohort_wirepath_round(
+        range(st_rnd.shape[0] // group_block), next_inst, crnd, quorum, alive,
+        st_rnd, st_vrnd, st_val, ldel, linst, lval, values, enabled, limit,
+        group_block=group_block,
+    )  # fmt: skip
 
 
 def _vote_kernel():

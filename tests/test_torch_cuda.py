@@ -15,7 +15,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import PaxosConfig, PaxosContext, SimNet, FaultSpec  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    FaultSpec,
+    HardwareDataplane,
+    MultiGroupDataplane,
+    PaxosConfig,
+    PaxosContext,
+    SimNet,
+)
 from repro_torch.core import batched  # noqa: E402
 from repro_torch.core.bridge import export_state  # noqa: E402
 from repro_torch.core.types import AcceptorState, CoordinatorState, MsgBatch  # noqa: E402
@@ -298,6 +305,170 @@ def test_context_on_the_card_matches_the_cpu(cuda):
     assert card_seals == cpu_seals
     assert on_card.full_group_log() == on_cpu.full_group_log()
     assert len(on_card.full_group_log()) == 1800
+    want, have = export_state(on_cpu.hw), export_state(on_card.hw)
+    for key in want:
+        np.testing.assert_array_equal(have[key], want[key], err_msg=key)
+
+
+def _slabs(rng, g, a, n, v, top, dev):
+    def t(*shape, lo=I32_MIN, hi=I32_MAX):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int32, endpoint=True)).to(dev)
+
+    stack = AcceptorState(t(g, a, n, lo=0, hi=top), t(g, a, n, lo=-1, hi=top), t(g, a, n, v))
+    lstate = batched.LearnerState(t(g, n, lo=0, hi=1), t(g, n, lo=-1, hi=1 << 20), t(g, n, v))
+    return stack, lstate
+
+
+@pytest.mark.parametrize(
+    "gb,gsel,bases,enabled",
+    [
+        (1, [5], [0] * 8, [1] * 8),
+        (1, [0, 3, 6], [9, 4096, 2**31 - 64, 3 * 4096 - 60, 5, 6, 7, 8], [1, 1, 1, 0, 1, 1, 1, 1]),
+        (2, [1, 2], [0, 0, 2**31 - 64, 999, 640, 640, 0, 0], [1, 1, 1, 0, 1, 1, 1, 1]),
+        (8, [0], [4096] * 8, [1, 1, 0, 1, 1, 1, 0, 1]),
+    ],
+)
+def test_cohort_round_kernel_matches_plain(cuda, gb, gsel, bases, enabled):
+    """K1 in cohort form against ``batched.cohort_fused_round``: one block,
+    a subset and all; inert members; a window across 2**31 and one across
+    the ring end; dead acceptors; a wrapped reclaim limit; state in place;
+    one launch counted in ``cohort_launches``."""
+    g, a, n, v, b = 8, 3, 4096, 16, 128
+    rng = np.random.default_rng([gb, len(gsel)])
+    stack, lstate = _slabs(rng, g, a, n, v, 8, cuda)
+    twin = (AcceptorState(*(x.clone() for x in vars(stack).values())),
+            batched.LearnerState(*(x.clone() for x in vars(lstate).values())))  # fmt: skip
+    ptrs = [x.data_ptr() for x in (*vars(stack).values(), *vars(lstate).values())]
+    i32 = dict(dtype=torch.int32, device=cuda)
+    ni = torch.tensor(bases, **i32)
+    crnd = torch.from_numpy(rng.integers(1, 6, g, dtype=np.int32)).to(cuda)
+    alive = torch.ones((g, a), dtype=torch.bool, device=cuda)
+    alive[2, 0] = alive[4, 1] = alive[4, 2] = False
+    limit = np.asarray([0] * 7 + [2**31 - 100], np.int32) + n  # group 7's wraps
+    values = torch.from_numpy(
+        rng.integers(I32_MIN, I32_MAX, (len(gsel) * gb, b, v), dtype=np.int32, endpoint=True)
+    ).to(cuda)
+    en = torch.tensor(enabled, **i32)
+    before = k_wirepath.cohort_launches
+    got = ops.cohort_fused_round(stack, lstate, gsel, ni, crnd, alive, 2, values, en, limit,
+                                 group_block=gb)  # fmt: skip
+    want = batched.cohort_fused_round(*twin, gsel, ni, crnd, alive, 2, values, en, limit,
+                                      group_block=gb)  # fmt: skip
+    assert k_wirepath.cohort_launches == before + 1
+    mine = (*vars(got[0]).values(), *vars(got[1]).values(), *got[2:])
+    plain = (*vars(want[0]).values(), *vars(want[1]).values(), *want[2:])
+    for x, y in zip(mine, plain, strict=True):
+        assert torch.equal(x, y)
+    assert [x.data_ptr() for x in (*vars(stack).values(), *vars(lstate).values())] == ptrs
+    with pytest.raises(ValueError, match="distinct"):
+        ops.cohort_fused_round(stack, lstate, gsel * 2, ni, crnd, alive, 2,
+                               torch.cat([values, values]), en, group_block=gb)  # fmt: skip
+
+
+def test_round_kernel_refuses_a_limit_outside_int32(cuda):
+    """A limit past int32 max is refused before the launch, not wrapped by
+    ctypes; the dataplane raises the reference's OverflowError there too
+    and leaves state, mirrors and dispatch_count as they were."""
+    a, n, v, b = 3, 256, 16, 16
+    s = _state(np.random.default_rng(0), a, n, v, 0, 5, cuda)
+    alive = torch.ones(a, dtype=torch.bool, device=cuda)
+    args = (s["cstate"].next_inst, s["cstate"].crnd, 2, alive,
+            *vars(s["stack"]).values(), *vars(s["lstate"]).values(),
+            torch.zeros((b, v), dtype=torch.int32, device=cuda))  # fmt: skip
+    before = k_wirepath.launches
+    with pytest.raises(OverflowError):
+        k_wirepath.wirepath_round(*args, 2**31)
+    assert k_wirepath.launches == before
+    hw = HardwareDataplane(PaxosConfig(n_instances=n, batch=b), device=cuda)
+    wm = 2**31 - 200
+    hw.cstate = CoordinatorState.init(next_inst=wm, device=cuda)
+    hw._next_inst_host = wm
+    hw.enable_reclamation()
+    hw.set_reclaimed(wm)
+    state, count = export_state(hw), hw.dispatch_count
+    with pytest.raises(OverflowError):
+        hw.pipeline(np.zeros((b, v), np.int32), np.ones(b, bool))
+    for key, arr in export_state(hw).items():
+        np.testing.assert_array_equal(arr, state[key], err_msg=key)
+    assert hw.dispatch_count == count and k_wirepath.launches == before
+
+
+def test_group_view_votes_through_k2_in_place(cuda):
+    """A group's staged vote runs K2 on its contiguous row views of the
+    ``(G, A, N)`` slabs: one launch, the slabs' storage unchanged, only that
+    group's rows written, equal to the plain engine on the CPU."""
+    cfg = PaxosConfig(n_instances=1024, batch=32, n_groups=4, persistent_rounds=1)
+    hws = [MultiGroupDataplane(cfg, device=dev) for dev in (cuda, "cpu")]
+    ptrs = [x.data_ptr() for x in vars(hws[0].stack).values()]
+    votes = []
+    for hw in hws:
+        dev = hw.device
+        p2a = MsgBatch.nop(32, 16, dev).replace(
+            msgtype=torch.full((32,), 3, dtype=torch.int32, device=dev),
+            inst=torch.arange(500, 532, dtype=torch.int32, device=dev),
+            rnd=torch.full((32,), 3, dtype=torch.int32, device=dev),
+        )
+        before = k_wirepath.vote_all_launches
+        votes.append(hw.group_view(2).vote(p2a))
+        assert k_wirepath.vote_all_launches == before + (dev.type == "cuda")
+    assert [x.data_ptr() for x in vars(hws[0].stack).values()] == ptrs
+    for x, y in zip(vars(hws[0].stack).values(), vars(hws[1].stack).values(), strict=True):
+        assert torch.equal(x.cpu(), y)
+    assert int((hws[0].stack.vrnd[2] == 3).sum()) == 3 * 32
+    assert int((hws[0].stack.vrnd[[0, 1, 3]] != -1).sum()) == 0
+    for mine, plain in zip(*votes, strict=True):
+        assert mine.gid == plain.gid == 2
+        for x, y in zip(mine.tensors(), plain.tensors(), strict=True):
+            assert torch.equal(x.cpu(), y)
+
+
+def test_grouped_context_on_the_card_matches_the_cpu(cuda):
+    """The multi-group service through K1's cohort form on the card and the
+    plain versions on the CPU: lossy net, skew, a failover, a crash and
+    restore, snapshots, retire and create; equal logs, seals, state and
+    plan; one cohort launch per fused dispatch."""
+
+    def run(dev):
+        cfg = PaxosConfig(n_instances=1024, batch=32, n_groups=4, persistent_rounds=1)
+        ctx = PaxosContext(
+            cfg, net=SimNet(FaultSpec(drop=0.05, dup=0.05, reorder=0.05), seed=6),
+            snapshots=True, device=dev,
+        )  # fmt: skip
+        dispatches = [0]
+        cohort = ctx.hw.pipeline_cohort
+
+        def counted(*args, **kw):
+            dispatches[0] += 1
+            return cohort(*args, **kw)
+
+        ctx.hw.pipeline_cohort = counted
+        before = k_wirepath.cohort_launches
+        seals = []
+        for lap in range(6):
+            if lap == 2:
+                ctx.fail_coordinator(group=1)
+                ctx.crash_acceptor(0, group=3)
+            if lap == 3:
+                ctx.restore_hardware_coordinator(group=1)
+                ctx.restore_acceptor(0, group=3)
+            if lap == 4:
+                ctx.retire_group(2)
+                ctx.create_group()
+            for gid in range(4):
+                for i in range(150 if gid == 0 else 20 * lap):
+                    ctx.submit(f"{lap}-{gid}-{i}".encode(), group=gid)
+            ctx.run_until_quiescent()
+            seals += [ctx.snapshot_group(gid).seal for gid in range(4)]
+        return ctx, seals, dispatches[0], k_wirepath.cohort_launches - before
+
+    on_card, card_seals, card_dispatches, card_launches = run(cuda)
+    on_cpu, cpu_seals, _, cpu_launches = run("cpu")
+    assert card_launches == card_dispatches > 0 and cpu_launches == 0
+    assert card_seals == cpu_seals
+    for gid in range(4):
+        assert on_card.full_group_log(gid) == on_cpu.full_group_log(gid)
+    assert on_card.planner.report() == on_cpu.planner.report()
+    assert on_card.hw.dispatch_count == on_cpu.hw.dispatch_count
     want, have = export_state(on_cpu.hw), export_state(on_card.hw)
     for key in want:
         np.testing.assert_array_equal(have[key], want[key], err_msg=key)
