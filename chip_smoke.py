@@ -10,7 +10,8 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
 2. the kernels' build time;
 3. the kernel phase: each kernel against its plain PyTorch version on the
    card, at its path's shapes and at adversarial windows, bit for bit; the
-   round kernel K1 at one group and in its cohort and multi-group forms;
+   round kernel K1 at one group and in its cohort and multi-group forms, and
+   its persistent form K5, also against K sequential K1 launches;
 4. the main path: ``PaxosContext(PaxosConfig(), fused=True, use_kernels=True,
    snapshots=True)`` on the card under a seeded lossy ``SimNet``, with ring
    wrap under reclamation, snapshots, an acceptor kill and revive, a crash
@@ -33,9 +34,17 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    the plain engine's run must give the same group logs, seals, state,
    dispatch count, fold width and plan, and K1's cohort form must run once
    per fused dispatch;
-8. times: each kernel by CUDA events at its path's shapes beside its bound
+8. the multi-group path at the reference's defaults:
+   ``PaxosContext(PaxosConfig(n_groups=8, realign_after=4), use_kernels=True,
+   snapshots=True)``, so ``persistent_rounds=8`` and ``async_pump=True``, on
+   the same schedule with deep enough queues that waves form (of K=8 and of
+   smaller depths); the plain engine's run must give the same group logs,
+   order of ``deliver`` callbacks, seals, state, dispatch count, fold widths,
+   wave depths and plan; K5 must run once per wave and K1's cohort form once
+   per single-round dispatch;
+9. times: each kernel by CUDA events at its path's shapes beside its bound
    and its plain version, and each path's decided values/s and latency;
-9. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+10. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -491,6 +500,129 @@ def check_k1_cohort(dev, n: int = 1 << 16, v: int = 16) -> int:
     return worst
 
 
+def wave_walk(bases, wen: np.ndarray, b: int) -> np.ndarray:
+    """A wave descriptor's window bases: ``wni[0] = bases``, ``wni[k+1] =
+    wni[k] + B * wen[k]``, in int32 (so a wave across 2^31 wraps)."""
+    wni = np.zeros(wen.shape, np.int64)
+    wni[0] = bases
+    for r in range(1, wen.shape[0]):
+        wni[r] = wni[r - 1] + b * wen[r - 1]
+    return ((wni + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+def check_k5(dev, n: int = 1 << 16, v: int = 16) -> int:
+    """K5 (``ops.persistent_cohort_rounds``) against its plain version
+    (``batched.persistent_cohort_rounds``) at A=3, N=65,536, V=16, G=8:
+    B in {16, 128} with K cycling over {1, 2, 8}, and K * B = N (K=512 at
+    B=128); the selections of ``cohort_cases`` (GB in {1, 2, 8}; one block,
+    a subset, all; inert members inside folded blocks at divergent bases;
+    windows across the ring end and across 2^31); one member of each wave
+    frozen from round 2 on (``wen`` 0); dead acceptors (one group below
+    quorum) and a frozen round (NO_ROUND); a limit inside the wave and one
+    that wrapped past int32 max; ``block_b`` 128 and 32; the state updated
+    in place.  Then one wave against K sequential K1-cohort launches over
+    the same descriptor.  Returns the largest difference."""
+    rng = np.random.default_rng(SEED + 16)
+    g, a, q = 8, 3, 2
+    alive = np.ones((g, a), bool)
+    alive[2, 1] = False  # one dead acceptor: still a quorum
+    alive[5, [0, 2]] = False  # two dead: below quorum, nothing decides
+
+    def t(x, dt=torch.int32):
+        return torch.from_numpy(np.asarray(x)).to(dev, dt)
+
+    cases = [dict(case, b=b, k=(1, 2, 8)[i % 3]) for b in (16, 128)
+             for i, case in enumerate(cohort_cases(n, b))]  # fmt: skip
+    cases.append(dict(gb=8, sel="all, K*B = N", gsel=[0], bases=[4096] * g, enabled=[1] * g,
+                      b=128, k=n // 128))  # fmt: skip
+    worst = 0
+    for case in cases:
+        b, k, gb, gsel, bases = case["b"], case["k"], case["gb"], case["gsel"], case["bases"]
+        rows = [blk * gb + j for blk in gsel for j in range(gb)]
+        wen = np.zeros((k, g), np.int32)
+        for gi in rows:
+            wen[:, gi] = case["enabled"][gi]
+        frozen = next(gi for gi in rows if case["enabled"][gi])
+        wen[2:, frozen] = 0  # frozen from round 2 on
+        wni = wave_walk(bases, wen, b)
+        crnds = [int(c) for c in rng.integers(1, 7, g)]
+        crnds[6] = -1  # a frozen group
+        marks = [0] * g
+        marks[3] = 2**31 - 100  # its limit wraps to a negative number
+        limit = np.asarray(marks, np.int32) + n  # the reference's expression
+        limit[1] = np.int32(bases[1] + k * b // 2)  # bites inside the wave
+        stack, lstate = mg_state(rng, g, a, n, v, k * b, bases, crnds, dev)
+        twin = clone_slabs(stack, lstate)
+        cr, al = t(crnds), t(alive, torch.bool)
+        values = t(rng.integers(-(2**31), 2**31, (k, len(rows), b, v), dtype=np.int32))
+        want = batched.persistent_cohort_rounds(*twin, gsel, wni, wen, cr, al, q, values, limit,
+                                                group_block=gb)  # fmt: skip
+        plain = [*vars(want[0]).values(), *vars(want[1]).values(), want[2].to(torch.int32),
+                 *want[3:]]  # fmt: skip
+        errs = []
+        for block_b in (128, 32):
+            mine = clone_slabs(stack, lstate)
+            ptrs = [x.data_ptr() for x in (*vars(mine[0]).values(), *vars(mine[1]).values())]
+            got = ops.persistent_cohort_rounds(*mine, gsel, wni, wen, cr, al, q, values, limit,
+                                               group_block=gb, block_b=block_b)  # fmt: skip
+            sync(dev)
+            state = [*vars(got[0]).values(), *vars(got[1]).values()]
+            if [x.data_ptr() for x in state] != ptrs:
+                raise AssertionError("K5 did not update the state in place")
+            errs.append(max_abs_err([*state, got[2].to(torch.int32), *got[3:]], plain))
+            inert = torch.from_numpy(wen[:, rows] == 0).to(dev)  # (K, C)
+            if bool(got[2][inert].any() or (got[3][inert] != -1).any() or got[4][inert].any()):
+                raise AssertionError(f"K5: an inert round of {case} decided or voted")
+        print(f"  K5 b={b} k={k} gb={gb} {case['sel']} gsel={gsel} frozen={frozen} from round 2: "
+              f"max_abs_err={max(errs)} (block_b 128: {errs[0]}, 32: {errs[1]})")  # fmt: skip
+        if max(errs):
+            raise AssertionError(f"K5 disagrees with its plain version: {case}")
+        worst = max(worst, *errs)
+    worst = max(worst, check_k5_against_k1(dev, n, v))
+    return worst
+
+
+def check_k5_against_k1(dev, n: int, v: int) -> int:
+    """One K5 wave against K sequential K1-cohort launches over the same
+    descriptor, as the reference's chaos parity test: G=8, B=128, K=8,
+    GB=2, every block selected, blocks across 2^31, across the ring end and
+    aligned, group 5 frozen from round 3 on (its watermark stops walking),
+    a dead acceptor and a wrapped limit.  Returns the largest difference."""
+    rng = np.random.default_rng(SEED + 18)
+    g, a, q, b, k, gb = 8, 3, 2, 128, 8, 2
+    gsel = [0, 1, 2, 3]
+    bases = [blk for blk in (2**31 - 512, 3 * n - 300, 640, 9) for _ in range(gb)]
+    wen = np.ones((k, g), np.int32)
+    wen[3:, 5] = 0
+    wni = wave_walk(bases, wen, b)
+    crnds = [int(c) for c in rng.integers(1, 7, g)]
+    alive = torch.ones((g, a), dtype=torch.bool, device=dev)
+    alive[6, 0] = False
+    limit = (np.asarray([0] * 7 + [2**31 - 100], np.int32) + n).astype(np.int32)
+    stack, lstate = mg_state(rng, g, a, n, v, k * b, bases, crnds, dev)
+    seq = clone_slabs(stack, lstate)
+    cr = torch.tensor(crnds, dtype=torch.int32, device=dev)
+    values = torch.from_numpy(rng.integers(-(2**31), 2**31, (k, g, b, v), dtype=np.int32)).to(dev)
+    got = ops.persistent_cohort_rounds(stack, lstate, gsel, wni, wen, cr, alive, q, values, limit,
+                                       group_block=gb)  # fmt: skip
+    outs = []
+    for r in range(k):
+        ni = torch.from_numpy(wni[r]).to(dev)
+        *_, fresh, win, value = ops.cohort_fused_round(*seq, gsel, ni, cr, alive, q, values[r],
+                                                       wen[r], limit, group_block=gb)  # fmt: skip
+        outs.append((fresh.to(torch.int32), win, value))
+    sync(dev)
+    err = max_abs_err(
+        [*vars(stack).values(), *vars(lstate).values(), got[2].to(torch.int32), *got[3:]],
+        [*vars(seq[0]).values(), *vars(seq[1]).values(), *(torch.stack(x) for x in zip(*outs, strict=True))],
+    )  # fmt: skip
+    print(f"  K5 one wave (k={k}, gb={gb}, all blocks, group 5 frozen from round 3) against "
+          f"{k} K1-cohort launches: max_abs_err={err}")  # fmt: skip
+    if err:
+        raise AssertionError("K5 disagrees with K sequential K1-cohort launches")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
@@ -624,6 +756,7 @@ LAUNCHES = {  # kernel name -> (module, attribute) of its wrapper's count
     "acceptor_phase2": (k_acceptor, "launches"),
     "learner_quorum": (k_learner, "launches"),
     "K1-cohort": (k_wirepath, "cohort_launches"),
+    "K5": (k_wirepath, "persistent_launches"),
 }
 
 
@@ -821,9 +954,15 @@ def run_per_role_path(dev) -> dict:
 # ---------------------------------------------------------------------------
 def multigroup_config() -> PaxosConfig:
     """The multi-group service at the paper's widths: 8 groups of A=3,
-    N=65,536, 64-byte values, bursts of 128; no persistent waves (not
-    ported), realignment after 4 fragmented rounds."""
+    N=65,536, 64-byte values, bursts of 128; no persistent waves
+    (``persistent_rounds=1``), realignment after 4 fragmented rounds."""
     return PaxosConfig(n_groups=8, persistent_rounds=1, realign_after=4)
+
+
+def default_multigroup_config() -> PaxosConfig:
+    """The same service at the reference's defaults: persistent waves of up
+    to 8 rounds (``persistent_rounds=8``) and the async pump."""
+    return PaxosConfig(n_groups=8, realign_after=4)
 
 
 def run_multigroup_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) -> dict:
@@ -831,7 +970,9 @@ def run_multigroup_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) 
     a uniform phase of N/4 payloads to each group (so the full-width fold
     engages); a skewed phase of 1.25 N more to group 0 (its ring wraps, a
     snapshot of it every N/4) while the other groups trickle small bursts
-    (cohorts of fold width 1 or 2 form), each slice of N/4 started with the
+    (cohorts of fold width 1 or 2 form; with persistent waves on, group 0
+    gets 2 to 12 batches per pump, so its waves take several depths), each
+    slice of N/4 started with the
     trickling groups burned forward to group 0's watermark and ended with a
     snapshot of every group; then an acceptor kill and revive in
     group 1, a coordinator failover of group 2 with the others under load
@@ -839,33 +980,43 @@ def run_multigroup_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) 
     ``retire_group(7)`` + ``create_group()``, and ``retire_group(6)`` +
     ``adopt_group`` of group 3's snapshot; last, traffic to every group and
     a snapshot of each.  A dispatch's latency is the host time of
-    ``pipeline_cohort`` plus that of its read-back."""
+    ``pipeline_cohort`` or ``pipeline_persistent`` plus that of its
+    read-back; ``depths`` counts dispatches by wave depth (1: a single
+    round), ``order`` lists the ``deliver`` callbacks in order."""
     cfg = cfg or multigroup_config()
     g, n, b = cfg.n_groups, cfg.n_instances, cfg.batch
     net = SimNet(FaultSpec(drop=0.01, dup=0.01, reorder=0.01), seed=SEED + 13)
-    ctx = PaxosContext(cfg, net=net, use_kernels=use_kernels, snapshots=True, device=dev)
+    order: list[tuple[int, bytes]] = []
+    ctx = PaxosContext(cfg, net=net, use_kernels=use_kernels, snapshots=True, device=dev,
+                       deliver=lambda payload, _size, inst: order.append((inst, payload)))
     hw = ctx.hw
     dispatch_s: list[float] = []
     folds: dict[int, int] = {}
-    cohort = hw.pipeline_cohort
+    depths: dict[int, int] = {}
 
-    def timed_cohort(gids, values, active, defer=False):
-        t0 = time.perf_counter()
-        handle = cohort(gids, values, active, defer=True)
-        spent = time.perf_counter() - t0
-        folds[hw.last_gb] = folds.get(hw.last_gb, 0) + 1
-        resolve = handle.resolve
+    def timed(dispatch, wave: bool):
+        def call(gids, values, active, defer=False):
+            t0 = time.perf_counter()
+            handle = dispatch(gids, values, active, defer=True)
+            spent = time.perf_counter() - t0
+            folds[hw.last_gb] = folds.get(hw.last_gb, 0) + 1
+            k = values.shape[0] if wave else 1
+            depths[k] = depths.get(k, 0) + 1
+            resolve = handle.resolve
 
-        def timed_resolve():
-            t1 = time.perf_counter()
-            out = resolve()
-            dispatch_s.append(spent + time.perf_counter() - t1)
-            return out
+            def timed_resolve():
+                t1 = time.perf_counter()
+                out = resolve()
+                dispatch_s.append(spent + time.perf_counter() - t1)
+                return out
 
-        handle.resolve = timed_resolve
-        return handle if defer else handle.resolve()
+            handle.resolve = timed_resolve
+            return handle if defer else handle.resolve()
 
-    hw.pipeline_cohort = timed_cohort
+        return call
+
+    hw.pipeline_cohort = timed(hw.pipeline_cohort, False)
+    hw.pipeline_persistent = timed(hw.pipeline_persistent, True)
     rng = np.random.default_rng(SEED + 14)
     count = [0]
     sent: list[list[bytes]] = [[] for _ in range(g)]  # the current tenant's
@@ -907,8 +1058,12 @@ def run_multigroup_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) 
         top = -(-hw.next_inst_host[0] // b) * b
         for gid in range(1, g):
             hw.burn_forward(gid, max(top, hw.next_inst_host[gid]))
-        for lo in range(0, quarter, slice_):
-            submit(0, min(slice_, quarter - lo))
+        sent0 = 0
+        while sent0 < quarter:
+            k0 = slice_ if cfg.persistent_rounds == 1 else int(rng.integers(2 * b, 12 * b + 1))
+            k0 = min(k0, quarter - sent0)
+            submit(0, k0)
+            sent0 += k0
             for gid in range(1, g):
                 submit(gid, int(rng.integers(0, 12)))
             drain()
@@ -988,6 +1143,8 @@ def run_multigroup_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) 
         wall=wall,
         dispatch_s=dispatch_s,
         folds=folds,
+        depths=depths,
+        order=order,
         stats=dict(ctx.stats),
         delivered=ctx.stats["delivered"],
         ring_laps=hw.next_inst_host[0] / n,
@@ -1349,6 +1506,89 @@ def time_k1_cohort(dev) -> dict:
     return dict(out["gb8"], gb1=out["gb1"])
 
 
+def k5_bytes(a: int, b: int, v: int, c: int, nb: int, k: int, g: int) -> int:
+    """The bytes one K5 launch of K rounds reads and writes over ``c``
+    selected groups in ``nb`` blocks when every lane is accepted by all A
+    acceptors and is fresh: K times ``k1_cohort_bytes`` plus the (K, G)
+    descriptor words ``wni`` and ``wen``.  At A=3, B=128, V=16, K=8, G=8:
+    3,614,432 B for eight groups, 452,280 B for one."""
+    return k * k1_cohort_bytes(a, b, v, c, nb) + 2 * k * g * 4
+
+
+def time_k5(dev) -> dict:
+    """K5 at the default multi-group path's shape (G=8, A=3, N=65,536, V=16,
+    B=128, K=8, reclamation on), over one walk of the ring as
+    ``time_k1_cohort`` does: N/(K*B) = 64 launches, each a wave of K
+    consecutive windows of the second lap with its own bursts, the state
+    restored before each timed walk.  Every group in one folded block (GB=8,
+    the uniform phase's wave) and one group (GB=1, gsel=[3], a hot group's
+    wave).  Every lane is accepted and fresh, checked from the data, so each
+    launch moves exactly ``k5_bytes``."""
+    cfg = default_multigroup_config()
+    g, a, n, v, b, q = 8, cfg.n_acceptors, cfg.n_instances, cfg.value_words, cfg.batch, cfg.quorum
+    k, crnd = cfg.persistent_rounds, 5
+    walk = n // (k * b)
+    rng = np.random.default_rng(SEED + 17)
+
+    def words(*shape):
+        return rng.integers(-(2**31), 2**31, shape, dtype=np.int32)
+
+    inst = np.arange(n, 2 * n, dtype=np.int32)  # the walk's instances, every group
+    host = dict(
+        rnd=rng.integers(0, crnd + 1, (g, a, n), dtype=np.int32),
+        vrnd=rng.integers(-1, crnd + 1, (g, a, n), dtype=np.int32),
+        val=words(g, a, n, v),
+        ldel=np.ones((g, n), np.int32),
+        linst=np.broadcast_to(inst - n, (g, n)).copy(),
+        lval=words(g, n, v),
+    )
+    init = {key: torch.from_numpy(np.ascontiguousarray(x)).to(dev) for key, x in host.items()}
+    live = {key: x.clone() for key, x in init.items()}
+    stack = AcceptorState(live["rnd"], live["vrnd"], live["val"])
+    lstate = batched.LearnerState(live["ldel"], live["linst"], live["lval"])
+    bursts = torch.from_numpy(words(walk, k, g, b, v)).to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    wni = (torch.arange(n, 2 * n, b, **i32).reshape(walk, k, 1).expand(walk, k, g).contiguous())
+    wen = torch.ones((k, g), **i32)
+    crnd_t = torch.full((g,), crnd, **i32)
+    limit = torch.full((g,), 2 * n, **i32)  # the reclaim mark one lap back
+    alive = torch.ones((g, a), dtype=torch.bool, device=dev)
+    accept = (crnd >= host["rnd"]) & (inst < 2 * n)[None, None]
+    if not accept.all():
+        raise AssertionError("the timed walk must accept and deliver every lane")
+
+    def restore():
+        for key, x in init.items():
+            live[key].copy_(x)
+
+    out = {}
+    for name, gsel, gb, rows in (("gb8", [0], 8, slice(0, 8)), ("gb1", [3], 1, slice(3, 4))):
+        gsel_t = torch.tensor(gsel, **i32)
+        c = len(gsel) * gb
+        vals = bursts[:, :, rows].contiguous()  # (walk, K, C, B, V)
+
+        def kernel(w, gsel_t=gsel_t, gb=gb, vals=vals):
+            k_wirepath._persistent_launch(gsel_t, gb, wni[w], wen, crnd_t, q, alive,
+                                          *vars(stack).values(), *vars(lstate).values(),
+                                          vals[w], limit, b)  # fmt: skip
+
+        def plain(w, gsel_t=gsel_t, gb=gb, vals=vals):
+            batched.persistent_cohort_rounds(stack, lstate, gsel_t, wni[w], wen, crnd_t, alive, q,
+                                             vals[w], limit, group_block=gb)  # fmt: skip
+
+        nbytes = k5_bytes(a, b, v, c, len(gsel), k, g)
+        bms, by = bound_ms(nbytes, k * c * b * (4 * a + 2 * a + 8 + v))
+        ms = time_walk(kernel, walk, True, restore)
+        out[name] = dict(
+            ms=ms, per_round_ms=ms / k,
+            plain_ms=time_walk(plain, walk, True, restore),
+            eager_ms=time_walk(kernel, walk, False, restore),
+            bound_ms=bms, bound_by=by, bytes_per_launch=nbytes, groups=c, rounds=k,
+        )  # fmt: skip
+    restore()
+    return dict(out["gb8"], gb1=out["gb1"])
+
+
 def percentiles(round_s: list[float]) -> tuple[float, float]:
     ms = np.asarray(round_s) * 1e3
     return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
@@ -1395,10 +1635,12 @@ def run(dev: torch.device) -> None:
     errs["acceptor_vote_all"], errs["acceptor_phase2"], made = check_votes(dev)
     errs["learner_quorum"] = check_k8(dev, made)
     errs["K1-cohort"] = check_k1_cohort(dev)
+    errs["K5"] = check_k5(dev)
     # timed here, before the paths, and printed after them
     times = {"wirepath_round": time_k1(dev), "digest": time_k4(dev, PaxosConfig().n_instances // 4)}
     times.update(time_staged(dev))
     times["K1-cohort"] = time_k1_cohort(dev)
+    times["K5"] = time_k5(dev)
 
     print("main path: PaxosContext(PaxosConfig(), fused=True, use_kernels=True, snapshots=True)")
     reset_launches()
@@ -1481,7 +1723,7 @@ def run(dev: torch.device) -> None:
         mg_plain = run_multigroup_path(False, dev)
     if plain_rounds.calls != len(mg_plain["dispatch_s"]):
         raise AssertionError("the plain multi-group run did not run the plain engine")
-    for key in ("logs", "retired", "seals", "dispatch_count", "last_gb", "report"):
+    for key in ("logs", "retired", "seals", "order", "dispatch_count", "last_gb", "report"):
         if mg[key] != mg_plain[key]:
             raise AssertionError(f"multi-group kernel and plain runs differ in {key}")
     for key, arr in mg["state"].items():
@@ -1493,6 +1735,50 @@ def run(dev: torch.device) -> None:
           f"last_gb {mg['last_gb']}, planner report {mg['report']}")  # fmt: skip
     print(f"  fold widths seen (width: dispatches): {dict(sorted(mg['folds'].items()))}, "
           f"group 0 ring laps {mg['ring_laps']:.3f}, stats {mg['stats']}")  # fmt: skip
+
+    print("multi-group path at the defaults: PaxosContext(PaxosConfig(n_groups=8, "
+          "realign_after=4), use_kernels=True, snapshots=True): persistent_rounds=8, "
+          "async_pump=True")  # fmt: skip
+    reset_launches()
+    with PlainCalls() as plain_votes, PlainCalls("_rows_round") as plain_rounds:
+        dflt = run_multigroup_path(True, dev, default_multigroup_config())
+    dflt_launches = read_launches()
+    depths = dflt["depths"]
+    waves = sum(c for k, c in depths.items() if k > 1)
+    print(f"  launches: {dflt_launches}, waves {waves}, single rounds {depths.get(1, 0)}, "
+          f"plain Phase-2 votes: {plain_votes.calls}, plain rounds: {plain_rounds.calls}")
+    print(f"  wave depths (K: dispatches): {dict(sorted(depths.items()))}")
+    require_launched("default multi-group path", dflt_launches,
+                     ["K5", "K1-cohort", "digest", "acceptor_vote_all"])  # fmt: skip
+    if (
+        dflt_launches["K5"] != waves
+        or dflt_launches["K1-cohort"] != depths.get(1, 0)
+        or dflt["report"]["persistent_waves"] != waves
+        or plain_votes.calls
+        or plain_rounds.calls
+    ):
+        raise AssertionError(f"the default path did not run through K5 and K1: {dflt_launches}")
+    if 8 not in depths or not any(1 < k < 8 for k in depths):
+        raise AssertionError(f"the default path's waves lack K=8 or a 1 < K < 8: {depths}")
+    print("  the same schedule on the plain engine (use_kernels=False) on the card")
+    with PlainCalls("_rows_round") as plain_rounds:
+        dflt_plain = run_multigroup_path(False, dev, default_multigroup_config())
+    if plain_rounds.calls != sum(k * c for k, c in dflt_plain["depths"].items()):
+        raise AssertionError("the plain default run did not run the plain engine round by round")
+    for key in ("logs", "retired", "seals", "order", "depths", "folds", "dispatch_count",
+                "last_gb", "report"):  # fmt: skip
+        if dflt[key] != dflt_plain[key]:
+            raise AssertionError(f"default multi-group kernel and plain runs differ in {key}")
+    for key, arr in dflt["state"].items():
+        if not np.array_equal(arr, dflt_plain["state"][key]):
+            raise AssertionError(f"default multi-group kernel and plain runs differ in state {key}")
+    errs["digest"] = max(errs["digest"], check_seals(dflt, dev))
+    print(f"  equal: {len(dflt['logs'])} group logs ({[len(x) for x in dflt['logs']]}), the "
+          f"order of {len(dflt['order'])} deliver callbacks, retired logs, "
+          f"{len(dflt['seals'])} seals, final state, dispatch_count {dflt['dispatch_count']}, "
+          f"last_gb {dflt['last_gb']}, planner report {dflt['report']}")  # fmt: skip
+    print(f"  fold widths seen (width: dispatches): {dict(sorted(dflt['folds'].items()))}, "
+          f"group 0 ring laps {dflt['ring_laps']:.3f}, stats {dflt['stats']}")  # fmt: skip
 
     print(f"times on {CARD}")
     path_metrics = {}
@@ -1511,21 +1797,27 @@ def run(dev: torch.device) -> None:
             plain_round_ms_p50=plain_p50,
             plain_round_ms_p99=plain_p99,
         )
-    p50, p99 = percentiles(mg["dispatch_s"])
-    plain_p50, plain_p99 = percentiles(mg_plain["dispatch_s"])
-    path_metrics["multi-group path"] = dict(
-        card=CARD,
-        decided_values_per_s=mg["delivered"] / mg["wall"],
-        wall_s=mg["wall"],
-        dispatches=len(mg["dispatch_s"]),
-        dispatch_ms_p50=p50,
-        dispatch_ms_p99=p99,
-        fold_widths=mg["folds"],
-        plain_decided_values_per_s=mg_plain["delivered"] / mg_plain["wall"],
-        plain_wall_s=mg_plain["wall"],
-        plain_dispatch_ms_p50=plain_p50,
-        plain_dispatch_ms_p99=plain_p99,
-    )
+    for name, run_, base, counts in (
+        ("multi-group path", mg, mg_plain, mg_launches),
+        ("multi-group path (defaults)", dflt, dflt_plain, dflt_launches),
+    ):
+        p50, p99 = percentiles(run_["dispatch_s"])
+        plain_p50, plain_p99 = percentiles(base["dispatch_s"])
+        path_metrics[name] = dict(
+            card=CARD,
+            decided_values_per_s=run_["delivered"] / run_["wall"],
+            wall_s=run_["wall"],
+            dispatches=len(run_["dispatch_s"]),
+            dispatch_ms_p50=p50,
+            dispatch_ms_p99=p99,
+            launches={key: n for key, n in counts.items() if n},
+            wave_depths=run_["depths"],
+            fold_widths=run_["folds"],
+            plain_decided_values_per_s=base["delivered"] / base["wall"],
+            plain_wall_s=base["wall"],
+            plain_dispatch_ms_p50=plain_p50,
+            plain_dispatch_ms_p99=plain_p99,
+        )
     for name, t in times.items():
         print(f"  {name} {json.dumps(t)}")
     for name, m in path_metrics.items():
@@ -1540,6 +1832,7 @@ def run(dev: torch.device) -> None:
         ("acceptor_phase2", "vote.cu", "src/repro/kernels/acceptor.py:92", role_launches),
         ("learner_quorum", "learner.cu", "src/repro/kernels/learner.py:56", role_launches),
         ("K1-cohort", "wirepath.cu", "src/repro/kernels/wirepath.py:228", mg_launches),
+        ("K5", "wirepath.cu", "src/repro/kernels/wirepath.py:524", dflt_launches),
     ]  # fmt: skip
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}", replaces=replaces,

@@ -19,11 +19,17 @@ defaults to ``False``) the dataplane runs the hand-written kernels on the
 card and their plain versions on the CPU: the round kernel on the fused
 wire path, the sequencer and the acceptor array's vote on the staged path
 (the default, ``fused=False``), and the round kernel in its multi-group and
-cohort forms for every fused dispatch of a grouped context.
+cohort forms for every single-round dispatch of a grouped context, and its
+persistent K-round form K5 for every wave.
 ``use_kernels=False`` selects the plain engine on any device.
 
-Not ported yet: persistent waves (``PaxosConfig.persistent_rounds > 1`` on a
-grouped context) and the sharded dataplane (``mesh=``); both raise.
+A grouped context runs at the reference's defaults: a cohort whose members
+all have K >= 2 full batches queued rides one persistent wave of K rounds
+(``PaxosConfig.persistent_rounds``, 8 by default; K5 on the card), and the
+async pump defers each dispatch's read-back through pinned host memory until
+the next one is in flight (``PaxosConfig.async_pump``).
+
+Not ported yet: the sharded dataplane (``mesh=``), which raises.
 """
 
 from __future__ import annotations
@@ -57,7 +63,6 @@ from .types import (
     PaxosConfig,
 )
 
-_PERSISTENT = "ROADMAP.md queue 1, item 3 (persistent waves, K5)"
 _SHARDED = "ROADMAP.md queue 1, item 6 (sharded dataplane)"
 INT32_MAX = 2**31 - 1
 
@@ -231,22 +236,41 @@ class HardwareDataplane(RingReclamationMixin):
 
 
 class _DeferredRound:
-    """Handle for a dispatched cohort round whose host read-back is deferred:
-    the launch is in flight (or done) on the device, and ``resolve()`` makes
-    the device-to-host copy and selects the cohort's rows.  The pump
-    dispatches wave N+1 before it resolves wave N; the host watermark
-    mirrors advanced at dispatch time, so planning never waits on a
-    resolve."""
+    """Handle for a dispatched cohort round or wave whose host read-back is
+    deferred: ``resolve()`` gives the host results and selects the cohort's
+    rows (on axis 0 of a round's ``(C, B)`` outputs, axis 1 of a wave's
+    ``(K, C, B)``).  The pump dispatches wave N+1 before it resolves wave N;
+    the host watermark mirrors advanced at dispatch time, so planning never
+    waits on a resolve.
 
-    def __init__(self, fresh, value, inst: np.ndarray, rows: Sequence[int]):
-        self._fresh = fresh  # device tensors, rows before selection
-        self._value = value
+    On the card the read-back is enqueued at once, on the launch's stream:
+    ``fresh`` and ``value`` are copied without blocking into pinned host
+    buffers of this handle, and an event marks the copies' end, which
+    ``resolve()`` waits for.  One stream orders the next dispatch's in-place
+    writes after this copy.  On the CPU the outputs are host tensors
+    already."""
+
+    def __init__(self, fresh, value, inst: np.ndarray, rows: Sequence[int], axis: int = 0):
         self._inst = inst  # host instance windows, already in cohort order
         self._rows = list(rows)  # the cohort's rows of fresh and value
+        self._axis = axis
+        self._done: torch.cuda.Event | None = None
+        if fresh.device.type != "cuda":
+            self._fresh, self._value = fresh, value
+            return
+        with torch.cuda.device(fresh.device):
+            self._fresh = torch.empty(fresh.shape, dtype=fresh.dtype, pin_memory=True)
+            self._value = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+            self._fresh.copy_(fresh, non_blocking=True)
+            self._value.copy_(value, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record()
 
     def resolve(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        fresh = np.take(self._fresh.cpu().numpy(), self._rows, axis=0)
-        value = np.take(self._value.cpu().numpy(), self._rows, axis=0)
+        if self._done is not None:
+            self._done.synchronize()
+        fresh = np.take(self._fresh.numpy(), self._rows, axis=self._axis)
+        value = np.take(self._value.numpy(), self._rows, axis=self._axis)
         return fresh, self._inst, value
 
 
@@ -305,12 +329,14 @@ class MultiGroupDataplane(RingReclamationMixin):
     State is the single-group layout grown a leading group axis: ``(G,)``
     coordinator watermarks and rounds, ``(G, A, N)`` acceptor rings,
     ``(G, N)`` learner rings and a ``(G, A)`` liveness mask, all updated in
-    place.  ``pipeline`` advances every enabled group one Phase-2 round and
-    ``pipeline_cohort`` the groups of one cohort; with ``use_kernels`` both
-    run the round kernel (``kernels.ops.multigroup_fused_round``,
-    ``kernels.ops.cohort_fused_round``) on the card and its plain version on
-    the CPU, at any window base.  ``use_kernels=False`` runs the plain
-    engine, full width, with non-members held inert.  The fold width the
+    place.  ``pipeline`` advances every enabled group one Phase-2 round,
+    ``pipeline_cohort`` the groups of one cohort and ``pipeline_persistent``
+    one cohort K rounds; with ``use_kernels`` they run the round kernel
+    (``kernels.ops.multigroup_fused_round``, ``kernels.ops.cohort_fused_round``)
+    or its persistent form (``kernels.ops.persistent_cohort_rounds``) on the
+    card and the plain versions on the CPU, at any window base.
+    ``use_kernels=False`` runs the plain engine, full width, with
+    non-members held inert.  The fold width the
     reference kernel would use (``last_gb``), ``dispatch_count`` and the
     planner's decisions do not depend on the engine.
 
@@ -519,10 +545,92 @@ class MultiGroupDataplane(RingReclamationMixin):
         return handle if defer else handle.resolve()
 
     def _wave_block(self, be: int, bases) -> int:
-        raise NotImplementedError(f"persistent waves are not ported yet: {_PERSISTENT}")
+        """Batch block of a persistent wave, the reference's choice: one
+        block per round (``be``) when the ring and every member's base are
+        ``be``-aligned (each round then advances by ``be``), else the wire
+        block.  K5 takes it as its threads per block; no result depends on
+        it."""
+        if self.cfg.n_instances % be == 0 and all(base % be == 0 for base in bases):
+            return be
+        return plan_mod.wire_block(be)
 
     def pipeline_persistent(self, gids, values: np.ndarray, active: np.ndarray, defer=False):
-        raise NotImplementedError(f"persistent waves are not ported yet: {_PERSISTENT}")
+        """Advance the cohort ``gids`` K back-to-back full rounds in one
+        dispatch: the persistent wave.  ``values`` is ``(K, len(gids), BE,
+        V)``, round-major in cohort order, ``active`` ``(K, len(gids),
+        BE)``.  Every member takes part in every round, each round's window
+        is the next ``BE`` instances of each member, and the result equals
+        K sequential ``pipeline_cohort`` calls.  With ``use_kernels`` the
+        wave runs K5 (``kernels.ops.persistent_cohort_rounds``), driven by
+        the descriptor ``wni``/``wen`` built from the host mirrors; else the
+        plain K-round program at full width.  A wave whose last window would
+        pass a member's reclaim limit raises before anything moves.  Returns
+        host ``(fresh[K, M, BE], inst[K, M, BE], value[K, M, BE, V])``, or
+        with ``defer=True`` a ``_DeferredRound`` that gives the same."""
+        k, be = values.shape[0], values.shape[2]
+        if k * be > self.cfg.n_instances:
+            raise ValueError(
+                f"persistent wave of {k} x {be} instances would lap the "
+                f"{self.cfg.n_instances}-instance ring"
+            )
+        gids, member, use_k, _inst0 = self._cohort_prologue(gids, values[0])
+        g, v = self.cfg.n_groups, self.cfg.value_words
+        marks = self.next_inst_host
+        # guard the wave's last window up front: a wave past the limit
+        # fails before any state or counter moves, never mid-wave
+        for gid in gids:
+            self._reclaim_guard(gid, marks[gid] + (k - 1) * be, be)
+        lim = self._reclaim_limits_np()
+        gb, blocks = plan_mod.cohort_blocks(gids, marks, self._fold_width())
+        self.last_gb = gb
+        self.dispatch_count += 1
+        # the wave descriptor: each member's window base per round (numpy
+        # int32, so a window past 2**31 wraps as the reference's does) and
+        # its participation; non-members' rows stay 0, inert
+        wni = np.zeros((k, g), np.int32)
+        wen = np.zeros((k, g), np.int32)
+        steps = np.arange(k, dtype=np.int32) * be
+        for gid in gids:
+            wni[:, gid] = marks[gid] + steps
+            wen[:, gid] = 1
+        inst = np.stack(
+            [np.stack([np.arange(w, w + be, dtype=np.int32) for w in wni[r, gids]])
+             for r in range(k)]
+        )  # fmt: skip
+        if use_k:
+            self._check_fold(gids, gb)
+            rowof = {blk * gb + j: i * gb + j for i, blk in enumerate(blocks) for j in range(gb)}
+            kvals = np.zeros((k, len(blocks) * gb, be, v), np.int32)
+            kvals[..., 0] = NOP_SENTINEL
+            for row, gid in enumerate(gids):
+                kvals[:, rowof[gid]] = values[:, row]
+            self.stack, self.lstate, dfresh, _win, dvalue = kops.persistent_cohort_rounds(
+                self.stack, self.lstate, blocks, wni, wen, self.cstate.crnd, self.alive_mask,
+                self.cfg.quorum, self._to_dev(kvals), lim, group_block=gb,
+                block_b=self._wave_block(be, [marks[gid] for gid in gids]),
+            )  # fmt: skip
+            rows = [rowof[gid] for gid in gids]
+        else:
+            # plain engine: full width per round, K rounds in one program
+            per_round = [plan_mod.scatter_rows(gids, values[r], active[r], g, v) for r in range(k)]
+            vals_f = np.stack([x for x, _ in per_round])
+            act_f = np.stack([a for _, a in per_round])
+            _c, self.stack, self.lstate, dfresh, _i, _w, dvalue = (
+                batched.persistent_multigroup_rounds(
+                    self.cstate, self.stack, self.lstate, self._to_dev(vals_f),
+                    self._to_dev(act_f, bool), self.alive_mask, self.cfg.quorum,
+                    enabled_rounds=wen != 0, reclaim_limit=lim,
+                )
+            )  # fmt: skip
+            rows = gids
+        en = self._to_dev(member)
+        self.cstate = CoordinatorState(
+            next_inst=self.cstate.next_inst + en * (k * be), crnd=self.cstate.crnd
+        )
+        for gid in gids:
+            self.next_inst_host[gid] += k * be
+        handle = _DeferredRound(dfresh, dvalue, inst, rows=rows, axis=1)
+        return handle if defer else handle.resolve()
 
     def burn_forward(self, gid: int, target: int) -> None:
         """Advance a group's watermark to ``target`` without proposing
@@ -691,11 +799,6 @@ class PaxosContext:
             # the multi-group service is wire-path only: every group rides
             # the fused dispatch; staged traffic exists per group for
             # recovery and failover (group views)
-            if self.cfg.persistent_rounds > 1:
-                raise NotImplementedError(
-                    f"persistent_rounds={self.cfg.persistent_rounds}: persistent waves are not "
-                    f"ported yet ({_PERSISTENT}); pass PaxosConfig(persistent_rounds=1)"
-                )
             if n_learners != 1:
                 raise ValueError(
                     "multi-group context drives the fused wire path and a "
@@ -907,10 +1010,13 @@ class PaxosContext:
 
         Each chunk wave splits the loaded groups into cohorts, one dispatch
         per distinct right-sized burst; frozen, vacant and idle groups are
-        members of no cohort and burn no instances.  With ``async_pump`` a
-        wave's read-back is deferred until the next wave is dispatched (host
-        ordering only: planning reads the host mirrors, and every wave is
-        resolved before ``pump`` returns, in the serial loop's order)."""
+        members of no cohort and burn no instances.  A cohort planned as a
+        K-round persistent wave takes K - 1 further batch slices of its
+        members' queues and rides one ``pipeline_persistent`` dispatch.
+        With ``async_pump`` a wave's read-back is deferred until the next
+        wave is dispatched (planning reads the host mirrors only, and every
+        wave is resolved before ``pump`` returns, in the serial loop's
+        order)."""
         # traffic to a retired group is dropped at the door: its slot may
         # already belong to the free-list or to a new tenant
         live = self.hw.live_host
@@ -951,12 +1057,22 @@ class PaxosContext:
                 hw.burn_forward(gid, target)
             wave = []
             for cohort in rp.cohorts:
-                if self._wave_depth_clamped(cohort) > 1:
-                    raise NotImplementedError(f"persistent waves are not ported yet: {_PERSISTENT}")
-                packed = [self._pack_chunk(chunks[gid], cohort.burst) for gid in cohort.gids]
-                vals = np.stack([v for v, _ in packed])
-                act = np.stack([a for _, a in packed])
-                wave.append((cohort.gids, hw.pipeline_cohort(cohort.gids, vals, act, defer=True)))
+                kk = self._wave_depth_clamped(cohort)
+                # a persistent wave (kk > 1) takes kk - 1 further batch
+                # slices of each member's queue into the same dispatch
+                rounds = [[chunks[gid] for gid in cohort.gids]]
+                for _ in range(kk - 1):
+                    rounds.append([queues[gid][:b] for gid in cohort.gids])
+                    for gid in cohort.gids:
+                        queues[gid] = queues[gid][b:]
+                packed = [[self._pack_chunk(c, cohort.burst) for c in row] for row in rounds]
+                vals = np.stack([np.stack([v for v, _ in row]) for row in packed])
+                act = np.stack([np.stack([a for _, a in row]) for row in packed])
+                if kk > 1:
+                    handle = hw.pipeline_persistent(cohort.gids, vals, act, defer=True)
+                else:
+                    handle = hw.pipeline_cohort(cohort.gids, vals[0], act[0], defer=True)
+                wave.append((cohort.gids, handle))
             if self.cfg.async_pump:
                 # this wave is in flight: deliver the previous one meanwhile
                 for gids_, handle in in_flight:
@@ -981,14 +1097,19 @@ class PaxosContext:
         return max(1, kk)
 
     def _resolve_wave(self, gids: tuple[int, ...], handle: _DeferredRound) -> None:
-        """Host read-back and delivery of one dispatched cohort round."""
+        """Host read-back and delivery of one dispatched cohort round or
+        persistent wave.  A wave delivers rounds first, then rows: the
+        order K sequential single-round dispatches would give."""
         fresh, inst, value = handle.resolve()
-        for row, gid in enumerate(gids):
-            for j in np.nonzero(fresh[row])[0]:
-                raw = value[row, j].tobytes()
-                ii = int(inst[row, j])
-                self.learned_g[gid].setdefault(ii, raw)
-                self._deliver_group(gid, ii, raw)
+        if fresh.ndim == 2:  # a single round: (M, BE)
+            fresh, inst, value = fresh[None], inst[None], value[None]
+        for r in range(fresh.shape[0]):
+            for row, gid in enumerate(gids):
+                for j in np.nonzero(fresh[r, row])[0]:
+                    raw = value[r, row, j].tobytes()
+                    ii = int(inst[r, row, j])
+                    self.learned_g[gid].setdefault(ii, raw)
+                    self._deliver_group(gid, ii, raw)
 
     def _burst_size(self, longest: int) -> int:
         """Engine-agnostic burst sizing (``plan.quantize_burst``), noted in

@@ -5,8 +5,10 @@ batch of Paxos headers (``MsgBatch``) in one shot, with the reference's
 ``vmap`` over acceptors (and over groups) written out as a leading axis.
 ``fused_round`` is the plain version of the fused round kernel at one group,
 ``multigroup_fused_round`` and ``cohort_fused_round`` at G groups and in
-cohort form (``kernels/wirepath.py``): each agrees with the kernel bit for
-bit.
+cohort form, and ``persistent_cohort_rounds`` of its K-round persistent
+form (``kernels/wirepath.py``): each agrees with the kernel bit for bit.
+``persistent_multigroup_rounds`` is the full-width K-round program the
+dataplane's plain engine runs for a wave.
 
 Unlike the reference, which returns new immutable arrays, the register
 files (``AcceptorState``, ``LearnerState``) are updated in place, as the
@@ -433,4 +435,99 @@ def cohort_fused_round(
         values,
         quorum,
     )
+    return stack, lstate, fresh, win, value
+
+
+# ---------------------------------------------------------------------------
+# Persistent waves: K rounds in one dispatch
+# ---------------------------------------------------------------------------
+def persistent_multigroup_rounds(
+    cstate: CoordinatorState,  # (G,)
+    stack: AcceptorState,  # (G, A, N[, V])
+    lstate: LearnerState,  # (G, N[, V])
+    values: torch.Tensor,  # int32[K, G, B, V]
+    active: torch.Tensor,  # bool[K, G, B]
+    alive: torch.Tensor,  # bool[G, A]
+    quorum: int,
+    enabled_rounds=None,  # bool/int32[K, G]; None = all
+    reclaim_limit=None,  # int32[G]; None = no reclamation
+) -> tuple[
+    CoordinatorState,
+    AcceptorState,
+    LearnerState,
+    torch.Tensor,
+    torch.Tensor,
+    torch.Tensor,
+    torch.Tensor,
+]:
+    """K Phase-2 rounds unrolled over ``multigroup_fused_round``: round
+    ``k`` runs on ``values[k]`` with ``enabled_rounds[k]`` applied as the
+    dataplane applies ``enabled`` to one round: a group sitting the round
+    out is presented at NO_ROUND and its watermark does not advance, so the
+    wave equals K sequential rounds by construction.  Returns ``(cstate',
+    stack, lstate, fresh[K, G, B], inst[K, G, B], win_vrnd[K, G, B],
+    value[K, G, B, V])``."""
+    g = values.shape[1]
+    dev = values.device
+    outs = []
+    for r in range(values.shape[0]):
+        en = None if enabled_rounds is None else group_vector(enabled_rounds[r], g, dev) != 0
+        eff = cstate
+        if en is not None:
+            eff = CoordinatorState(cstate.next_inst, torch.where(en, cstate.crnd, NO_ROUND))
+        new_c, stack, lstate, *out = multigroup_fused_round(
+            eff, stack, lstate, values[r], active[r], alive, quorum, reclaim_limit=reclaim_limit
+        )
+        marks = new_c.next_inst
+        if en is not None:
+            marks = torch.where(en, new_c.next_inst, cstate.next_inst)
+        cstate = CoordinatorState(marks, cstate.crnd)
+        outs.append(out)
+    fresh, inst, win, value = (torch.stack(x) for x in zip(*outs, strict=True))
+    return cstate, stack, lstate, fresh, inst, win, value
+
+
+def _wave_table(x, dev: torch.device) -> torch.Tensor:
+    """A ``(K, G)`` int32 wave-descriptor table on ``dev``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x, np.int32))
+    return x.to(dev, I32)
+
+
+def persistent_cohort_rounds(
+    stack: AcceptorState,  # (G, A, N[, V])
+    lstate: LearnerState,  # (G, N[, V])
+    gsel,  # int[NB]  selected group blocks
+    wni,  # int32[K, G]  per-round window bases
+    wen,  # int32[K, G]  per-round participation
+    crnd: torch.Tensor,  # int32[G]
+    alive: torch.Tensor,  # bool[G, A]
+    quorum: int,
+    values: torch.Tensor,  # int32[K, NB*GB, B, V]  compact wave values
+    reclaim_limit=None,  # int32[G]; None = no reclamation
+    *,
+    group_block: int = 1,
+    block_b: int | None = None,
+) -> tuple[AcceptorState, LearnerState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the persistent wave kernel, with its compact-row
+    contract: the rows of the group blocks ``gsel`` names run K rounds, row
+    ``g`` of round ``k`` at ``wni[k, g]`` and inert where ``wen[k, g] ==
+    0``, the rings updated in place.  ``block_b`` is the kernel's launch
+    shape and changes nothing here.  Returns ``(stack, lstate, fresh[K, C,
+    B], win[K, C, B], value[K, C, B, V])`` with ``C = NB * group_block``."""
+    del block_b
+    g, n = stack.rnd.shape[0], stack.rnd.shape[2]
+    k, _c, b, _v = values.shape
+    if k * b > n:
+        raise ValueError(f"a persistent wave of {k} x {b} instances would lap the {n}-slot ring")
+    dev = values.device
+    rows = cohort_rows(gsel, group_block, dev)
+    ni, en = _wave_table(wni, dev)[:, rows], _wave_table(wen, dev)[:, rows] != 0
+    cr, al, limit = crnd[rows], alive[rows], _limits(reclaim_limit, g, dev)[rows]
+    outs = [
+        _rows_round(stack, lstate, rows, ni[r], torch.where(en[r], cr, NO_ROUND), en[r], al,
+                    limit, values[r], quorum)  # fmt: skip
+        for r in range(k)
+    ]
+    fresh, _inst, win, value = (torch.stack(x) for x in zip(*outs, strict=True))
     return stack, lstate, fresh, win, value

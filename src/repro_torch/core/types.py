@@ -46,8 +46,7 @@ class PaxosConfig:
     # numbering stays identical to independent per-group deployments
     realign_after: int | None = None
     # persistent-wave depth cap: up to K full rounds of a cohort in one
-    # dispatch.  The port plans waves but runs none yet: a grouped context
-    # takes only 1 (ROADMAP.md queue 1, item 3)
+    # dispatch (K5 on the card); 1 turns waves off
     persistent_rounds: int = 8
     # double-buffered pump: plan and pack wave N+1 before wave N's host
     # read-back; pump() stays synchronous and delivery order is unchanged

@@ -4,10 +4,14 @@
 // src/repro/kernels/wirepath.py, whose body is `_phase2_block`:
 // coordinator sequencing, the Phase-2 vote of all A acceptors, the learner
 // quorum and the learner ring dedup, in one launch, with the six state
-// tensors updated in place.  Two entries share one lane body (`phase2_lane`):
+// tensors updated in place.  Three entries share one lane body
+// (`phase2_lane`):
 //   wirepath_round         the single-group slice (`wirepath_round` there);
 //   cohort_wirepath_round  the cohort form over (G, ...) slabs, and through
-//                          it the full-width `multigroup_wirepath_round`.
+//                          it the full-width `multigroup_wirepath_round`;
+//   persistent_wirepath_round  K5: K rounds of the cohort form in one
+//                          launch, replacing the TPU kernel
+//                          `persistent_wirepath_round` (see below).
 //
 // Design.  One thread per lane j of a B-lane window; lane j of group g
 // addresses ring slot (next_inst[g] + j) mod N, the non-negative modulo,
@@ -221,6 +225,110 @@ extern "C" int cohort_wirepath_round(
     cohort_wirepath_round_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
         (const int*)gsel, gb, (const int*)next_inst, (const int*)crnd, (const int*)limit,
         (const unsigned char*)alive, (const int*)enabled, quorum, A, N, V, B,
+        (int*)st_rnd, (int*)st_vrnd, (int*)st_val,
+        (int*)ldel, (int*)linst, (int*)lval,
+        (const int*)values, (bool*)fresh, (int*)win, (int*)value);
+    return (int)cudaGetLastError();
+}
+
+// K5: K Phase-2 rounds of the cohort form in one launch.
+//
+// Replaces the TPU kernel `persistent_wirepath_round` of
+// src/repro/kernels/wirepath.py (body `_persistent_wirepath_kernel`).  A
+// wave descriptor drives it: wni[k, g] is group g's window base in round k
+// and wen[k, g] whether g takes part in round k.  Row r of the compact
+// layout serves group gsel[r / GB] * GB + r % GB, as in the cohort entry.
+//
+// Mapping.  One thread owns one (compact row, lane) for the whole wave and
+// loops over k = 0 .. K-1 in order.  Its instance in round k is
+// wni[k, g] + lane (int32 wrap), its slot the non-negative modulo, as in
+// `phase2_lane`; each group is served at its own wni[k, g], so a folded
+// block needs no substituted base.  Where wen[k, g] == 0 (a round the group
+// sits out, or an inert member of a folded block, whose wen is 0 in every
+// round) the round runs at NO_ROUND: the lane reads and stores no state
+// and writes fresh 0, win -1, value 0 for that round.
+//
+// Why no grid-wide sync is needed (the reference's argument at
+// wirepath.py:571-575, carried from grid steps to threads):
+//   * a group's enabled windows advance by B from round to round
+//     (wni[k+1] = wni[k] + B * wen[k]; the wrapper checks this walk on the
+//     host for every group of the selected blocks before it launches);
+//   * K * B <= N, so the instances wni[k] + lane of one group's enabled
+//     rounds are K * B consecutive numbers at most, and no two (lane,
+//     round) pairs of one group that touch state meet on a slot;
+//   * inert rounds touch no state.
+// So no two threads touch one slot, distinct rows are distinct groups
+// (gsel distinct, checked by the wrapper), and each thread sees its own
+// earlier rounds in program order.
+//
+// Bound.  K times the cohort entry's bytes per selected group (the
+// acceptor and learner writes at their most: every lane accepted by all A
+// acceptors and fresh), plus the (K, G) descriptor words wni and wen.  At
+// A=3, B=128, V=16, K=8, G=8: 8 * 8 * 56,467 B + 512 B = 3.6 MB, about
+// 1.1 us at 3.35 TB/s.  `block_b` is the launch's threads per block and
+// changes no result.
+__global__ void persistent_wirepath_round_kernel(
+    const int* __restrict__ gsel,       // int32[NB]  selected group blocks
+    int gb,                             // groups per block (GB)
+    const int* __restrict__ wni,        // int32[K, G]  window bases per round
+    const int* __restrict__ wen,        // int32[K, G]  0 = the round is inert
+    const int* __restrict__ crnd,       // int32[G]
+    const int* __restrict__ limit,      // int32[G]  first refused instance
+    const unsigned char* __restrict__ alive,  // bool[G, A]
+    int quorum, int K, int G, int A, int N, int V, int B,
+    int* __restrict__ st_rnd,    // int32[G, A, N]      in place
+    int* __restrict__ st_vrnd,   // int32[G, A, N]      in place
+    int* __restrict__ st_val,    // int32[G, A, N, V]   in place
+    int* __restrict__ ldel,      // int32[G, N]         in place
+    int* __restrict__ linst,     // int32[G, N]         in place
+    int* __restrict__ lval,      // int32[G, N, V]      in place
+    const int* __restrict__ values,  // int32[K, C, B, V]  compact wave
+    bool* __restrict__ fresh,    // bool[K, C, B]   out, compact
+    int* __restrict__ win_out,   // int32[K, C, B]  out, compact
+    int* __restrict__ value_out) // int32[K, C, B, V]  out, compact
+{
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    const int r = blockIdx.y;  // compact row
+    if (j >= B) return;
+    const int c = gridDim.y;
+    const int g = gsel[r / gb] * gb + r % gb;
+    const size_t an = (size_t)A * N;
+    for (int k = 0; k < K; ++k) {
+        const size_t lane = ((size_t)k * c + r) * B + j;
+        int* vout = value_out + lane * V;
+        const size_t kg = (size_t)k * G + g;
+        if (!wen[kg]) {
+            fresh[lane] = false;
+            win_out[lane] = -1;
+            for (int w = 0; w < V; ++w) vout[w] = 0;
+            continue;
+        }
+        const int inst = (int)((unsigned)wni[kg] + (unsigned)j);  // int32 wrap
+        phase2_lane(inst, crnd[g], alive + (size_t)g * A, quorum, limit[g], A, N, V,
+                    st_rnd + g * an, st_vrnd + g * an, st_val + g * an * V,
+                    ldel + (size_t)g * N, linst + (size_t)g * N, lval + (size_t)g * N * V,
+                    values + lane * V, fresh + lane, win_out + lane, vout);
+    }
+}
+
+extern "C" int persistent_wirepath_round(
+    const void* gsel, int nb, int gb,
+    const void* wni, const void* wen, const void* crnd, const void* limit,
+    const void* alive,
+    int quorum, int K, int G, int A, int N, int V, int B, int block_b,
+    void* st_rnd, void* st_vrnd, void* st_val,
+    void* ldel, void* linst, void* lval,
+    const void* values, void* fresh, void* win, void* value,
+    void* stream)
+{
+    if (A < 1 || A > MAX_A || B < 1 || V < 1 || K < 1 || (long long)K * B > N
+        || gb < 1 || nb < 1 || G % gb != 0 || nb * gb > G
+        || block_b < 1 || block_b > 1024)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((B + block_b - 1) / block_b, nb * gb);
+    persistent_wirepath_round_kernel<<<grid, block_b, 0, (cudaStream_t)stream>>>(
+        (const int*)gsel, gb, (const int*)wni, (const int*)wen, (const int*)crnd,
+        (const int*)limit, (const unsigned char*)alive, quorum, K, G, A, N, V, B,
         (int*)st_rnd, (int*)st_vrnd, (int*)st_val,
         (int*)ldel, (int*)linst, (int*)lval,
         (const int*)values, (bool*)fresh, (int*)win, (int*)value);

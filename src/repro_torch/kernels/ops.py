@@ -246,6 +246,59 @@ def cohort_fused_round(
     return stack, lstate, fresh, win, value
 
 
+def persistent_cohort_rounds(
+    stack: AcceptorState,
+    lstate: LearnerState,
+    gsel,
+    wni,
+    wen,
+    crnd: torch.Tensor,
+    alive: torch.Tensor,
+    quorum: int,
+    values: torch.Tensor,
+    reclaim_limit=None,
+    *,
+    group_block: int = 1,
+    block_b: int | None = None,
+) -> tuple[AcceptorState, LearnerState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A persistent K-round wave: K5 on the card,
+    ``batched.persistent_cohort_rounds`` on the CPU, state updated in place
+    either way.  The wave descriptor ``wni``/``wen`` (``(K, G)``, host
+    arrays or tensors) gives each group's window base and participation per
+    round; ``values`` and the outputs are compact per round (row ``j*GB +
+    k`` is group ``gsel[j]*GB + k``).  Coordinator-stateless: the dataplane
+    advances its own watermarks.  ``block_b`` (default: the reference's
+    128) is the kernel's launch shape and changes no result.  Returns
+    ``(stack, lstate, fresh[K, C, B], win[K, C, B], value[K, C, B, V])``."""
+    if not _route(values, "persistent_cohort_rounds"):
+        return _batched.persistent_cohort_rounds(
+            stack, lstate, gsel, wni, wen, crnd, alive, quorum, values, reclaim_limit,
+            group_block=group_block, block_b=block_b,
+        )  # fmt: skip
+    g = stack.rnd.shape[0]
+    dev = values.device
+    lim = None if reclaim_limit is None else _batched.group_vector(reclaim_limit, g, dev)
+    *_, fresh, win, value = _wirepath.persistent_wirepath_round(
+        gsel,
+        wni,
+        wen,
+        crnd,
+        quorum,
+        alive,
+        stack.rnd,
+        stack.vrnd,
+        stack.value,
+        lstate.delivered,
+        lstate.inst,
+        lstate.value,
+        values,
+        lim,
+        block_b=_wirepath.DEFAULT_BLOCK_B if block_b is None else block_b,
+        group_block=group_block,
+    )
+    return stack, lstate, fresh, win, value
+
+
 def digest(x: torch.Tensor) -> torch.Tensor:
     """The weighted fold of one array: K4 on the card, plain on the CPU."""
     return _digest.digest(x) if _route(x, "digest") else _digest.digest_plain(x)

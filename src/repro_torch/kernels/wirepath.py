@@ -1,5 +1,5 @@
-"""K1, the fused CAANS wire path, and K2, the staged vote of the acceptor
-array: CUDA kernels.
+"""K1, the fused CAANS wire path, K5, its persistent K-round form, and K2,
+the staged vote of the acceptor array: CUDA kernels.
 
 ``wirepath_round`` and ``cohort_wirepath_round`` launch the two entries of
 ``csrc/wirepath.cu``, which replaces the TPU kernel
@@ -20,6 +20,15 @@ ring slot, so there is no block-alignment precondition, and ``group_block``
 (distinct slots, so in-place writes never race), ``A <= 8`` and, in cohort
 form, distinct selected blocks (checked here).
 
+``persistent_wirepath_round`` launches the K5 entry of the same source,
+which replaces the TPU kernel ``repro.kernels.wirepath.persistent_wirepath_round``:
+K rounds of the cohort form in one launch, driven by the wave descriptor
+``wni``/``wen`` (each group's window base and participation per round).
+Its plain version is ``batched.persistent_cohort_rounds``.  Each thread
+keeps one (row, lane) for the whole wave, which is race-free only when
+``K * B <= N`` and each selected group's bases walk by ``B`` over its
+enabled rounds; both are checked here, on the host, before the launch.
+
 ``acceptor_vote_all_window`` launches the ``acceptor_vote_all`` entry point
 of ``csrc/vote.cu``, which replaces the TPU kernel
 ``repro.kernels.wirepath.acceptor_vote_all_window``: the staged Phase-2
@@ -39,20 +48,23 @@ import ctypes
 import numpy as np
 import torch
 
+from ..core.plan import DEFAULT_BLOCK_B
 from . import _build
 from .acceptor import vote_io
 
 MAX_A = 8
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
-# launches of K1 (single group and cohort form) and of K2 in this process;
+# launches of K1 (single group and cohort form), K5 and K2 in this process;
 # reset by whoever reads them
 launches = 0
 cohort_launches = 0
+persistent_launches = 0
 vote_all_launches = 0
 
 _fn = None
 _cohort_fn = None
+_persistent_fn = None
 _vote_fn = None
 
 
@@ -281,6 +293,142 @@ def multigroup_wirepath_round(
         st_rnd, st_vrnd, st_val, ldel, linst, lval, values, enabled, limit,
         group_block=group_block,
     )  # fmt: skip
+
+
+def _persistent_kernel():
+    global _persistent_fn
+    if _persistent_fn is None:
+        fn = _build.library("wirepath").persistent_wirepath_round
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, p, p, p, p, p, *[i] * 8, *[p] * 10, p]
+        fn.restype = ctypes.c_int
+        _persistent_fn = fn
+    return _persistent_fn
+
+
+def _host_wave(wni, wen, b: int, rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The wave descriptor as host int32 ``(K, G)`` arrays (``wen`` as 0/1),
+    checked: every group of the selected blocks walks ``wni[k+1] = wni[k]
+    + B * wen[k]`` (int32 wrap).  K5's threads do not synchronise, and that
+    walk with ``K * B <= N`` is what keeps them off each other's slots."""
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    ni = host(wni).astype(np.int64)
+    en = (host(wen) != 0).astype(np.int64)
+    if ni.shape != en.shape or ni.ndim != 2:
+        raise ValueError(f"persistent_wirepath_round: wni {ni.shape} and wen {en.shape} differ")
+    walk = (ni[:-1, rows] + b * en[:-1, rows] - INT32_MIN) % 2**32 + INT32_MIN
+    if not np.array_equal(walk, ni[1:, rows]):
+        raise ValueError(
+            "persistent_wirepath_round: wni must walk wni[k+1] = wni[k] + B * wen[k] "
+            "for every group of the selected blocks"
+        )
+    return ni.astype(np.int32), en.astype(np.int32)
+
+
+def persistent_wirepath_round(
+    gsel,  # int[NB]  selected group blocks (host sequence or tensor)
+    wni,  # int32[K, G]  per-round window bases (host array or tensor)
+    wen,  # int32[K, G]  per-round participation, 0/1 (host array or tensor)
+    crnd: torch.Tensor,  # int32[G]  per-group coordinator round
+    quorum: int,
+    alive: torch.Tensor,  # bool[G, A]
+    st_rnd: torch.Tensor,  # int32[G, A, N]  stacked acceptor rings, in place
+    st_vrnd: torch.Tensor,  # int32[G, A, N]
+    st_val: torch.Tensor,  # int32[G, A, N, V]
+    ldel: torch.Tensor,  # int32[G, N]  learner rings, in place
+    linst: torch.Tensor,  # int32[G, N]
+    lval: torch.Tensor,  # int32[G, N, V]
+    values: torch.Tensor,  # int32[K, NB*GB, B, V]  compact wave values
+    limit: torch.Tensor | None = None,  # int32[G] first refused inst; None = none
+    *,
+    block_b: int = DEFAULT_BLOCK_B,
+    group_block: int = 1,
+) -> tuple[torch.Tensor, ...]:
+    """K fused Phase-2 rounds for the groups of the selected blocks in one
+    launch, on the card.  Row ``j*GB + k`` of ``values[r]`` and of the
+    round-``r`` outputs belongs to group ``gsel[j]*GB + k``, served at
+    ``wni[r, g]``; a group with ``wen[r, g] == 0`` rides round ``r`` inert.
+    ``block_b`` is the launch's threads per block, capped at B: it changes
+    no result.  Returns ``(st_rnd, st_vrnd, st_val, ldel, linst, lval,
+    fresh[K, C, B], win_vrnd[K, C, B], value[K, C, B, V])``: the six state
+    tensors are the inputs, updated in place; ``fresh`` is a bool mask."""
+    what = "persistent_wirepath_round"
+    dev = values.device
+    _build.on_card(what, dev)
+    g, a, n = st_rnd.shape
+    k, c, b, v = values.shape
+    gb, bb = group_block, min(block_b, b)
+    if not 1 <= a <= MAX_A or k * b > n or gb < 1 or g % gb or not 1 <= bb <= 1024:
+        raise ValueError(
+            f"{what} needs 1 <= A <= {MAX_A}, K * B <= N, GB | G and 1 <= block_b <= 1024, "
+            f"got A={a}, K={k}, B={b}, N={n}, GB={gb}, G={g}, block_b={block_b}"
+        )
+    gs = _host_gsel(gsel, g // gb)
+    if c != gs.size * gb:
+        raise ValueError(f"{what}: {c} wave rows for {gs.size} blocks of {gb}")
+    rows = (gs.astype(np.int64)[:, None] * gb + np.arange(gb)[None, :]).reshape(-1)
+    ni, en = _host_wave(wni, wen, b, rows)
+    if ni.shape != (k, g):
+        raise ValueError(f"{what}: wni and wen must be ({k}, {g}), got {ni.shape}")
+    i32 = torch.int32
+    if limit is None:
+        limit = torch.full((g,), INT32_MAX, dtype=i32, device=dev)
+    for name, t, dtype, shape in (
+        ("crnd", crnd, i32, (g,)),
+        ("limit", limit, i32, (g,)),
+        ("alive", alive, torch.bool, (g, a)),
+        ("st_rnd", st_rnd, i32, (g, a, n)),
+        ("st_vrnd", st_vrnd, i32, (g, a, n)),
+        ("st_val", st_val, i32, (g, a, n, v)),
+        ("ldel", ldel, i32, (g, n)),
+        ("linst", linst, i32, (g, n)),
+        ("lval", lval, i32, (g, n, v)),
+        ("values", values, i32, (k, c, b, v)),
+    ):
+        _build.require(what, name, t, dtype, shape, dev)
+    gsel_d, wni_d, wen_d = (torch.from_numpy(x).to(dev) for x in (gs, ni, en))
+    return _persistent_launch(
+        gsel_d, gb, wni_d, wen_d, crnd, quorum, alive,
+        st_rnd, st_vrnd, st_val, ldel, linst, lval, values, limit, bb,
+    )  # fmt: skip
+
+
+def _persistent_launch(
+    gsel: torch.Tensor,  # int32[NB] on the card, checked by the caller
+    gb: int,
+    wni: torch.Tensor,  # int32[K, G] on the card, checked by the caller
+    wen: torch.Tensor,  # int32[K, G] 0/1 on the card, checked by the caller
+    crnd, quorum, alive, st_rnd, st_vrnd, st_val, ldel, linst, lval, values,
+    limit: torch.Tensor,
+    block_b: int,
+) -> tuple[torch.Tensor, ...]:
+    """Launch K5 on checked inputs (CUDA-graph capturable: no host copy).
+    ``persistent_wirepath_round`` is the checked wrapper."""
+    global persistent_launches
+    g, a, n = st_rnd.shape
+    k, c, b, v = values.shape
+    dev = values.device
+    fresh = torch.empty((k, c, b), dtype=torch.bool, device=dev)
+    win = torch.empty((k, c, b), dtype=torch.int32, device=dev)
+    value = torch.empty((k, c, b, v), dtype=torch.int32, device=dev)
+    fn = _persistent_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            gsel.data_ptr(), gsel.numel(), gb,
+            wni.data_ptr(), wen.data_ptr(), crnd.data_ptr(), limit.data_ptr(),
+            alive.data_ptr(), int(quorum), k, g, a, n, v, b, block_b,
+            st_rnd.data_ptr(), st_vrnd.data_ptr(), st_val.data_ptr(),
+            ldel.data_ptr(), linst.data_ptr(), lval.data_ptr(),
+            values.data_ptr(), fresh.data_ptr(), win.data_ptr(), value.data_ptr(),
+            stream,
+        )  # fmt: skip
+    _build.check(rc, "persistent_wirepath_round launch")
+    persistent_launches += 1
+    return st_rnd, st_vrnd, st_val, ldel, linst, lval, fresh, win, value
 
 
 def _vote_kernel():

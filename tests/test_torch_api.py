@@ -195,11 +195,23 @@ def test_export_state_copies():
 
 
 def test_grouped_and_sharded_contexts_are_not_ported_yet():
-    """What is not ported yet raises at construction: persistent waves (a
-    grouped context with ``persistent_rounds > 1``) and the sharded
-    dataplane (``mesh=``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 3"):
-        T.PaxosContext(T.PaxosConfig(n_groups=2, persistent_rounds=2), device="cpu")
+    """The sharded dataplane (``mesh=``), not ported yet, raises at
+    construction.  Persistent waves are ported: a grouped context with
+    ``persistent_rounds=2`` builds and runs a wave of two rounds."""
+    ctx = T.PaxosContext(T.PaxosConfig(n_groups=2, persistent_rounds=2, **CFG), device="cpu")
+    waves = []
+    persistent = ctx.hw.pipeline_persistent
+
+    def recorded(gids, values, *args, **kw):
+        waves.append((tuple(gids), values.shape[0]))
+        return persistent(gids, values, *args, **kw)
+
+    ctx.hw.pipeline_persistent = recorded
+    for i in range(2 * CFG["batch"]):
+        ctx.submit(f"w{i}".encode(), group=1)
+    ctx.run_until_quiescent()
+    assert waves == [((1,), 2)] and ctx.hw.dispatch_count == 1
+    assert [p for _i, p in ctx.group_log[1]] == [f"w{i}".encode() for i in range(32)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.PaxosContext(T.PaxosConfig(), mesh=object(), device="cpu")
 

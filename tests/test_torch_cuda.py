@@ -472,3 +472,194 @@ def test_grouped_context_on_the_card_matches_the_cpu(cuda):
     want, have = export_state(on_cpu.hw), export_state(on_card.hw)
     for key in want:
         np.testing.assert_array_equal(have[key], want[key], err_msg=key)
+
+
+def _walk(bases, wen, b):
+    """Window bases of a wave descriptor, ``wni[k+1] = wni[k] + B*wen[k]``,
+    in int32."""
+    wni = np.zeros(wen.shape, np.int64)
+    wni[0] = bases
+    for r in range(1, wen.shape[0]):
+        wni[r] = wni[r - 1] + b * wen[r - 1]
+    return ((wni + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+@pytest.mark.parametrize(
+    "gb,gsel,bases,k,b",
+    [
+        (1, [5], [0] * 8, 8, 128),
+        (1, [0, 3, 6], [9, 4096, 2**31 - 300, 3 * 4096 - 60, 5, 6, 7, 8], 4, 128),
+        (2, [1, 2], [0, 0, 2**31 - 40, 999, 640, 640, 0, 0], 8, 16),
+        (8, [0], [4096 - 256] * 8, 32, 128),  # K * B = N
+    ],
+)
+def test_persistent_kernel_matches_plain(cuda, gb, gsel, bases, k, b):
+    """K5 against ``batched.persistent_cohort_rounds``: one block, a subset
+    and all; a freeze from round 2 on and an inert member per folded block;
+    windows across 2**31 and across the ring end; dead acceptors; a limit
+    inside the wave and a wrapped one; the state in place; the same result
+    at two ``block_b`` values; one launch counted in ``persistent_launches``."""
+    g, a, n, v = 8, 3, 4096, 16
+    rng = np.random.default_rng([gb, k])
+    rows = [blk * gb + j for blk in gsel for j in range(gb)]
+    wen = np.zeros((k, g), np.int32)
+    wen[:, rows] = 1
+    wen[2:, rows[0]] = 0  # frozen from round 2
+    if gb > 1:
+        wen[:, rows[1]] = 0  # an inert member of a folded block
+    wni = _walk(bases, wen, b)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    crnd = torch.from_numpy(rng.integers(1, 6, g, dtype=np.int32)).to(cuda)
+    alive = torch.ones((g, a), dtype=torch.bool, device=cuda)
+    alive[2, 0] = alive[4, 1] = alive[4, 2] = False
+    limit = np.asarray([0] * 7 + [2**31 - 100], np.int32) + n  # group 7's wraps
+    limit[rows[-1]] = np.int32(bases[rows[-1]] + b + 7)
+    values = torch.from_numpy(
+        rng.integers(I32_MIN, I32_MAX, (k, len(rows), b, v), dtype=np.int32, endpoint=True)
+    ).to(cuda)
+    stack, lstate = _slabs(rng, g, a, n, v, 8, cuda)
+    twin = (AcceptorState(*(x.clone() for x in vars(stack).values())),
+            batched.LearnerState(*(x.clone() for x in vars(lstate).values())))  # fmt: skip
+    want = batched.persistent_cohort_rounds(*twin, gsel, wni, wen, crnd, alive, 2, values, limit,
+                                            group_block=gb)  # fmt: skip
+    plain = (*vars(want[0]).values(), *vars(want[1]).values(), *want[2:])
+    for block_b in (128, 32):
+        mine_state = (AcceptorState(*(x.clone() for x in vars(stack).values())),
+                      batched.LearnerState(*(x.clone() for x in vars(lstate).values())))  # fmt: skip
+        ptrs = [x.data_ptr() for part in mine_state for x in vars(part).values()]
+        before = k_wirepath.persistent_launches
+        got = ops.persistent_cohort_rounds(*mine_state, gsel, wni, wen, crnd, alive, 2, values,
+                                           limit, group_block=gb, block_b=block_b)  # fmt: skip
+        torch.cuda.synchronize()
+        assert k_wirepath.persistent_launches == before + 1
+        mine = (*vars(got[0]).values(), *vars(got[1]).values(), *got[2:])
+        for x, y in zip(mine, plain, strict=True):
+            assert torch.equal(x, y)
+        assert [x.data_ptr() for x in (*vars(got[0]).values(), *vars(got[1]).values())] == ptrs
+    assert not got[2][2:, 0].any() and bool((got[3][2:, 0] == -1).all())
+
+
+def test_persistent_kernel_equals_k_cohort_launches(cuda):
+    """One K5 wave against K sequential K1-cohort launches over the same
+    descriptor (the freeze applied between launches as an enabled mask and
+    a watermark that stops walking), as the reference's chaos parity test."""
+    g, a, n, v, b, k = 8, 3, 4096, 16, 128, 8
+    rng = np.random.default_rng(11)
+    gsel = [0, 1]
+    wen = np.zeros((k, g), np.int32)
+    wen[:, :8] = 1
+    wen[3:, 5] = 0
+    wni = _walk([2**31 - 512] * 4 + [64] * 4, wen, b)
+    crnd = torch.from_numpy(rng.integers(1, 6, g, dtype=np.int32)).to(cuda)
+    alive = torch.ones((g, a), dtype=torch.bool, device=cuda)
+    alive[6, 0] = False
+    values = torch.from_numpy(
+        rng.integers(I32_MIN, I32_MAX, (k, g, b, v), dtype=np.int32, endpoint=True)
+    ).to(cuda)
+    stack, lstate = _slabs(rng, g, a, n, v, 8, cuda)
+    seq = (AcceptorState(*(x.clone() for x in vars(stack).values())),
+           batched.LearnerState(*(x.clone() for x in vars(lstate).values())))  # fmt: skip
+    got = ops.persistent_cohort_rounds(stack, lstate, gsel, wni, wen, crnd, alive, 2, values,
+                                       group_block=4)  # fmt: skip
+    outs = []
+    for r in range(k):
+        ni = torch.from_numpy(wni[r]).to(cuda)
+        *_, fresh, win, value = ops.cohort_fused_round(
+            *seq, gsel, ni, crnd, alive, 2, values[r], wen[r], group_block=4
+        )
+        outs.append((fresh, win, value))
+    for x, y in zip(got[2:], (torch.stack(o) for o in zip(*outs, strict=True)), strict=True):
+        assert torch.equal(x, y)
+    for x, y in zip((*vars(stack).values(), *vars(lstate).values()),
+                    (*vars(seq[0]).values(), *vars(seq[1]).values()), strict=True):  # fmt: skip
+        assert torch.equal(x, y)
+
+
+def test_persistent_kernel_refuses_before_launch(cuda):
+    """The wrapper's host-side checks: K * B > N, a repeated block, and a
+    descriptor whose bases do not walk by B over enabled rounds each raise
+    before any launch."""
+    g, a, n, v, b = 4, 3, 256, 16, 16
+    stack, lstate = _slabs(np.random.default_rng(0), g, a, n, v, 8, cuda)
+    crnd = torch.ones(g, dtype=torch.int32, device=cuda)
+    alive = torch.ones((g, a), dtype=torch.bool, device=cuda)
+    state = (*vars(stack).values(), *vars(lstate).values())
+    before = k_wirepath.persistent_launches
+
+    def wave(gsel, k, wni=None, wen=None):
+        wen = np.ones((k, g), np.int32) if wen is None else wen
+        wni = _walk([0] * g, wen, b) if wni is None else wni
+        vals = torch.zeros((k, len(gsel), b, v), dtype=torch.int32, device=cuda)
+        return k_wirepath.persistent_wirepath_round(gsel, wni, wen, crnd, 2, alive, *state, vals)
+
+    with pytest.raises(ValueError, match="K \\* B <= N"):
+        wave([0], n // b + 1)
+    with pytest.raises(ValueError, match="distinct"):
+        wave([1, 1], 2)
+    bad = _walk([0] * g, np.ones((3, g), np.int32), b)
+    bad[2, 2] += b
+    with pytest.raises(ValueError, match="walk"):
+        wave([2], 3, wni=bad)
+    assert k_wirepath.persistent_launches == before
+    wave([0, 1, 3], 3, wni=bad)  # group 2 is not selected: its row is not read
+    assert k_wirepath.persistent_launches == before + 1
+
+
+@pytest.mark.parametrize("async_pump", [True, False])
+def test_default_grouped_context_on_the_card_matches_the_cpu(cuda, async_pump):
+    """The multi-group service at the reference's defaults
+    (``persistent_rounds=8``) on the card and on the CPU: lossy net, waves
+    of several depths, a failover, snapshots, retire and create; equal logs,
+    deliveries, seals, state and plan; one K5 launch per wave and one
+    K1-cohort launch per single-round dispatch."""
+
+    def run(dev):
+        cfg = PaxosConfig(n_instances=1024, batch=32, n_groups=4, async_pump=async_pump)
+        order = []
+        ctx = PaxosContext(
+            cfg, net=SimNet(FaultSpec(drop=0.05, dup=0.05, reorder=0.05), seed=7),
+            snapshots=True, device=dev, deliver=lambda p, s, i: order.append((p, i)),
+        )  # fmt: skip
+        depths = []
+        for kind in ("pipeline_cohort", "pipeline_persistent"):
+            dispatch = getattr(ctx.hw, kind)
+
+            def counted(gids, values, *args, _d=dispatch, _kind=kind, **kw):
+                depths.append(values.shape[0] if _kind == "pipeline_persistent" else 1)
+                return _d(gids, values, *args, **kw)
+
+            setattr(ctx.hw, kind, counted)
+        before = (k_wirepath.cohort_launches, k_wirepath.persistent_launches)
+        seals = []
+        rng = np.random.default_rng(3)
+        for lap in range(6):
+            if lap == 2:
+                ctx.fail_coordinator(group=1)
+            if lap == 3:
+                ctx.restore_hardware_coordinator(group=1)
+            if lap == 4:
+                ctx.retire_group(2)
+                ctx.create_group()
+            for gid in range(4):  # every group deep on laps 0 and 5: waves of K=8
+                load = 300 if gid == 0 or lap % 5 == 0 else int(rng.integers(0, 9 * 32))
+                for i in range(load):
+                    ctx.submit(f"{lap}-{gid}-{i}".encode(), group=gid)
+            ctx.run_until_quiescent()
+            seals += [ctx.snapshot_group(gid).seal for gid in range(4)]
+        launches = (k_wirepath.cohort_launches - before[0],
+                    k_wirepath.persistent_launches - before[1])  # fmt: skip
+        return ctx, seals, order, depths, launches
+
+    on_card, card_seals, card_order, depths, (cohorts, waves) = run(cuda)
+    on_cpu, cpu_seals, cpu_order, cpu_depths, cpu_launches = run("cpu")
+    assert cpu_launches == (0, 0) and depths == cpu_depths
+    assert waves == sum(d > 1 for d in depths) > 0 and cohorts == depths.count(1) > 0
+    assert 8 in depths, depths
+    assert card_seals == cpu_seals and card_order == cpu_order
+    for gid in range(4):
+        assert on_card.full_group_log(gid) == on_cpu.full_group_log(gid)
+    assert on_card.planner.report() == on_cpu.planner.report()
+    assert on_card.hw.dispatch_count == on_cpu.hw.dispatch_count
+    want, have = export_state(on_cpu.hw), export_state(on_card.hw)
+    for key in want:
+        np.testing.assert_array_equal(have[key], want[key], err_msg=key)

@@ -12,7 +12,8 @@ must be equal.  The cases of ``tests/test_multigroup.py`` (independent
 twins, failover isolation, idle groups under skew, recovery, the membership
 free-list, retire drains, a vacant slot folded inert) run on the port too,
 and the state bridge carries a mid-run reference dataplane into the port.
-Persistent waves are not ported: ``persistent_rounds > 1`` is refused.
+These run at ``persistent_rounds=1``; the defaults, with persistent waves,
+run in ``tests/test_torch_persistent.py``.
 """
 
 from __future__ import annotations
@@ -425,8 +426,20 @@ def test_bridge_carries_a_mid_run_reference_dataplane(rounds_before):
 
 
 def test_persistent_waves_are_refused():
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        T.PaxosContext(T.PaxosConfig(n_groups=2), device="cpu")  # persistent_rounds=8
-    hw = T.MultiGroupDataplane(_cfg(T, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="persistent waves"):
-        hw.pipeline_persistent([0], np.zeros((2, 1, 16, 16), np.int32), np.ones((2, 1, 16), bool))
+    """Persistent waves are ported: ``PaxosConfig(n_groups=2)`` (its
+    defaults ``persistent_rounds=8`` and ``async_pump=True``) runs, forms
+    waves and equals the reference's context on a lossy net: logs, state,
+    ``dispatch_count``, fold width and plan."""
+    ref, got = (
+        pkg.PaxosContext(pkg.PaxosConfig(n_groups=2, n_instances=1024), use_kernels=True,
+                         net=pkg.SimNet(pkg.FaultSpec(**FAULTS), 2), **extra)
+        for pkg, extra in ((R, {}), (T, {"device": "cpu"}))
+    )  # fmt: skip
+    for ctx in (ref, got):
+        assert ctx.cfg.persistent_rounds == 8 and ctx.cfg.async_pump
+        for gid, k in ((0, 600), (1, 300)):
+            for j in range(k):
+                ctx.submit(f"g{gid}j{j}".encode(), group=gid)
+        ctx.run_until_quiescent()
+    assert got.planner.report()["persistent_waves"] > 0
+    _assert_same(ref, got)
