@@ -11,7 +11,9 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
 3. the kernel phase: each kernel against its plain PyTorch version on the
    card, at its path's shapes and at adversarial windows, bit for bit; the
    round kernel K1 at one group and in its cohort and multi-group forms, and
-   its persistent form K5, also against K sequential K1 launches;
+   its persistent form K5, also against K sequential K1 launches, and the
+   packed shard round K6 and K1's shard slice, K6 also against K1's shard
+   slice on one cohort;
 4. the main path: ``PaxosContext(PaxosConfig(), fused=True, use_kernels=True,
    snapshots=True)`` on the card under a seeded lossy ``SimNet``, with ring
    wrap under reclamation, snapshots, an acceptor kill and revive, a crash
@@ -42,9 +44,19 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    order of ``deliver`` callbacks, seals, state, dispatch count, fold widths,
    wave depths and plan; K5 must run once per wave and K1's cohort form once
    per single-round dispatch;
-9. times: each kernel by CUDA events at its path's shapes beside its bound
+9. the groups-sharded path: the service of 8, at the reference's
+   defaults, on ``PaxosContext(..., mesh=make_group_mesh(2))`` (two shards
+   of four groups on the card), on the schedule of 7, then
+   ``retire_group(5)`` on shard 1, ``migrate_group(0, 1)`` and more
+   traffic.  A sharded context plans no persistent waves (the reference's
+   clamp), so before the move its group logs, dispatch count and plan must
+   equal path 7's; the plain engine's run must give the same group logs,
+   order of ``deliver`` callbacks, seals, state, dispatch count, fold
+   widths, placement and plan; every dispatch must launch K6 or K1's shard
+   slice once per shard;
+10. times: each kernel by CUDA events at its path's shapes beside its bound
    and its plain version, and each path's decided values/s and latency;
-10. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+11. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -75,6 +87,7 @@ from repro_torch.kernels import coordinator as k_coordinator  # noqa: E402
 from repro_torch.kernels import digest as k_digest  # noqa: E402
 from repro_torch.kernels import learner as k_learner  # noqa: E402
 from repro_torch.kernels import wirepath as k_wirepath  # noqa: E402
+from repro_torch.launch.mesh import make_group_mesh  # noqa: E402
 
 SEED = 20160519
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -623,6 +636,196 @@ def check_k5_against_k1(dev, n: int, v: int) -> int:
     return err
 
 
+def packed_cases(n: int, b: int):
+    """K6's cases at Gl in {8, 4}: C in {1, 2, 4}, each lane (row, base,
+    enabled).  Ragged tables carry pads that name an enabled lane's row and
+    row 0; bases are aligned, misaligned, at the ring end (the window wraps
+    the ring) and across 2^31 (the int32 wrap of ``ni + lane``)."""
+    out = []
+    for gl in (8, 4):
+        out += [
+            dict(gl=gl, name="C=1", lanes=[(gl - 1, 4096, 1)]),
+            dict(gl=gl, name="C=2, ring end", lanes=[(1, 3 * n - b // 2, 1), (0, 1003, 1)]),
+            dict(gl=gl, name="C=4", lanes=[(3, 640, 1), (0, 2**31 - b // 2, 1), (2, 9, 1),
+                                          (1, 5 * n + 13, 1)]),  # fmt: skip
+            dict(gl=gl, name="C=4, ragged", lanes=[(2, 2 * n - 7, 1), (2, 0, 0), (1, 128, 1),
+                                                   (0, 0, 0)]),  # fmt: skip
+            dict(gl=gl, name="C=2, one pad", lanes=[(gl - 2, 77, 1), (gl - 2, 0, 0)]),
+        ]
+    return out
+
+
+def check_k6(dev, n: int = 1 << 16, v: int = 16) -> int:
+    """K6 (``ops.packed_shard_round``) against its plain version
+    (``batched.packed_multigroup_round``) at A=3, N=65,536, V=16, B=128,
+    over ``packed_cases``, each at ``block_b`` 128 and 32: a dead acceptor
+    on lane 0, two dead (below quorum) on the last lane, a limit that
+    refuses the upper half of lane 1's window, the state in place, pads
+    inert (fresh 0, win -1, value 0) and rows no enabled lane names
+    untouched.  Then K6 against K1's shard slice on the same cohort.
+    Returns the largest difference."""
+    rng = np.random.default_rng(SEED + 20)
+    a, q, b = 3, 2, 128
+    worst = 0
+
+    def t(x, dt=torch.int32):
+        return torch.from_numpy(np.asarray(x)).to(dev, dt)
+
+    for case in packed_cases(n, b):
+        gl, lanes = case["gl"], case["lanes"]
+        c = len(lanes)
+        seg, ni, en = (t([lane[i] for lane in lanes]) for i in range(3))
+        crnds = [int(x) for x in rng.integers(1, 7, c)]
+        alive = np.ones((c, a), np.int32)
+        alive[0, 1] = 0  # still a quorum
+        if c > 2:
+            alive[-1, [0, 2]] = 0  # below quorum: nothing decides
+        limit = np.full((c,), 2**31 - 1, np.int64)
+        if c > 1:
+            limit[1] = lanes[1][1] + b // 2  # refuses the upper half
+        bases = [4096] * gl
+        for row, base, e in lanes:
+            if e:
+                bases[row] = base
+        stack, lstate = mg_state(rng, gl, a, n, v, b, bases, [max(crnds)] * gl, dev)
+        values = t(rng.integers(-(2**31), 2**31, (c, b, v), dtype=np.int32))
+        cr, al, lim = t(crnds), t(alive), t(limit.astype(np.int32))
+        twin = clone_slabs(stack, lstate)
+        want = batched.packed_multigroup_round(*twin, seg, ni, cr, al, q, values, en, lim)
+        plain = [*vars(want[0]).values(), *vars(want[1]).values(), want[2].to(torch.int32),
+                 *want[3:]]  # fmt: skip
+        errs = []
+        for block_b in (128, 32):
+            mine = clone_slabs(stack, lstate)
+            ptrs = [x.data_ptr() for x in (*vars(mine[0]).values(), *vars(mine[1]).values())]
+            got = ops.packed_shard_round(*mine, seg, ni, cr, al, q, values, en, lim,
+                                         block_b=block_b)  # fmt: skip
+            sync(dev)
+            state = [*vars(got[0]).values(), *vars(got[1]).values()]
+            if [x.data_ptr() for x in state] != ptrs:
+                raise AssertionError("K6 did not update the state in place")
+            errs.append(max_abs_err([*state, got[2].to(torch.int32), *got[3:]], plain))
+            pads = en == 0
+            if bool(got[2][pads].any() or (got[3][pads] != -1).any() or got[4][pads].any()):
+                raise AssertionError(f"K6: a pad lane of {case} decided or voted")
+            untouched = [r for r in range(gl) if r not in {row for row, _, e in lanes if e}]
+            for x, y in zip(state, [*vars(stack).values(), *vars(lstate).values()], strict=True):
+                if not torch.equal(x[untouched], y[untouched]):
+                    raise AssertionError(f"K6 wrote a row no enabled lane names: {case}")
+        print(f"  K6 gl={gl} {case['name']} lanes={lanes}: max_abs_err={max(errs)} "
+              f"(block_b 128: {errs[0]}, 32: {errs[1]})")  # fmt: skip
+        if max(errs):
+            raise AssertionError(f"K6 disagrees with its plain version: {case}")
+        worst = max(worst, *errs)
+    return max(worst, check_k6_against_k1_shard(dev, n, v))
+
+
+def check_k6_against_k1_shard(dev, n: int, v: int) -> int:
+    """One ragged cohort on a 2-shard slab of G=8 (Gl=4): shard 0 packs
+    groups 1 and 2, shard 1 group 6 and a pad; K6 on each shard's view
+    against K1's shard slice over the same slabs with only the cohort
+    enabled, a dead acceptor on group 2.  The port of the reference's
+    packed-versus-full-width test.  Returns the largest difference."""
+    rng = np.random.default_rng(SEED + 21)
+    g, gl, a, q, b = 8, 4, 3, 2, 128
+    bases = [4096, 2 * n - 64, 640, 9, 1003, 3 * n, 2**31 - 64, 77]
+    stack, lstate = mg_state(rng, g, a, n, v, b, bases, [7] * g, dev)
+    full = clone_slabs(stack, lstate)
+    gids = [1, 2, 6]
+    lanes = {0: [1, 2], 1: [6]}
+    cohort = torch.from_numpy(rng.integers(-(2**31), 2**31, (3, b, v), dtype=np.int32)).to(dev)
+    alive = torch.ones((g, a), dtype=torch.bool, device=dev)
+    alive[2, 0] = False
+    i32 = dict(dtype=torch.int32, device=dev)
+    ni, cr = torch.tensor(bases, **i32), torch.full((g,), 7, **i32)
+    en = torch.zeros((g,), **i32)
+    en[gids] = 1
+    vals_full = torch.zeros((g, b, v), **i32)
+    vals_full[gids] = cohort
+    outs_full, outs_packed = [], []
+    for s in range(2):
+        rows = slice(s * gl, (s + 1) * gl)
+        shard = [type(x)(*(y[rows] for y in vars(x).values())) for x in full]
+        *_, fresh, win, value = ops.shard_slab_round(s * gl, ni, cr, alive, q, *shard,
+                                                     vals_full[rows].contiguous(), en)  # fmt: skip
+        want = [gi - s * gl for gi in lanes[s]]
+        outs_full.append([x[want] for x in (fresh.to(torch.int32), win, value)])
+        shard = [type(x)(*(y[rows] for y in vars(x).values())) for x in (stack, lstate)]
+        members = lanes[s]
+        seg = torch.tensor([gi - s * gl for gi in members] + [0] * (2 - len(members)), **i32)
+        pen = torch.tensor([1] * len(members) + [0] * (2 - len(members)), **i32)
+        idx = [gids.index(gi) for gi in members]
+        pv = torch.zeros((2, b, v), **i32)
+        pv[: len(members)] = cohort[idx]
+        pni = torch.tensor([bases[gi] for gi in members] + [0] * (2 - len(members)), **i32)
+        pal = torch.ones((2, a), **i32)
+        pal[: len(members)] = alive[members].to(torch.int32)
+        *_, fresh, win, value = ops.packed_shard_round(*shard, seg, pni, cr[:2], pal, q, pv, pen)
+        k = len(members)
+        outs_packed.append([x[:k] for x in (fresh.to(torch.int32), win, value)])
+    sync(dev)
+    err = max_abs_err(
+        [*vars(stack).values(), *vars(lstate).values(), *(x for o in outs_packed for x in o)],
+        [*vars(full[0]).values(), *vars(full[1]).values(), *(x for o in outs_full for x in o)],
+    )  # fmt: skip
+    print(f"  K6 ragged 2-shard cohort {gids} against K1's shard slice: max_abs_err={err}")
+    if err:
+        raise AssertionError("K6 disagrees with K1's shard slice on the same cohort")
+    return err
+
+
+def check_k1_shard(dev, n: int = 1 << 16, v: int = 16) -> int:
+    """K1's shard slice (``ops.shard_slab_round``) against its plain version
+    (``batched.shard_slab_round``) on the shard views of a G=8 slab at
+    offsets 0 and Gl=4, GB in {1, 4}, B=128: windows aligned, across the
+    ring end and across 2^31, a frozen group below quorum, a disabled group,
+    a dead acceptor, a limit inside a window and one wrapped past int32 max;
+    the other shard's rows untouched.  Returns the largest difference."""
+    rng = np.random.default_rng(SEED + 22)
+    g, gl, a, q, b = 8, 4, 3, 2, 128
+    bases = [4096, 3 * n - b // 2, 2**31 - b // 2, 640, 1003, 9, 5 * n + 13, 4096]
+    worst = 0
+    for off in (0, gl):
+        for gb in (1, 4):
+            crnds = [int(c) for c in rng.integers(1, 7, g)]
+            crnds[off + 1] = -1  # a frozen group
+            stack, lstate = mg_state(rng, g, a, n, v, b, bases, crnds, dev)
+            twin = clone_slabs(stack, lstate)
+            i32 = dict(dtype=torch.int32, device=dev)
+            alive = torch.ones((g, a), dtype=torch.bool, device=dev)
+            alive[off, 1] = False
+            alive[off + 1, [0, 2]] = False
+            en = torch.tensor([1, 1, 1, 0, 1, 1, 1, 0], **i32)
+            marks = np.zeros(g, np.int32)
+            marks[off + 2] = 2**31 - 100  # its limit wraps to a negative number
+            limit = marks + n
+            limit[off] = np.int32(bases[off] + b // 2)
+            lim = torch.from_numpy(limit).to(dev)
+            values = torch.from_numpy(
+                rng.integers(-(2**31), 2**31, (gl, b, v), dtype=np.int32)
+            ).to(dev)
+            ni, cr = torch.tensor(bases, **i32), torch.tensor(crnds, **i32)
+
+            def rows(st, off=off):
+                return type(st)(*(x[off : off + gl] for x in vars(st).values()))
+
+            got = ops.shard_slab_round(off, ni, cr, alive, q, rows(stack), rows(lstate), values,
+                                       en, lim, group_block=gb)  # fmt: skip
+            want = batched.shard_slab_round(off, ni, cr, alive, q, rows(twin[0]), rows(twin[1]),
+                                            values, en, lim)  # fmt: skip
+            sync(dev)
+            err = max_abs_err(
+                [*vars(stack).values(), *vars(lstate).values(), got[2].to(torch.int32), *got[3:]],
+                [*vars(twin[0]).values(), *vars(twin[1]).values(), want[2].to(torch.int32),
+                 *want[3:]],
+            )  # fmt: skip
+            print(f"  K1-shard offset={off} gb={gb}: max_abs_err={err}")
+            if err:
+                raise AssertionError(f"K1's shard slice disagrees with its plain version at {off}")
+            worst = max(worst, err)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
@@ -757,6 +960,8 @@ LAUNCHES = {  # kernel name -> (module, attribute) of its wrapper's count
     "learner_quorum": (k_learner, "launches"),
     "K1-cohort": (k_wirepath, "cohort_launches"),
     "K5": (k_wirepath, "persistent_launches"),
+    "K6": (k_wirepath, "packed_launches"),
+    "K1-shard": (k_wirepath, "shard_launches"),
 }
 
 
@@ -965,7 +1170,10 @@ def default_multigroup_config() -> PaxosConfig:
     return PaxosConfig(n_groups=8, realign_after=4)
 
 
-def run_multigroup_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) -> dict:
+def run_multigroup_path(
+    use_kernels: bool, dev, cfg: PaxosConfig | None = None, shards: int = 0,
+    deep: bool | None = None,
+) -> dict:
     """The multi-group service on the card under a seeded lossy ``SimNet``:
     a uniform phase of N/4 payloads to each group (so the full-width fold
     engages); a skewed phase of 1.25 N more to group 0 (its ring wraps, a
@@ -982,12 +1190,26 @@ def run_multigroup_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) 
     a snapshot of each.  A dispatch's latency is the host time of
     ``pipeline_cohort`` or ``pipeline_persistent`` plus that of its
     read-back; ``depths`` counts dispatches by wave depth (1: a single
-    round), ``order`` lists the ``deliver`` callbacks in order."""
+    round), ``order`` lists the ``deliver`` callbacks in order.
+
+    ``deep`` (default: whether ``cfg`` has persistent waves) gives group 0
+    its 2 to 12 batches per pump in the skewed phase; otherwise 8.
+
+    ``shards=S`` runs the groups-sharded service instead, on
+    ``make_group_mesh(S)`` on the card, and ends the schedule with a live
+    migration: ``retire_group`` of a group on the last shard,
+    ``migrate_group(0, S - 1)``, then traffic to every live group and a
+    snapshot of each (``before_move`` holds the group logs, dispatch count
+    and planner report before it).  A sharded context plans no persistent
+    waves, as the reference's does."""
     cfg = cfg or multigroup_config()
+    deep = cfg.persistent_rounds > 1 if deep is None else deep
     g, n, b = cfg.n_groups, cfg.n_instances, cfg.batch
     net = SimNet(FaultSpec(drop=0.01, dup=0.01, reorder=0.01), seed=SEED + 13)
     order: list[tuple[int, bytes]] = []
+    mesh = make_group_mesh(shards, dev) if shards else None
     ctx = PaxosContext(cfg, net=net, use_kernels=use_kernels, snapshots=True, device=dev,
+                       mesh=mesh,
                        deliver=lambda payload, _size, inst: order.append((inst, payload)))
     hw = ctx.hw
     dispatch_s: list[float] = []
@@ -1060,7 +1282,7 @@ def run_multigroup_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) 
             hw.burn_forward(gid, max(top, hw.next_inst_host[gid]))
         sent0 = 0
         while sent0 < quarter:
-            k0 = slice_ if cfg.persistent_rounds == 1 else int(rng.integers(2 * b, 12 * b + 1))
+            k0 = int(rng.integers(2 * b, 12 * b + 1)) if deep else slice_
             k0 = min(k0, quarter - sent0)
             submit(0, k0)
             sent0 += k0
@@ -1121,11 +1343,37 @@ def run_multigroup_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) 
     drain()
     for gid in range(g):
         snap(gid)
+    before_move = dict(
+        logs=[list(ctx.full_group_log(gid)) for gid in range(g)],
+        dispatch_count=hw.dispatch_count,
+        report=ctx.planner.report(),
+    )
+    if shards:
+        # live migration: vacate a slot on the last shard, move group 0
+        # there while the service runs, and serve on
+        gone = g - 3
+        retired.append((gone, ctx.retire_group(gone)))
+        if sorted(p for _, p in retired[-1][1]) != sorted(sent[gone]):
+            raise AssertionError(f"retired group {gone} did not deliver each payload once")
+        sent[gone] = []
+        # an aligned drain watermark: the move re-seats the sequencer there,
+        # realigned only under use_kernels (as adopt_group above)
+        hw.burn_forward(0, -(-hw.next_inst_host[0] // b) * b)
+        seals.append(ctx.migrate_group(0, shards - 1).seal)
+        prefixes.append(ctx.snapshots.entries(0))
+        if hw.shard_of_group(0) != shards - 1:
+            raise AssertionError(f"group 0 did not move: {hw.group_placement()}")
+        for gid in ctx.live_groups():
+            submit(gid, 300)
+        drain()
+        for gid in ctx.live_groups():
+            snap(gid)
     sync(dev)
     wall = time.perf_counter() - t0
 
     logs = [ctx.full_group_log(gid) for gid in range(g)]
-    for gid, log in enumerate(logs):
+    for gid in ctx.live_groups():
+        log = logs[gid]
         own = log[len(prefix) :] if gid == 6 else log
         if len({i for i, _ in own}) != len(own):
             raise AssertionError(f"group {gid}: an instance was delivered twice")
@@ -1148,6 +1396,8 @@ def run_multigroup_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) 
         stats=dict(ctx.stats),
         delivered=ctx.stats["delivered"],
         ring_laps=hw.next_inst_host[0] / n,
+        before_move=before_move,
+        placement=hw.group_placement() if shards else None,
     )
 
 
@@ -1435,6 +1685,31 @@ def k1_cohort_bytes(a: int, b: int, v: int, c: int, nb: int) -> int:
     return c * (k1_bytes(a, b, v) - 4 - b * 4 + 8) + 4 * nb
 
 
+def walk_state(rng, g: int, a: int, n: int, v: int, crnd: int, dev):
+    """``(G, ...)`` slabs in the multi-group path's steady state after a
+    lap, as ``time_k1_cohort`` builds them: every promise at or below
+    ``crnd`` and every learner slot holding the previous lap's instance, so
+    a walk over the second lap accepts and delivers every lane.  Returns the
+    initial tensors (to restore from) and live copies."""
+
+    def words(*shape):
+        return rng.integers(-(2**31), 2**31, shape, dtype=np.int32)
+
+    inst = np.arange(n, 2 * n, dtype=np.int32)
+    host = dict(
+        rnd=rng.integers(0, crnd + 1, (g, a, n), dtype=np.int32),
+        vrnd=rng.integers(-1, crnd + 1, (g, a, n), dtype=np.int32),
+        val=words(g, a, n, v),
+        ldel=np.ones((g, n), np.int32),
+        linst=np.broadcast_to(inst - n, (g, n)).copy(),
+        lval=words(g, n, v),
+    )
+    if not ((crnd >= host["rnd"]) & (inst < 2 * n)[None, None]).all():
+        raise AssertionError("the timed walk must accept and deliver every lane")
+    init = {k: torch.from_numpy(np.ascontiguousarray(x)).to(dev) for k, x in host.items()}
+    return init, {k: x.clone() for k, x in init.items()}
+
+
 def time_k1_cohort(dev) -> dict:
     """K1 in cohort form at the multi-group path's shape (G=8, A=3,
     N=65,536, V=16, B=128, reclamation on), over one walk of the ring as
@@ -1448,33 +1723,18 @@ def time_k1_cohort(dev) -> dict:
     g, a, n, v, b, q = 8, cfg.n_acceptors, cfg.n_instances, cfg.value_words, cfg.batch, cfg.quorum
     crnd, walk = 5, n // b
     rng = np.random.default_rng(SEED + 15)
-
-    def words(*shape):
-        return rng.integers(-(2**31), 2**31, shape, dtype=np.int32)
-
-    inst = np.arange(n, 2 * n, dtype=np.int32)  # the walk's instances, every group
-    host = dict(
-        rnd=rng.integers(0, crnd + 1, (g, a, n), dtype=np.int32),
-        vrnd=rng.integers(-1, crnd + 1, (g, a, n), dtype=np.int32),
-        val=words(g, a, n, v),
-        ldel=np.ones((g, n), np.int32),
-        linst=np.broadcast_to(inst - n, (g, n)).copy(),
-        lval=words(g, n, v),
-    )
-    init = {k: torch.from_numpy(np.ascontiguousarray(x)).to(dev) for k, x in host.items()}
-    live = {k: x.clone() for k, x in init.items()}
+    init, live = walk_state(rng, g, a, n, v, crnd, dev)
     stack = AcceptorState(live["rnd"], live["vrnd"], live["val"])
     lstate = batched.LearnerState(live["ldel"], live["linst"], live["lval"])
-    bursts = torch.from_numpy(words(walk, g, b, v)).to(dev)
+    bursts = torch.from_numpy(
+        rng.integers(-(2**31), 2**31, (walk, g, b, v), dtype=np.int32)
+    ).to(dev)
     i32 = dict(dtype=torch.int32, device=dev)
     bases = torch.arange(n, 2 * n, b, **i32)[:, None].expand(walk, g).contiguous()
     crnd_t = torch.full((g,), crnd, **i32)
     limit = torch.full((g,), 2 * n, **i32)  # the reclaim mark one lap back
     alive = torch.ones((g, a), dtype=torch.bool, device=dev)
     enabled = torch.ones((g,), **i32)
-    accept = (crnd >= host["rnd"]) & (inst < 2 * n)[None, None]
-    if not accept.all():
-        raise AssertionError("the timed walk must accept and deliver every lane")
 
     def restore():
         for k, x in init.items():
@@ -1529,33 +1789,18 @@ def time_k5(dev) -> dict:
     k, crnd = cfg.persistent_rounds, 5
     walk = n // (k * b)
     rng = np.random.default_rng(SEED + 17)
-
-    def words(*shape):
-        return rng.integers(-(2**31), 2**31, shape, dtype=np.int32)
-
-    inst = np.arange(n, 2 * n, dtype=np.int32)  # the walk's instances, every group
-    host = dict(
-        rnd=rng.integers(0, crnd + 1, (g, a, n), dtype=np.int32),
-        vrnd=rng.integers(-1, crnd + 1, (g, a, n), dtype=np.int32),
-        val=words(g, a, n, v),
-        ldel=np.ones((g, n), np.int32),
-        linst=np.broadcast_to(inst - n, (g, n)).copy(),
-        lval=words(g, n, v),
-    )
-    init = {key: torch.from_numpy(np.ascontiguousarray(x)).to(dev) for key, x in host.items()}
-    live = {key: x.clone() for key, x in init.items()}
+    init, live = walk_state(rng, g, a, n, v, crnd, dev)
     stack = AcceptorState(live["rnd"], live["vrnd"], live["val"])
     lstate = batched.LearnerState(live["ldel"], live["linst"], live["lval"])
-    bursts = torch.from_numpy(words(walk, k, g, b, v)).to(dev)
+    bursts = torch.from_numpy(
+        rng.integers(-(2**31), 2**31, (walk, k, g, b, v), dtype=np.int32)
+    ).to(dev)
     i32 = dict(dtype=torch.int32, device=dev)
     wni = (torch.arange(n, 2 * n, b, **i32).reshape(walk, k, 1).expand(walk, k, g).contiguous())
     wen = torch.ones((k, g), **i32)
     crnd_t = torch.full((g,), crnd, **i32)
     limit = torch.full((g,), 2 * n, **i32)  # the reclaim mark one lap back
     alive = torch.ones((g, a), dtype=torch.bool, device=dev)
-    accept = (crnd >= host["rnd"]) & (inst < 2 * n)[None, None]
-    if not accept.all():
-        raise AssertionError("the timed walk must accept and deliver every lane")
 
     def restore():
         for key, x in init.items():
@@ -1587,6 +1832,116 @@ def time_k5(dev) -> dict:
         )  # fmt: skip
     restore()
     return dict(out["gb8"], gb1=out["gb1"])
+
+
+def k6_bytes(a: int, b: int, v: int, c: int) -> int:
+    """The bytes one K6 launch of ``c`` enabled lanes reads and writes when
+    every lane is accepted by all A acceptors and is fresh: per lane,
+    ``k1_cohort_bytes`` of one group (whose next_inst, crnd, limit, enabled
+    and alive words are here the lane's table) with alive as A int32 words
+    instead of A bytes (+3A), plus the lane's seg word (+4).  At A=3,
+    B=128, V=16: 56,480 B per lane."""
+    return c * (k1_cohort_bytes(a, b, v, 1, 0) + 3 * a + 4)
+
+
+def time_k6(dev) -> dict:
+    """K6 at the sharded path's shape (A=3, N=65,536, V=16, B=128, one
+    shard's slab of Gl=8, reclamation on), over one walk of the ring as
+    ``time_k1_cohort`` does: N/B consecutive windows of the second lap, each
+    launch with its own burst, the state restored before each timed walk.
+    C=1 (lane on row 3, a hot group's dispatch) and C=4 (rows 0, 2, 5, 7).
+    Every lane is accepted and fresh, so each launch moves ``k6_bytes``.
+    No single PyTorch call computes K6: the library column is none."""
+    cfg = default_multigroup_config()
+    gl, a, n, v, b, q = 8, cfg.n_acceptors, cfg.n_instances, cfg.value_words, cfg.batch, 2
+    crnd, walk = 5, n // b
+    rng = np.random.default_rng(SEED + 23)
+    init, live = walk_state(rng, gl, a, n, v, crnd, dev)
+    stack = AcceptorState(live["rnd"], live["vrnd"], live["val"])
+    lstate = batched.LearnerState(live["ldel"], live["linst"], live["lval"])
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def restore():
+        for k, x in init.items():
+            live[k].copy_(x)
+
+    out = {}
+    for name, rows in (("c1", [3]), ("c4", [0, 2, 5, 7])):
+        c = len(rows)
+        seg = torch.tensor(rows, **i32)
+        bases = torch.arange(n, 2 * n, b, **i32)[:, None].expand(walk, c).contiguous()
+        bursts = torch.from_numpy(
+            rng.integers(-(2**31), 2**31, (walk, c, b, v), dtype=np.int32)
+        ).to(dev)
+        cr, en = torch.full((c,), crnd, **i32), torch.ones((c,), **i32)
+        lim, al = torch.full((c,), 2 * n, **i32), torch.ones((c, a), **i32)
+
+        def kernel(k, seg=seg, bases=bases, bursts=bursts, cr=cr, en=en, lim=lim, al=al):
+            k_wirepath._packed_launch(seg, bases[k], cr, lim, al, en, q, *vars(stack).values(),
+                                      *vars(lstate).values(), bursts[k], 128)  # fmt: skip
+
+        def plain(k, seg=seg, bases=bases, bursts=bursts, cr=cr, en=en, lim=lim, al=al):
+            batched.packed_multigroup_round(stack, lstate, seg, bases[k], cr, al, q, bursts[k],
+                                            en, lim)  # fmt: skip
+
+        nbytes = k6_bytes(a, b, v, c)
+        bms, by = bound_ms(nbytes, c * b * (4 * a + 2 * a + 8 + v))
+        out[name] = dict(
+            ms=time_walk(kernel, walk, True, restore),
+            plain_ms=time_walk(plain, walk, True, restore),
+            eager_ms=time_walk(kernel, walk, False, restore),
+            bound_ms=bms, bound_by=by, bytes_per_launch=nbytes, lanes=c,
+        )  # fmt: skip
+    restore()
+    return dict(out["c1"], c4=out["c4"])
+
+
+def time_k1_shard(dev) -> dict:
+    """K1's shard slice at the sharded path's full-width shape: G=8 over 2
+    shards (Gl=4), one shard's slab at offset 4 in one folded block (GB=4),
+    A=3, N=65,536, V=16, B=128, over one walk of the ring as
+    ``time_k1_cohort`` does.  Each launch moves ``k1_cohort_bytes`` of 4
+    groups in 1 block."""
+    cfg = default_multigroup_config()
+    g, gl, a, n, v, b, q = 8, 4, cfg.n_acceptors, cfg.n_instances, cfg.value_words, cfg.batch, 2
+    crnd, walk, off = 5, n // b, 4
+    rng = np.random.default_rng(SEED + 24)
+    init, live = walk_state(rng, g, a, n, v, crnd, dev)
+    rows = slice(off, off + gl)
+    stack = AcceptorState(live["rnd"][rows], live["vrnd"][rows], live["val"][rows])
+    lstate = batched.LearnerState(live["ldel"][rows], live["linst"][rows], live["lval"][rows])
+    i32 = dict(dtype=torch.int32, device=dev)
+    bases = torch.arange(n, 2 * n, b, **i32)[:, None].expand(walk, g).contiguous()
+    bursts = torch.from_numpy(
+        rng.integers(-(2**31), 2**31, (walk, gl, b, v), dtype=np.int32)
+    ).to(dev)
+    cr, en = torch.full((g,), crnd, **i32), torch.ones((g,), **i32)
+    lim = torch.full((g,), 2 * n, **i32)
+    alive = torch.ones((g, a), dtype=torch.bool, device=dev)
+    gsel = torch.tensor([0], **i32)
+
+    def restore():
+        for k, x in init.items():
+            live[k].copy_(x)
+
+    def kernel(k):
+        k_wirepath._cohort_launch(gsel, gl, bases[k, rows], cr[rows], q, alive[rows],
+                                  *vars(stack).values(), *vars(lstate).values(), bursts[k],
+                                  en[rows], lim[rows])  # fmt: skip
+
+    def plain(k):
+        batched.shard_slab_round(off, bases[k], cr, alive, q, stack, lstate, bursts[k], en, lim)
+
+    nbytes = k1_cohort_bytes(a, b, v, gl, 1)
+    bms, by = bound_ms(nbytes, gl * b * (4 * a + 2 * a + 8 + v))
+    out = dict(
+        ms=time_walk(kernel, walk, True, restore),
+        plain_ms=time_walk(plain, walk, True, restore),
+        eager_ms=time_walk(kernel, walk, False, restore),
+        bound_ms=bms, bound_by=by, bytes_per_launch=nbytes, groups=gl,
+    )  # fmt: skip
+    restore()
+    return out
 
 
 def percentiles(round_s: list[float]) -> tuple[float, float]:
@@ -1636,11 +1991,15 @@ def run(dev: torch.device) -> None:
     errs["learner_quorum"] = check_k8(dev, made)
     errs["K1-cohort"] = check_k1_cohort(dev)
     errs["K5"] = check_k5(dev)
+    errs["K6"] = check_k6(dev)
+    errs["K1-shard"] = check_k1_shard(dev)
     # timed here, before the paths, and printed after them
     times = {"wirepath_round": time_k1(dev), "digest": time_k4(dev, PaxosConfig().n_instances // 4)}
     times.update(time_staged(dev))
     times["K1-cohort"] = time_k1_cohort(dev)
     times["K5"] = time_k5(dev)
+    times["K6"] = time_k6(dev)
+    times["K1-shard"] = time_k1_shard(dev)
 
     print("main path: PaxosContext(PaxosConfig(), fused=True, use_kernels=True, snapshots=True)")
     reset_launches()
@@ -1780,6 +2139,60 @@ def run(dev: torch.device) -> None:
     print(f"  fold widths seen (width: dispatches): {dict(sorted(dflt['folds'].items()))}, "
           f"group 0 ring laps {dflt['ring_laps']:.3f}, stats {dflt['stats']}")  # fmt: skip
 
+    print("sharded multi-group path: PaxosContext(PaxosConfig(n_groups=8, realign_after=4), "
+          "mesh=make_group_mesh(2), use_kernels=True, snapshots=True) on the multi-group "
+          "path's schedule, then a live migration")  # fmt: skip
+    reset_launches()
+    with PlainCalls() as plain_votes, PlainCalls("_rows_round") as plain_rounds:
+        shd = run_multigroup_path(True, dev, default_multigroup_config(), shards=2, deep=False)
+    sh_launches = read_launches()
+    rounds = sum(k * c for k, c in shd["depths"].items())
+    print(f"  launches: {sh_launches}, dispatches {len(shd['dispatch_s'])} (single rounds "
+          f"{rounds}), plain Phase-2 votes: {plain_votes.calls}, plain rounds: "
+          f"{plain_rounds.calls}")  # fmt: skip
+    print(f"  wave depths (K: dispatches): {dict(sorted(shd['depths'].items()))}")
+    require_launched("sharded multi-group path", sh_launches,
+                     ["K6", "K1-shard", "digest", "acceptor_vote_all"])  # fmt: skip
+    if (
+        sh_launches["K6"] + sh_launches["K1-shard"] != 2 * rounds
+        or sh_launches["K5"]
+        or sh_launches["K1-cohort"]
+        or plain_votes.calls
+        or plain_rounds.calls
+    ):
+        raise AssertionError(f"the sharded path did not run through K6 and K1's shard slice: "
+                             f"{sh_launches}")  # fmt: skip
+    if set(shd["depths"]) != {1} or shd["report"]["persistent_waves"]:
+        raise AssertionError(f"the sharded context planned persistent waves: {shd['depths']}")
+    # a sharded context plans no waves (the reference's clamp), so before
+    # the move it must equal the unsharded service without waves on the
+    # same schedule: the multi-group path
+    for key in ("logs", "dispatch_count", "report"):
+        if shd["before_move"][key] != mg[key]:
+            raise AssertionError(f"the sharded path differs from the multi-group path in {key}")
+    print("  the same schedule on the plain engine (use_kernels=False) on the card")
+    with PlainCalls("_rows_round") as plain_rounds:
+        shd_plain = run_multigroup_path(False, dev, default_multigroup_config(), shards=2,
+                                        deep=False)  # fmt: skip
+    if not 0 < plain_rounds.calls <= 2 * rounds:
+        raise AssertionError("the plain sharded run did not run the plain engine")
+    for key in ("logs", "retired", "seals", "order", "depths", "folds", "dispatch_count",
+                "last_gb", "report", "placement"):  # fmt: skip
+        if shd[key] != shd_plain[key]:
+            raise AssertionError(f"sharded kernel and plain runs differ in {key}")
+    for key, arr in shd["state"].items():
+        if not np.array_equal(arr, shd_plain["state"][key]):
+            raise AssertionError(f"sharded kernel and plain runs differ in state {key}")
+    errs["digest"] = max(errs["digest"], check_seals(shd, dev))
+    print(f"  equal: {len(shd['logs'])} group logs ({[len(x) for x in shd['logs']]}), the "
+          f"order of {len(shd['order'])} deliver callbacks, retired logs, "
+          f"{len(shd['seals'])} seals, final state, dispatch_count {shd['dispatch_count']}, "
+          f"last_gb {shd['last_gb']}, placement {shd['placement']}, planner report "
+          f"{shd['report']}; before the move, group logs, dispatch_count and planner "
+          f"report equal the multi-group path's")  # fmt: skip
+    print(f"  fold widths seen (width: dispatches): {dict(sorted(shd['folds'].items()))}, "
+          f"stats {shd['stats']}")  # fmt: skip
+
     print(f"times on {CARD}")
     path_metrics = {}
     for name, run, base in (("main path", kern, plain), ("staged path", staged, staged_plain)):
@@ -1800,6 +2213,7 @@ def run(dev: torch.device) -> None:
     for name, run_, base, counts in (
         ("multi-group path", mg, mg_plain, mg_launches),
         ("multi-group path (defaults)", dflt, dflt_plain, dflt_launches),
+        ("sharded multi-group path", shd, shd_plain, sh_launches),
     ):
         p50, p99 = percentiles(run_["dispatch_s"])
         plain_p50, plain_p99 = percentiles(base["dispatch_s"])
@@ -1833,6 +2247,8 @@ def run(dev: torch.device) -> None:
         ("learner_quorum", "learner.cu", "src/repro/kernels/learner.py:56", role_launches),
         ("K1-cohort", "wirepath.cu", "src/repro/kernels/wirepath.py:228", mg_launches),
         ("K5", "wirepath.cu", "src/repro/kernels/wirepath.py:524", dflt_launches),
+        ("K6", "wirepath.cu", "src/repro/kernels/wirepath.py:780", sh_launches),
+        ("K1-shard", "wirepath.cu", "src/repro/kernels/wirepath.py:706", sh_launches),
     ]  # fmt: skip
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}", replaces=replaces,

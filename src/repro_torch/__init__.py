@@ -1,7 +1,8 @@
 """The PyTorch and CUDA port of the CAANS dataplane (``repro``'s counterpart).
 
-``repro_torch.core`` holds the protocol roles and the single-group service;
-``repro_torch.kernels`` the hand-written CUDA kernels for Hopper, each with
-its plain PyTorch version beside it.  Entry points run on the card unless
+``repro_torch.core`` holds the protocol roles and the single-group,
+multi-group and groups-sharded services; ``repro_torch.kernels`` the
+hand-written CUDA kernels for Hopper, each with its plain PyTorch version
+beside it; ``repro_torch.launch`` the ``groups`` mesh.  Entry points run on the card unless
 the caller passes ``device="cpu"``.
 """

@@ -8,7 +8,9 @@ The PyTorch counterpart of ``repro.core.api``.  A ``PaxosContext`` wires
 software proposers and learners to the device dataplane: the coordinator,
 the acceptor array and the learner's dedup ring, resident on one device,
 for one Paxos group (``HardwareDataplane``) or for G groups that share one
-fused dispatch per cohort (``MultiGroupDataplane``, ``PaxosConfig(n_groups=G)``).
+fused dispatch per cohort (``MultiGroupDataplane``, ``PaxosConfig(n_groups=G)``),
+whose slabs may partition over the shards of a ``groups`` mesh
+(``ShardedMultiGroupDataplane``, ``mesh=launch.mesh.make_group_mesh(...)``).
 Messages between the host roles travel over the fault-injected ``SimNet``;
 retransmission on timeout and duplicate suppression at the learners
 implement the paper's §3.1 failure-handling contract.
@@ -29,7 +31,12 @@ all have K >= 2 full batches queued rides one persistent wave of K rounds
 async pump defers each dispatch's read-back through pinned host memory until
 the next one is in flight (``PaxosConfig.async_pump``).
 
-Not ported yet: the sharded dataplane (``mesh=``), which raises.
+A sharded context (``mesh=``) runs every packed cohort dispatch on the
+packed shard round kernel K6 and every full-width one on the round kernel's
+shard slice, shard by shard.  It plans no persistent waves (the reference's
+planner clamp: its dataplane would run a K-round wave as K single-round
+dispatches).  ``migrate_group`` moves a tenant's slab between shards.  All
+shards sit on one device.
 """
 
 from __future__ import annotations
@@ -63,7 +70,6 @@ from .types import (
     PaxosConfig,
 )
 
-_SHARDED = "ROADMAP.md queue 1, item 6 (sharded dataplane)"
 INT32_MAX = 2**31 - 1
 
 
@@ -250,9 +256,12 @@ class _DeferredRound:
     writes after this copy.  On the CPU the outputs are host tensors
     already."""
 
-    def __init__(self, fresh, value, inst: np.ndarray, rows: Sequence[int], axis: int = 0):
+    def __init__(
+        self, fresh, value, inst: np.ndarray, rows: Sequence[int] | None, axis: int = 0
+    ):
         self._inst = inst  # host instance windows, already in cohort order
-        self._rows = list(rows)  # the cohort's rows of fresh and value
+        # the cohort's rows of fresh and value (None: all, in order)
+        self._rows = None if rows is None else list(rows)
         self._axis = axis
         self._done: torch.cuda.Event | None = None
         if fresh.device.type != "cuda":
@@ -266,11 +275,19 @@ class _DeferredRound:
             self._done = torch.cuda.Event()
             self._done.record()
 
+    @classmethod
+    def resolved(cls, fresh: np.ndarray, value: np.ndarray, inst: np.ndarray) -> _DeferredRound:
+        """A result already read back to the host, in the handle's interface
+        (the sharded dataplane reads back at dispatch, as the reference's)."""
+        return cls(torch.from_numpy(fresh), torch.from_numpy(value), inst, rows=None)
+
     def resolve(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         if self._done is not None:
             self._done.synchronize()
-        fresh = np.take(self._fresh.numpy(), self._rows, axis=self._axis)
-        value = np.take(self._value.numpy(), self._rows, axis=self._axis)
+        fresh, value = self._fresh.numpy(), self._value.numpy()
+        if self._rows is not None:
+            fresh = np.take(fresh, self._rows, axis=self._axis)
+            value = np.take(value, self._rows, axis=self._axis)
         return fresh, self._inst, value
 
 
@@ -300,7 +317,12 @@ class _GroupView:
         mg = self.mg
         row = mg._slab_row(self.gid)
         stack = AcceptorState(mg.stack.rnd[row], mg.stack.vrnd[row], mg.stack.value[row])
-        return stack, mg.alive_mask[row]
+        # the slabs are slot-indexed, the liveness mask gid-indexed (a host
+        # array on the sharded dataplane)
+        alive = mg.alive_mask[self.gid]
+        if not isinstance(alive, torch.Tensor):
+            alive = torch.from_numpy(alive != 0).to(mg.device)
+        return stack, alive
 
     def vote(self, p2a: MsgBatch) -> list[MsgBatch | None]:
         stack, alive = self._rows()
@@ -708,8 +730,8 @@ class MultiGroupDataplane(RingReclamationMixin):
         return [g for g in range(self.cfg.n_groups) if self.live_host[g]]
 
     def _slab_row(self, gid: int) -> int:
-        """Slab row of group ``gid``: the identity (the sharded dataplane,
-        not ported, translates through its placement)."""
+        """Slab row of group ``gid``: the identity here; the sharded
+        dataplane translates through its placement."""
         return gid
 
     def _reset_group_slab(self, gid: int) -> None:
@@ -770,6 +792,362 @@ class MultiGroupDataplane(RingReclamationMixin):
         return drained
 
 
+def _i32(xs) -> np.ndarray:
+    """Host marks as int32, wrapping past int32 max as the device's do."""
+    return ((np.asarray(xs, np.int64) + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+class ShardedMultiGroupDataplane(MultiGroupDataplane):
+    """``MultiGroupDataplane`` with the group axis partitioned over the
+    shards of a ``groups`` mesh (``launch.mesh.GroupMesh``): shard ``s``
+    owns slots ``[s*Gl, (s+1)*Gl)`` of the ``(G, A, N)`` acceptor rings and
+    ``(G, N)`` learner rings, ``Gl = G / n_shards``.  All shards sit on the
+    mesh's one device, so the slabs stay the parent's slot-indexed tensors
+    and a shard's slab is a view of its rows; a dispatch runs each shard's
+    body on its view, in shard order (``core.fabric``).
+
+    Per-group control state, the watermark and round vectors (``cstate``)
+    and the ``(G, A)`` liveness mask (``alive_mask``), is host-authoritative
+    numpy and enters each dispatch replicated: ``freeze_group``,
+    ``restore_group``, ``burn_forward`` and ``kill_acceptor`` change host
+    scalars only, and the slabs never move for them.  With ``use_kernels``
+    a packed cohort dispatch runs K6 and a full-width one K1's shard slice
+    on the card, their plain versions on the CPU.
+
+    Placement is a slot permutation (``plan.PlacementMap``), the identity at
+    boot and changed only by ``migrate_group``.  The device slabs are
+    slot-indexed and every host mirror gid-indexed: every row access goes
+    through ``_slab_row``, and a dispatch translates once, at its boundary.
+    """
+
+    def __init__(
+        self,
+        cfg: PaxosConfig,
+        mesh=None,
+        axis: str = "groups",
+        use_kernels: bool = True,
+        device: torch.device | str | None = None,
+    ):
+        if mesh is None:
+            from ..launch.mesh import make_group_mesh
+
+            mesh = make_group_mesh(device=device)
+        elif device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+        if axis not in mesh.shape:
+            raise ValueError(f"mesh has no {axis!r} axis: {mesh.axis_names}")
+        n_sh = mesh.shape[axis]
+        if cfg.n_groups % n_sh:
+            raise ValueError(
+                f"n_groups={cfg.n_groups} must be divisible by the {axis!r} "
+                f"mesh axis size {n_sh}"
+            )
+        super().__init__(cfg, use_kernels=use_kernels, device=mesh.device)
+        self.mesh = mesh
+        self.axis = axis
+        self.n_shards = n_sh
+        self.groups_per_shard = cfg.n_groups // n_sh
+        g, a = cfg.n_groups, cfg.n_acceptors
+        self.cstate = CoordinatorState(
+            next_inst=np.zeros((g,), np.int32), crnd=np.zeros((g,), np.int32)
+        )
+        self.alive_mask = np.ones((g, a), np.int32)
+        self._dispatches: dict[tuple[bool, int], Any] = {}
+        self._packed_dispatches: dict[bool, Any] = {}
+        self._placement = plan_mod.PlacementMap.identity(g, self.groups_per_shard)
+
+    def _fold_width(self) -> int:
+        # a fold never crosses a shard's slab
+        return self.groups_per_shard
+
+    # -- placement -------------------------------------------------------------
+    @property
+    def placement(self) -> plan_mod.PlacementMap:
+        return self._placement
+
+    def _slab_row(self, gid: int) -> int:
+        return self._placement.slot_of[gid]
+
+    def shard_of_group(self, gid: int) -> int:
+        """Mesh shard owning group ``gid`` under the current placement."""
+        self._check_gid(gid)
+        return self._placement.shard_of(gid)
+
+    def group_placement(self) -> list[int]:
+        """group id -> owning shard, for the whole service."""
+        pm = self._placement
+        return [pm.shard_of(g) for g in range(self.cfg.n_groups)]
+
+    def plan_placement(self, loads: Sequence[int]) -> plan_mod.PlacementMap:
+        """The load-weighted placement this service would adopt for the
+        given per-group loads (``PlacementMap.weighted``); pure planning:
+        adopting it is a sequence of ``migrate_group`` slot swaps."""
+        return plan_mod.PlacementMap.weighted(loads, self.n_shards, self.groups_per_shard)
+
+    # -- dispatch construction -------------------------------------------------
+    def _dispatch(self, use_k: bool, gb: int):
+        fn = self._dispatches.get((use_k, gb))
+        if fn is None:
+            from .fabric import make_sharded_multigroup_round
+
+            fn = self._dispatches[(use_k, gb)] = make_sharded_multigroup_round(
+                self.mesh, n_groups=self.cfg.n_groups, quorum=self.cfg.quorum,
+                axis=self.axis, use_kernels=use_k, group_block=gb,
+            )  # fmt: skip
+        return fn
+
+    def _packed_dispatch(self, use_k: bool):
+        fn = self._packed_dispatches.get(use_k)
+        if fn is None:
+            from .fabric import make_packed_sharded_round
+
+            fn = self._packed_dispatches[use_k] = make_packed_sharded_round(
+                self.mesh, quorum=self.cfg.quorum, axis=self.axis, use_kernels=use_k
+            )
+        return fn
+
+    # -- fused fast path: every shard advances its slab in one dispatch -------
+    def pipeline(self, values: np.ndarray, active: np.ndarray, enabled: list[bool] | None = None):
+        """``MultiGroupDataplane.pipeline``'s contract and results, run
+        shard by shard over the slot-ordered slabs."""
+        g, b = values.shape[0], values.shape[1]
+        enabled, use_k, _ = self._plan_round(b, enabled)
+        if not any(enabled):
+            return self._empty_round(g, b)
+        self._guard_capacity([gid for gid in range(g) if enabled[gid]], b)
+        pm = self._placement
+        # the fold's blocks are SLOT blocks (the kernel walks physical slab
+        # rows), so the width derives from slot-ordered marks
+        perm = list(pm.group_of)  # slot -> gid
+        marks_slot = [self.next_inst_host[gid] for gid in perm]
+        slots = [pm.slot_of[gid] for gid in range(g) if enabled[gid]]
+        plan_gb = plan_mod.fold_width_full(slots, marks_slot, self._fold_width())
+        en = np.asarray(enabled, np.int32)[perm]
+        eff_crnd = np.where(en != 0, _i32(self.crnd_host)[perm], NO_ROUND).astype(np.int32)
+        lim = self._reclaim_limits_np()
+        fn = self._dispatch(use_k, plan_gb if use_k else 1)
+        self.dispatch_count += 1
+        self.stack, self.lstate, fresh, inst, _win, value = fn(
+            _i32(self.next_inst_host)[perm], eff_crnd, en, self.alive_mask[perm],
+            self.stack, self.lstate, np.asarray(values)[perm], np.asarray(active)[perm],
+            reclaim_limit=None if lim is None else lim[perm],
+        )  # fmt: skip
+        for gid in range(g):
+            if enabled[gid]:
+                self.next_inst_host[gid] += b
+        self._sync_cstate()
+        self.last_gb = plan_gb  # reported engine-agnostically
+        inv = list(pm.slot_of)  # gid -> slot: gather back to gid order
+        return fresh.cpu().numpy()[inv], inst[inv], value.cpu().numpy()[inv]
+
+    # -- cohort dispatch, packed per shard ---------------------------------------
+    def pipeline_cohort(self, gids, values: np.ndarray, active: np.ndarray, defer: bool = False):
+        """The unsharded ``pipeline_cohort``'s contract and results, run as
+        one packed dispatch: each shard advances ``C`` lanes (the cohort's
+        largest per-shard residency, rounded up to a power of two), lane
+        ``j`` routed to its slab row by a segment table; a shard with fewer
+        members rides pad lanes.  A cohort with ``C >= Gl`` runs full width
+        instead (``_cohort_full_width``).  The result is read back at
+        dispatch; ``defer=True`` wraps it in a resolved handle."""
+        gids, member, use_k, inst = self._cohort_prologue(gids, values)
+        be = values.shape[1]
+        self._guard_capacity(gids, be)
+        marks = self.next_inst_host
+        pm = self._placement
+        n_sh, gl = self.n_shards, self.groups_per_shard
+        lanes: list[list[int]] = [[] for _ in range(n_sh)]
+        for row, gid in enumerate(gids):
+            lanes[pm.shard_of(gid)].append(row)
+        cmax = max(len(ls) for ls in lanes)
+        c = min(1 << max(0, cmax - 1).bit_length(), gl)
+        if c >= gl:
+            # a saturated cohort's packed table visits as many slab rows as
+            # the full-width fold, so the full-width dispatch serves it
+            return self._cohort_full_width(gids, member, use_k, inst, values, active, defer)
+        # the full-width fold over slot-ordered marks stays the reported plan
+        marks_slot = [marks[gid] for gid in pm.group_of]
+        plan_gb = plan_mod.fold_width_full(
+            [pm.slot_of[gid] for gid in gids], marks_slot, self._fold_width()
+        )
+        a, v = self.cfg.n_acceptors, self.cfg.value_words
+        seg = np.zeros((n_sh, c), np.int32)
+        enp = np.zeros((n_sh, c), np.int32)
+        nip = np.zeros((n_sh, c), np.int32)
+        crp = np.full((n_sh, c), NO_ROUND, np.int32)
+        alp = np.ones((n_sh, c, a), np.int32)
+        limnp = self._reclaim_limits_np()
+        limp = np.full((n_sh, c), INT32_MAX, np.int32)
+        valsp = np.zeros((n_sh, c, be, v), np.int32)
+        valsp[:, :, :, 0] = NOP_SENTINEL
+        marks32, crnd32 = _i32(marks), _i32(self.crnd_host)
+        lane_of: dict[int, tuple[int, int]] = {}
+        for s in range(n_sh):
+            for j, row in enumerate(lanes[s]):
+                gid = gids[row]
+                seg[s, j] = pm.row_of(gid)
+                enp[s, j] = 1
+                nip[s, j] = marks32[gid]
+                crp[s, j] = crnd32[gid]
+                alp[s, j] = self.alive_mask[gid]
+                if limnp is not None:
+                    limp[s, j] = limnp[gid]
+                valsp[s, j] = values[row]
+                lane_of[gid] = (s, j)
+        fn = self._packed_dispatch(use_k)
+        self.dispatch_count += 1
+        self.stack, self.lstate, fresh, _inst_d, _win, value = fn(
+            seg, nip, crp, enp, alp, self.stack, self.lstate, valsp, reclaim_limit=limp
+        )
+        fresh = fresh.cpu().numpy().reshape(n_sh, c, be)
+        value = value.cpu().numpy().reshape(n_sh, c, be, v)
+        fresh = np.stack([fresh[lane_of[gid]] for gid in gids])
+        value = np.stack([value[lane_of[gid]] for gid in gids])
+        for gid in gids:
+            self.next_inst_host[gid] += be
+        self._sync_cstate()
+        self.last_gb = plan_gb
+        if defer:
+            return _DeferredRound.resolved(fresh, value, inst)
+        return fresh, inst, value
+
+    def _cohort_full_width(self, gids, member, use_k, inst, values, active, defer: bool):
+        """Full-width execution of a saturated cohort: non-members ride the
+        dispatch inert (NOP sentinel rows, membership-masked rounds), the
+        unsharded plain engine's packing, permuted into slot order."""
+        g = self.cfg.n_groups
+        be = values.shape[1]
+        pm = self._placement
+        marks = self.next_inst_host
+        perm = list(pm.group_of)  # slot -> gid
+        marks_slot = [marks[gid] for gid in perm]
+        plan_gb = plan_mod.fold_width_full(
+            [pm.slot_of[gid] for gid in gids], marks_slot, self._fold_width()
+        )
+        vals_f, act_f = plan_mod.scatter_rows(gids, values, active, g, self.cfg.value_words)
+        memp = np.asarray(member, np.int32)[perm]
+        eff_crnd = np.where(memp != 0, _i32(self.crnd_host)[perm], NO_ROUND).astype(np.int32)
+        lim = self._reclaim_limits_np()
+        fn = self._dispatch(use_k, plan_gb if use_k else 1)
+        self.dispatch_count += 1
+        self.stack, self.lstate, fresh, _inst_d, _win, value = fn(
+            _i32(marks)[perm], eff_crnd, memp, self.alive_mask[perm], self.stack, self.lstate,
+            vals_f[perm], act_f[perm], reclaim_limit=None if lim is None else lim[perm],
+        )  # fmt: skip
+        inv = list(pm.slot_of)  # gid -> slot: gather back to gid order
+        fresh = fresh.cpu().numpy()[inv][gids]
+        value = value.cpu().numpy()[inv][gids]
+        for gid in gids:
+            self.next_inst_host[gid] += be
+        self._sync_cstate()
+        self.last_gb = plan_gb
+        if defer:
+            return _DeferredRound.resolved(fresh, value, inst)
+        return fresh, inst, value
+
+    def pipeline_persistent(self, gids, values: np.ndarray, active: np.ndarray, defer=False):
+        """The reference's K=1 fallback: a wave runs as K sequential cohort
+        dispatches, so ``dispatch_count`` grows by K; delivery and numbering
+        equal the unsharded wave's.  The whole wave is guarded against the
+        reclaim limit before any round moves state."""
+        k, be = values.shape[0], values.shape[2]
+        gids = list(gids)
+        if k * be > self.cfg.n_instances:
+            raise ValueError(
+                f"persistent wave of {k} x {be} instances would lap the "
+                f"{self.cfg.n_instances}-instance ring"
+            )
+        marks = self.next_inst_host
+        for gid in gids:
+            self._reclaim_guard(gid, marks[gid] + (k - 1) * be, be)
+        outs = [self.pipeline_cohort(gids, values[r], active[r]) for r in range(k)]
+        fresh, inst, value = (np.stack(x) for x in zip(*outs, strict=True))
+        if defer:
+            return _DeferredRound.resolved(fresh, value, inst)
+        return fresh, inst, value
+
+    def burn_forward(self, gid: int, target: int) -> None:
+        """Host-scalar realignment burn: the new watermark reaches the
+        owning shard with the next dispatch."""
+        self._check_gid(gid)
+        if target < self.next_inst_host[gid]:
+            raise ValueError(
+                f"burn_forward moves only forward: {target} < "
+                f"{self.next_inst_host[gid]} (group {gid})"
+            )
+        self.next_inst_host[gid] = target
+        self._sync_cstate()
+
+    # -- per-group control: host scalars only ----------------------------------
+    def _sync_cstate(self) -> None:
+        self.cstate = CoordinatorState(
+            next_inst=_i32(self.next_inst_host), crnd=_i32(self.crnd_host)
+        )
+
+    def kill_acceptor(self, gid: int, aid: int) -> None:
+        self._check_gid(gid)
+        self.alive[gid][aid] = False
+        self.alive_mask[gid, aid] = 0
+
+    def revive_acceptor(self, gid: int, aid: int) -> None:
+        self._check_gid(gid)
+        self.alive[gid][aid] = True
+        self.alive_mask[gid, aid] = 1
+
+    def freeze_group(self, gid: int) -> None:
+        self._check_gid(gid)
+        self.crnd_host[gid] = NO_ROUND
+        self._sync_cstate()
+
+    def restore_group(self, gid: int, next_inst: int, crnd: int) -> None:
+        self._check_gid(gid)
+        if self.use_kernels:
+            bb = plan_mod.wire_block(self.cfg.batch)
+            next_inst = -(-next_inst // bb) * bb
+        self.next_inst_host[gid] = next_inst
+        self.crnd_host[gid] = crnd
+        self._sync_cstate()
+
+    # -- live slab migration -------------------------------------------------------
+    def migrate_group(self, gid: int, dst_shard: int) -> None:
+        """Move a live tenant's slab to ``dst_shard`` between waves.
+
+        The caller has drained the group to its reclamation watermark (its
+        ring history is in the ``SnapshotStore``; checked here), so its slab
+        rows hold nothing the store does not.  The move is a slot swap with
+        the lowest vacant (retired) group on ``dst_shard``: the gid keeps
+        its identity, only ``_slab_row`` changes.  The adopted slot is reset
+        (it holds the vacant group's retired rows) and the sequencer is
+        re-seated at the drain watermark (block-realigned under
+        ``use_kernels``, as in ``restore_group``).  No other group's slab,
+        watermark or placement moves, so the service keeps dispatching."""
+        self._check_live(gid)
+        if not 0 <= dst_shard < self.n_shards:
+            raise ValueError(f"shard {dst_shard} out of range [0, {self.n_shards})")
+        if self.reclaimed_host is None:
+            raise ValueError("migrate_group requires reclamation enabled")
+        wm = self.next_inst_host[gid]
+        if self.reclaimed_host[gid] != wm:
+            raise ValueError(
+                f"group {gid} not drained: reclamation watermark "
+                f"{self.reclaimed_host[gid]} != sequencer watermark {wm}"
+            )
+        pm = self._placement
+        if pm.shard_of(gid) == dst_shard:
+            return
+        vacant = [
+            h for h in range(self.cfg.n_groups)
+            if pm.shard_of(h) == dst_shard and not self.live_host[h]
+        ]  # fmt: skip
+        if not vacant:
+            raise RuntimeError(
+                f"no vacant slot on shard {dst_shard} to migrate group "
+                f"{gid} into (retire or migrate a tenant off it first)"
+            )
+        self._placement = pm.swapped(gid, vacant[0])
+        self._reset_group_slab(gid)  # the newly adopted slot
+        self.restore_group(gid, wm, self.crnd_host[gid])
+
+
 class PaxosContext:
     """Drop-in replacement context (the paper's ``paxos_ctx``), for one group
     or, with ``PaxosConfig(n_groups=G)``, for G groups on one dataplane."""
@@ -788,12 +1166,12 @@ class PaxosContext:
         device: torch.device | str | None = None,
     ):
         self.cfg = cfg or PaxosConfig()
-        if mesh is not None:
-            raise NotImplementedError(f"the sharded dataplane is not ported yet: {_SHARDED}")
         self.deliver_cb = deliver
         self.net = net or SimNet()
         self.n_groups = self.cfg.n_groups
-        self.grouped = self.n_groups > 1
+        # the group-keyed surface engages for any multi-group config and for
+        # a sharded single-group one (the sharded dataplane is group-keyed)
+        self.grouped = self.n_groups > 1 or mesh is not None
         self.planner: plan_mod.DispatchPlanner | None = None
         if self.grouped:
             # the multi-group service is wire-path only: every group rides
@@ -804,7 +1182,14 @@ class PaxosContext:
                     "multi-group context drives the fused wire path and a "
                     "single learner role per group (n_learners must be 1)"
                 )
-            self.hw: Any = MultiGroupDataplane(self.cfg, use_kernels=use_kernels, device=device)
+            if mesh is not None:
+                # the groups-sharded service: the G slabs partition over the
+                # mesh's ``groups`` axis
+                self.hw: Any = ShardedMultiGroupDataplane(
+                    self.cfg, mesh=mesh, use_kernels=use_kernels, device=device
+                )
+            else:
+                self.hw = MultiGroupDataplane(self.cfg, use_kernels=use_kernels, device=device)
             self.fused = True
             self._softco_g: dict[int, SoftCoordinator] = {}
             self.learned_g: list[dict[int, bytes]] = [dict() for _ in range(self.n_groups)]
@@ -812,11 +1197,14 @@ class PaxosContext:
                 dict() for _ in range(self.n_groups)
             ]
             # burst sizing, cohort tiering and the realignment sweep
+            # a sharded context plans no persistent waves: its engine would
+            # run a K-round wave as K dispatches anyway (the reference's clamp)
             self.planner = plan_mod.DispatchPlanner(
                 batch=self.cfg.batch,
                 n_instances=self.cfg.n_instances,
                 realign_after=self.cfg.realign_after,
                 persistent_rounds=self.cfg.persistent_rounds,
+                sharded=mesh is not None,
             )
         else:
             self.hw = HardwareDataplane(self.cfg, use_kernels=use_kernels, device=device)
@@ -1263,7 +1651,9 @@ class PaxosContext:
     # -- dynamic membership ----------------------------------------------------
     def _require_grouped(self) -> None:
         if not self.grouped:
-            raise ValueError("dynamic membership requires a group-keyed context (n_groups > 1)")
+            raise ValueError(
+                "dynamic membership requires a group-keyed context (n_groups > 1 or mesh=...)"
+            )
 
     def live_groups(self) -> list[int]:
         """Live group ids, ascending: the routing domain."""
@@ -1315,6 +1705,40 @@ class PaxosContext:
             k for k in self._delivered_seqs if not (isinstance(k, tuple) and k[0] == gid)
         }
         return self.full_group_log(gid)
+
+    def migrate_group(self, gid: int, dst_shard: int, max_rounds: int = 64) -> GroupSnapshot:
+        """Live slab migration: move tenant ``gid`` to ``dst_shard`` between
+        waves, without stopping the service.  Pump until the group's
+        in-flight submissions drain (the other tenants keep deciding),
+        ``snapshot_group`` its full prefix (ring drained into the store,
+        reclamation watermark at the sequencer's), let the sharded dataplane
+        swap slots, then check that the store's seal and watermark did not
+        change.  Returns the sealed snapshot the move was checked against.
+        Needs the groups-sharded dataplane (``mesh=...``) and snapshots."""
+        self._require_grouped()
+        store = self._require_snapshots()
+        self._check_group(gid)
+        hw = self.hw
+        if not hasattr(hw, "migrate_group"):
+            raise ValueError(
+                "migrate_group requires the groups-sharded dataplane "
+                "(construct the context with mesh=...)"
+            )
+        for _ in range(max_rounds):
+            if not any(isinstance(k, tuple) and k[0] == gid for k in self._pending):
+                break
+            self.pump()
+        else:
+            raise RuntimeError(f"group {gid} did not drain within {max_rounds} pump rounds")
+        snap = self.snapshot_group(gid)
+        hw.migrate_group(gid, dst_shard)
+        after = store.snapshot(gid)
+        if after.seal != snap.seal or after.watermark != snap.watermark:
+            raise RuntimeError(
+                f"group {gid} snapshot seal changed across migration: "
+                f"{snap.seal!r} -> {after.seal!r}"
+            )
+        return snap
 
     # -- failover ------------------------------------------------------------
     def fail_coordinator(self, est_next_inst: int | None = None, group: int = 0):

@@ -4,9 +4,11 @@ The counterpart of ``repro.core.batched``.  Every function processes a
 batch of Paxos headers (``MsgBatch``) in one shot, with the reference's
 ``vmap`` over acceptors (and over groups) written out as a leading axis.
 ``fused_round`` is the plain version of the fused round kernel at one group,
-``multigroup_fused_round`` and ``cohort_fused_round`` at G groups and in
-cohort form, and ``persistent_cohort_rounds`` of its K-round persistent
-form (``kernels/wirepath.py``): each agrees with the kernel bit for bit.
+``multigroup_fused_round``, ``cohort_fused_round`` and ``shard_slab_round``
+at G groups, in cohort form and on one shard's slab,
+``persistent_cohort_rounds`` of its K-round persistent form and
+``packed_multigroup_round`` of the packed shard round kernel
+(``kernels/wirepath.py``): each agrees with its kernel bit for bit.
 ``persistent_multigroup_rounds`` is the full-width K-round program the
 dataplane's plain engine runs for a wave.
 
@@ -432,6 +434,91 @@ def cohort_fused_round(
         en[rows],
         alive[rows],
         limit[rows],
+        values,
+        quorum,
+    )
+    return stack, lstate, fresh, win, value
+
+
+def shard_slab_round(
+    group_offset: int,  # first global group id of this slab
+    next_inst: torch.Tensor,  # int32[G_global]  replicated watermarks
+    crnd: torch.Tensor,  # int32[G_global]
+    alive: torch.Tensor,  # bool[G_global, A]
+    quorum: int,
+    stack: AcceptorState,  # (Gl, A, N[, V])  this shard's slab, in place
+    lstate: LearnerState,  # (Gl, N[, V])
+    values: torch.Tensor,  # int32[Gl, B, V]
+    enabled=None,  # int32[G_global] 0/1; None = all
+    reclaim_limit=None,  # int32[G_global]; None = no reclamation
+) -> tuple[AcceptorState, LearnerState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the round kernel's shard slice: one round over
+    one shard's ``(Gl, ...)`` slab, the replicated per-group vectors sliced
+    at ``group_offset``.  A group that is not enabled rides inert.  Returns
+    ``(stack, lstate, fresh[Gl, B], win[Gl, B], value[Gl, B, V])``."""
+    gl = stack.rnd.shape[0]
+    dev = values.device
+    g = next_inst.shape[0]
+    sl = slice(group_offset, group_offset + gl)
+    en = (
+        torch.ones((g,), dtype=torch.bool, device=dev)
+        if enabled is None
+        else group_vector(enabled, g, dev) != 0
+    )[sl]
+    fresh, _inst, win, value = _rows_round(
+        stack,
+        lstate,
+        torch.arange(gl, device=dev),
+        next_inst[sl],
+        torch.where(en, crnd[sl], NO_ROUND),
+        en,
+        alive[sl],
+        _limits(reclaim_limit, g, dev)[sl],
+        values,
+        quorum,
+    )
+    return stack, lstate, fresh, win, value
+
+
+def packed_multigroup_round(
+    stack: AcceptorState,  # (Gl, A, N[, V])  one shard's slab, in place
+    lstate: LearnerState,  # (Gl, N[, V])
+    segids,  # int32[C]  per-lane slab row
+    next_inst,  # int32[C]  per-lane window base
+    crnd,  # int32[C]  per-lane round
+    alive,  # bool/int32[C, A]  per-lane liveness
+    quorum: int,
+    values: torch.Tensor,  # int32[C, B, V]  packed burst, lane order
+    enabled,  # int32[C]  0 marks a pad lane
+    reclaim_limit=None,  # int32[C]; None = no reclamation
+) -> tuple[AcceptorState, LearnerState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the packed shard round kernel: ``C`` lanes, lane
+    ``j`` serving slab row ``segids[j]`` with its own watermark, round,
+    liveness and limit.  Enabled lanes must name pairwise-distinct rows.
+    A pad lane (``enabled == 0``) runs at NO_ROUND on the first row no
+    enabled lane names, the reference's redirection: it changes nothing
+    there, every pad writes back the row's own bytes, and it gives fresh 0,
+    win NO_ROUND and value 0.  With a pad, ``C <= Gl`` leaves such a row.
+    No host sync, so a CUDA graph can capture it.  Returns ``(stack,
+    lstate, fresh[C, B], win[C, B], value[C, B, V])`` in lane order."""
+    gl = stack.rnd.shape[0]
+    c = values.shape[0]
+    dev = values.device
+    en = group_vector(enabled, c, dev) != 0
+    seg = group_vector(segids, c, dev).long()
+    used = torch.zeros((gl + 1,), dtype=I32, device=dev)
+    used.index_fill_(0, torch.where(en, seg, gl), 1)
+    rows = torch.where(en, seg, torch.argmin(used[:gl]))
+    al = alive if isinstance(alive, torch.Tensor) else torch.from_numpy(np.asarray(alive))
+    fresh, _inst, win, value = _rows_round(
+        stack,
+        lstate,
+        rows,
+        group_vector(next_inst, c, dev),
+        torch.where(en, group_vector(crnd, c, dev), NO_ROUND),
+        en,
+        al.to(dev).reshape((c, -1)) != 0,
+        _limits(reclaim_limit, c, dev),
         values,
         quorum,
     )

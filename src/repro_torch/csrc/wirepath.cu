@@ -4,14 +4,19 @@
 // src/repro/kernels/wirepath.py, whose body is `_phase2_block`:
 // coordinator sequencing, the Phase-2 vote of all A acceptors, the learner
 // quorum and the learner ring dedup, in one launch, with the six state
-// tensors updated in place.  Three entries share one lane body
+// tensors updated in place.  Four entries share one lane body
 // (`phase2_lane`):
 //   wirepath_round         the single-group slice (`wirepath_round` there);
 //   cohort_wirepath_round  the cohort form over (G, ...) slabs, and through
 //                          it the full-width `multigroup_wirepath_round`;
 //   persistent_wirepath_round  K5: K rounds of the cohort form in one
 //                          launch, replacing the TPU kernel
-//                          `persistent_wirepath_round` (see below).
+//                          `persistent_wirepath_round` (see below);
+//   packed_shard_round     K6: one round over a shard's packed lane
+//                          table, replacing the TPU kernel
+//                          `packed_shard_round` (see below).
+// The cohort entry also serves K1's shard slice (`shard_slab_round` there):
+// the wrapper runs it on one shard's (Gl, ...) slab view.
 //
 // Design.  One thread per lane j of a B-lane window; lane j of group g
 // addresses ring slot (next_inst[g] + j) mod N, the non-negative modulo,
@@ -329,6 +334,106 @@ extern "C" int persistent_wirepath_round(
     persistent_wirepath_round_kernel<<<grid, block_b, 0, (cudaStream_t)stream>>>(
         (const int*)gsel, gb, (const int*)wni, (const int*)wen, (const int*)crnd,
         (const int*)limit, (const unsigned char*)alive, quorum, K, G, A, N, V, B,
+        (int*)st_rnd, (int*)st_vrnd, (int*)st_val,
+        (int*)ldel, (int*)linst, (int*)lval,
+        (const int*)values, (bool*)fresh, (int*)win, (int*)value);
+    return (int)cudaGetLastError();
+}
+
+// K6: one Phase-2 round over a shard's packed lane table.
+//
+// Replaces the TPU kernel `packed_shard_round` of
+// src/repro/kernels/wirepath.py:770-942 (body `_packed_shard_kernel`, which
+// is the multi-group round body with a scalar-prefetch segment table).  The
+// groups-sharded dataplane packs a cohort's resident members of one shard
+// into C uniform lanes; lane j serves slab row seg[j] of the shard's
+// (Gl, ...) slab with its own next_inst[j], crnd[j], limit[j] and alive row
+// alive[j, :], all per-lane device vectors packed by the caller.
+//
+// Mapping.  One thread per (lane, burst position): blockIdx.y is the lane
+// j, blockIdx.x * blockDim.x + threadIdx.x the position p.  The thread runs
+// `phase2_lane` on row seg[j] at instance next_inst[j] + p (int32 wrap),
+// its slot the non-negative modulo, as in K1, and writes fresh, win and
+// value to packed row j.
+//
+// Pads.  A lane with enabled[j] == 0 is a pad: it reads and stores no slab
+// state and writes fresh 0, win NO_ROUND (-1), value 0 to its packed row,
+// what the reference gives a pad at NO_ROUND.  The TPU kernel redirects
+// every pad to one unused row and writes that row back unchanged; on the
+// card several pads naming one row would be concurrent stores, so K6 makes
+// none, and a pad's seg[j] is never read.
+//
+// Why no two threads meet on a slot.  Enabled lanes name pairwise-distinct
+// rows in [0, Gl) (the wrapper checks this on the host before it launches),
+// so two lanes never share a row; within a lane the B positions are B
+// consecutive instances and B <= N, so they are B distinct slots of the
+// row.  No thread reads a slot another thread writes.
+//
+// Bound.  Per enabled lane, K1-cohort's bytes per selected group (the
+// acceptor and learner writes at their most: every lane accepted by all A
+// acceptors and fresh; its next_inst, crnd, limit and enabled words are
+// here per lane), with alive as A int32 words instead of A bytes, plus the
+// lane's seg word: at A=3, B=128, V=16, 56,467 + 9 + 4 = 56,480 B, 16.9 ns
+// at 3.35 TB/s.  A pad reads its enabled word and writes its outputs:
+// 4 + B + 4 * B + 4 * B * V = 8,836 B.  Both are far below a launch's
+// latency, as for K1.
+__global__ void packed_shard_round_kernel(
+    const int* __restrict__ seg,        // int32[C]  slab row per lane
+    const int* __restrict__ next_inst,  // int32[C]  window base per lane
+    const int* __restrict__ crnd,       // int32[C]
+    const int* __restrict__ limit,      // int32[C]  first refused instance
+    const int* __restrict__ alive,      // int32[C, A]  0/1
+    const int* __restrict__ enabled,    // int32[C]  0 = pad
+    int quorum, int A, int N, int V, int B,
+    int* __restrict__ st_rnd,    // int32[Gl, A, N]      in place
+    int* __restrict__ st_vrnd,   // int32[Gl, A, N]      in place
+    int* __restrict__ st_val,    // int32[Gl, A, N, V]   in place
+    int* __restrict__ ldel,      // int32[Gl, N]         in place
+    int* __restrict__ linst,     // int32[Gl, N]         in place
+    int* __restrict__ lval,      // int32[Gl, N, V]      in place
+    const int* __restrict__ values,  // int32[C, B, V]  packed burst
+    bool* __restrict__ fresh,    // bool[C, B]   out, packed
+    int* __restrict__ win_out,   // int32[C, B]  out, packed
+    int* __restrict__ value_out) // int32[C, B, V]  out, packed
+{
+    const int p = blockIdx.x * blockDim.x + threadIdx.x;
+    const int j = blockIdx.y;  // packed lane
+    if (p >= B) return;
+    const size_t lane = (size_t)j * B + p;
+    int* vout = value_out + lane * V;
+    if (!enabled[j]) {
+        fresh[lane] = false;
+        win_out[lane] = -1;
+        for (int k = 0; k < V; ++k) vout[k] = 0;
+        return;
+    }
+    unsigned char al[MAX_A];
+    for (int a = 0; a < A; ++a) al[a] = alive[(size_t)j * A + a] != 0;
+    const int g = seg[j];
+    const int inst = (int)((unsigned)next_inst[j] + (unsigned)p);  // int32 wrap
+    const size_t an = (size_t)A * N;
+    phase2_lane(inst, crnd[j], al, quorum, limit[j], A, N, V,
+                st_rnd + g * an, st_vrnd + g * an, st_val + g * an * V,
+                ldel + (size_t)g * N, linst + (size_t)g * N, lval + (size_t)g * N * V,
+                values + lane * V, fresh + lane, win_out + lane, vout);
+}
+
+extern "C" int packed_shard_round(
+    const void* seg, const void* next_inst, const void* crnd, const void* limit,
+    const void* alive, const void* enabled,
+    int quorum, int C, int Gl, int A, int N, int V, int B, int block_b,
+    void* st_rnd, void* st_vrnd, void* st_val,
+    void* ldel, void* linst, void* lval,
+    const void* values, void* fresh, void* win, void* value,
+    void* stream)
+{
+    if (A < 1 || A > MAX_A || B < 1 || B > N || V < 1 || C < 1 || C > Gl
+        || block_b < 1 || block_b > 1024)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((B + block_b - 1) / block_b, C);
+    packed_shard_round_kernel<<<grid, block_b, 0, (cudaStream_t)stream>>>(
+        (const int*)seg, (const int*)next_inst, (const int*)crnd, (const int*)limit,
+        (const int*)alive, (const int*)enabled, quorum, A, N, V, B,
         (int*)st_rnd, (int*)st_vrnd, (int*)st_val,
         (int*)ldel, (int*)linst, (int*)lval,
         (const int*)values, (bool*)fresh, (int*)win, (int*)value);

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``) and their dispatch.
 
-* ``wirepath``    — K1, the fused Phase-2 round (one group, G groups, a cohort), and K2, the
-  staged vote of the acceptor array.
+* ``wirepath``    — K1, the fused Phase-2 round (one group, G groups, a cohort, a shard's
+  slab), K5 its persistent form, K6 the packed shard round, and K2, the staged vote of the
+  acceptor array.
 * ``coordinator`` — K3, the sequencer.
 * ``digest``      — K4, the snapshot seal's weighted fold, and its plain version.
 * ``acceptor``    — K7, one acceptor's Phase-2 vote (K2's lane body).

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from collections.abc import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import batched as _batched
@@ -242,6 +243,119 @@ def cohort_fused_round(
         _batched.group_vector(enabled, g, dev),
         lim,
         group_block=group_block,
+    )
+    return stack, lstate, fresh, win, value
+
+
+def shard_slab_round(
+    group_offset: int,
+    next_inst: torch.Tensor,
+    crnd: torch.Tensor,
+    alive: torch.Tensor,
+    quorum: int,
+    stack: AcceptorState,
+    lstate: LearnerState,
+    values: torch.Tensor,
+    enabled=None,
+    reclaim_limit=None,
+    *,
+    group_block: int = 1,
+) -> tuple[AcceptorState, LearnerState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One round over one shard's ``(Gl, ...)`` slab with the replicated
+    ``(G,)`` vectors sliced at ``group_offset``: K1's shard slice on the
+    card, ``batched.shard_slab_round`` on the CPU, the slab updated in place
+    either way.  ``group_block`` is the reference kernel's fold, accepted
+    for its signature.  Returns ``(stack, lstate, fresh[Gl, B], win[Gl, B],
+    value[Gl, B, V])``."""
+    if not _route(values, "shard_slab_round"):
+        return _batched.shard_slab_round(
+            group_offset, next_inst, crnd, alive, quorum, stack, lstate, values, enabled,
+            reclaim_limit,
+        )  # fmt: skip
+    g = next_inst.shape[0]
+    dev = values.device
+    en = None if enabled is None else _batched.group_vector(enabled, g, dev)
+    lim = None if reclaim_limit is None else _batched.group_vector(reclaim_limit, g, dev)
+    *_, fresh, win, value = _wirepath.shard_slab_round(
+        group_offset,
+        next_inst,
+        crnd,
+        quorum,
+        alive,
+        stack.rnd,
+        stack.vrnd,
+        stack.value,
+        lstate.delivered,
+        lstate.inst,
+        lstate.value,
+        values,
+        en,
+        lim,
+        group_block=group_block,
+    )
+    return stack, lstate, fresh, win, value
+
+
+def packed_shard_round(
+    stack: AcceptorState,
+    lstate: LearnerState,
+    segids,
+    next_inst,
+    crnd,
+    alive,
+    quorum: int,
+    values: torch.Tensor,
+    enabled,
+    reclaim_limit=None,
+    *,
+    block_b: int | None = None,
+    lanes_host=None,
+) -> tuple[AcceptorState, LearnerState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The packed shard round: K6 on the card,
+    ``batched.packed_multigroup_round`` on the CPU, the shard's slab updated
+    in place either way.  ``C`` lanes, lane ``j`` serving slab row
+    ``segids[j]`` with its own scalars; pads (``enabled == 0``) are inert.
+    The preconditions (``C <= Gl``, ``B <= N``, the block dividing B and N,
+    enabled lanes on distinct rows) are checked on the host on both routes;
+    ``lanes_host`` gives host copies of ``segids`` and ``enabled`` for that
+    check where the caller has them.  ``block_b`` (default: the reference's
+    128) is the kernel's launch shape and changes no result.  Returns
+    ``(stack, lstate, fresh[C, B], win[C, B], value[C, B, V])`` in lane
+    order."""
+    block_b = _wirepath.DEFAULT_BLOCK_B if block_b is None else block_b
+    gl, n = stack.rnd.shape[0], stack.rnd.shape[2]
+    c, b = values.shape[:2]
+    if not _route(values, "packed_shard_round"):
+        seg_h, en_h = lanes_host if lanes_host is not None else (segids, enabled)
+        _wirepath.check_packed_lanes("packed_shard_round", seg_h, en_h, gl, c, b, n, block_b)
+        return _batched.packed_multigroup_round(
+            stack, lstate, segids, next_inst, crnd, alive, quorum, values, enabled, reclaim_limit
+        )
+    dev = values.device
+
+    def lane(x):
+        return _batched.group_vector(x, c, dev)
+
+    if not isinstance(alive, torch.Tensor):
+        alive = torch.from_numpy(np.asarray(alive))
+    al = alive.to(dev, torch.int32).reshape((c, -1))
+    *_, fresh, win, value = _wirepath.packed_shard_round(
+        lane(segids),
+        lane(next_inst),
+        lane(crnd),
+        quorum,
+        al,
+        stack.rnd,
+        stack.vrnd,
+        stack.value,
+        lstate.delivered,
+        lstate.inst,
+        lstate.value,
+        values,
+        lane(enabled),
+        None if reclaim_limit is None else lane(reclaim_limit),
+        block_b=block_b,
+        lanes_host=lanes_host,
     )
     return stack, lstate, fresh, win, value
 

@@ -1,5 +1,6 @@
-"""K1, the fused CAANS wire path, K5, its persistent K-round form, and K2,
-the staged vote of the acceptor array: CUDA kernels.
+"""K1, the fused CAANS wire path, K5, its persistent K-round form, K6, the
+packed shard round, and K2, the staged vote of the acceptor array: CUDA
+kernels.
 
 ``wirepath_round`` and ``cohort_wirepath_round`` launch the two entries of
 ``csrc/wirepath.cu``, which replaces the TPU kernel
@@ -29,6 +30,18 @@ keeps one (row, lane) for the whole wave, which is race-free only when
 ``K * B <= N`` and each selected group's bases walk by ``B`` over its
 enabled rounds; both are checked here, on the host, before the launch.
 
+``shard_slab_round`` is K1's shard slice, replacing the reference's
+``shard_slab_round``: the cohort entry over every block of one shard's
+``(Gl, ...)`` slab view, the replicated per-group vectors sliced at the
+shard's offset; its plain version is ``batched.shard_slab_round``.
+``packed_shard_round`` launches K6, the ``packed_shard_round`` entry of the
+same source, which replaces the TPU kernel
+``repro.kernels.wirepath.packed_shard_round``: one round over a shard's
+packed lane table, lane ``j`` on slab row ``segids[j]`` with its own
+scalars, pads inert; its plain version is ``batched.packed_multigroup_round``.
+Enabled lanes must name distinct rows and ``C <= Gl``, checked on the host
+(``check_packed_lanes``) before the launch.  Each has its own launch count.
+
 ``acceptor_vote_all_window`` launches the ``acceptor_vote_all`` entry point
 of ``csrc/vote.cu``, which replaces the TPU kernel
 ``repro.kernels.wirepath.acceptor_vote_all_window``: the staged Phase-2
@@ -55,15 +68,18 @@ from .acceptor import vote_io
 MAX_A = 8
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
-# launches of K1 (single group and cohort form), K5 and K2 in this process;
-# reset by whoever reads them
+# launches of K1 (single group, cohort form, shard slice), K6, K5 and K2 in
+# this process; reset by whoever reads them
 launches = 0
 cohort_launches = 0
+shard_launches = 0
+packed_launches = 0
 persistent_launches = 0
 vote_all_launches = 0
 
 _fn = None
 _cohort_fn = None
+_packed_fn = None
 _persistent_fn = None
 _vote_fn = None
 
@@ -195,12 +211,28 @@ def cohort_wirepath_round(
     Returns ``(st_rnd, st_vrnd, st_val, ldel, linst, lval, fresh[C, B],
     win_vrnd[C, B], value[C, B, V])``: the six state tensors are the inputs,
     updated in place; ``fresh`` is a bool mask."""
-    what = "cohort_wirepath_round"
+    global cohort_launches
+    out = _cohort_checked(
+        "cohort_wirepath_round", gsel, next_inst, crnd, quorum, alive,
+        st_rnd, st_vrnd, st_val, ldel, linst, lval, values, enabled, limit, group_block,
+    )  # fmt: skip
+    cohort_launches += 1
+    return out
+
+
+def _cohort_checked(
+    what: str,
+    gsel, next_inst, crnd, quorum, alive, st_rnd, st_vrnd, st_val, ldel, linst, lval, values,
+    enabled: torch.Tensor | None,
+    limit: torch.Tensor | None,
+    gb: int,
+) -> tuple[torch.Tensor, ...]:
+    """``cohort_wirepath_round``'s checks, then the launch; the caller
+    counts the launch under its own name."""
     dev = values.device
     _build.on_card(what, dev)
     g, a, n = st_rnd.shape
     c, b, v = values.shape
-    gb = group_block
     if not 1 <= a <= MAX_A or b > n or gb < 1 or g % gb:
         raise ValueError(
             f"{what} needs 1 <= A <= {MAX_A}, B <= N and GB | G, got {a}, {b}, {n}, {gb}, {g}"
@@ -242,8 +274,8 @@ def _cohort_launch(
     limit: torch.Tensor,
 ) -> tuple[torch.Tensor, ...]:
     """Launch the cohort entry on checked inputs (CUDA-graph capturable:
-    no host copy).  ``cohort_wirepath_round`` is the checked wrapper."""
-    global cohort_launches
+    no host copy).  ``cohort_wirepath_round`` is the checked wrapper; its
+    callers count the launches."""
     g, a, n = st_rnd.shape
     c, b, v = values.shape
     dev = values.device
@@ -264,7 +296,6 @@ def _cohort_launch(
             stream,
         )  # fmt: skip
     _build.check(rc, "cohort_wirepath_round launch")
-    cohort_launches += 1
     return st_rnd, st_vrnd, st_val, ldel, linst, lval, fresh, win, value
 
 
@@ -293,6 +324,188 @@ def multigroup_wirepath_round(
         st_rnd, st_vrnd, st_val, ldel, linst, lval, values, enabled, limit,
         group_block=group_block,
     )  # fmt: skip
+
+
+def shard_slab_round(
+    group_offset: int,  # first global group id of this slab
+    next_inst: torch.Tensor,  # int32[G_global]  replicated watermarks
+    crnd: torch.Tensor,  # int32[G_global]
+    quorum: int,
+    alive: torch.Tensor,  # bool[G_global, A]
+    st_rnd: torch.Tensor,  # int32[Gl, A, N]  this shard's acceptor slab, in place
+    st_vrnd: torch.Tensor,  # int32[Gl, A, N]
+    st_val: torch.Tensor,  # int32[Gl, A, N, V]
+    ldel: torch.Tensor,  # int32[Gl, N]  this shard's learner slab, in place
+    linst: torch.Tensor,  # int32[Gl, N]
+    lval: torch.Tensor,  # int32[Gl, N, V]
+    values: torch.Tensor,  # int32[Gl, B, V]  this shard's burst slab
+    enabled: torch.Tensor | None = None,  # int32[G_global] 0/1; None = all
+    limit: torch.Tensor | None = None,  # int32[G_global]; None = none
+    *,
+    group_block: int = 1,
+) -> tuple[torch.Tensor, ...]:
+    """K1's shard slice, replacing the reference's ``shard_slab_round``:
+    one fused Phase-2 round over one shard's contiguous ``(Gl, ...)`` slab,
+    on the card.  The per-group vectors stay global and replicated;
+    ``group_offset`` selects the shard's window of them (views, no copy),
+    and the round runs on K1's cohort entry over every block of the slab.
+    Returns what ``multigroup_wirepath_round`` returns for the slab."""
+    global shard_launches
+    what = "shard_slab_round"
+    gl, g = st_rnd.shape[0], next_inst.shape[0]
+    if not 0 <= group_offset <= g - gl or group_block < 1 or gl % group_block:
+        raise ValueError(
+            f"{what}: a slab of {gl} at offset {group_offset} of {g} groups, "
+            f"group_block {group_block} must divide it"
+        )
+    sl = slice(group_offset, group_offset + gl)
+    out = _cohort_checked(
+        what, range(gl // group_block), next_inst[sl], crnd[sl], quorum, alive[sl],
+        st_rnd, st_vrnd, st_val, ldel, linst, lval, values,
+        None if enabled is None else enabled[sl], None if limit is None else limit[sl],
+        group_block,
+    )  # fmt: skip
+    shard_launches += 1
+    return out
+
+
+def _packed_kernel():
+    global _packed_fn
+    if _packed_fn is None:
+        fn = _build.library("wirepath").packed_shard_round
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [*[p] * 6, *[i] * 8, *[p] * 10, p]
+        fn.restype = ctypes.c_int
+        _packed_fn = fn
+    return _packed_fn
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def check_packed_lanes(
+    what: str, segids, enabled, gl: int, c: int, b: int, n: int, block_b: int
+) -> None:
+    """The packed round's preconditions, on the host: ``C <= Gl``,
+    ``B <= N``, the launch block (``block_b`` capped at B) divides B and N,
+    and the enabled lanes name pairwise-distinct rows in ``[0, Gl)``; pads
+    (``enabled == 0``) may name any row.  Raises otherwise: two lanes on one
+    row would race in place."""
+    bb = min(block_b, b)
+    if c > gl or b > n or not 1 <= bb <= 1024 or b % bb or n % bb:
+        raise ValueError(
+            f"{what} needs C <= Gl, B <= N and a block (block_b capped at B) dividing B "
+            f"and N, got C={c}, Gl={gl}, B={b}, N={n}, block_b={block_b}"
+        )
+    seg = _host(segids).astype(np.int64).reshape((-1,))
+    en = _host(enabled).reshape((-1,)) != 0
+    if seg.shape != (c,) or en.shape != (c,):
+        raise ValueError(f"{what}: segids {seg.shape} and enabled {en.shape} must be ({c},)")
+    rows = seg[en]
+    if len(set(rows.tolist())) != rows.size or (rows.size and (rows.min() < 0 or rows.max() >= gl)):
+        raise ValueError(
+            f"{what}: enabled lanes must name distinct rows in [0, {gl}), got {rows.tolist()}"
+        )
+
+
+def packed_shard_round(
+    segids: torch.Tensor,  # int32[C]  per-lane slab row
+    next_inst: torch.Tensor,  # int32[C]  per-lane window base
+    crnd: torch.Tensor,  # int32[C]  per-lane round
+    quorum: int,
+    alive: torch.Tensor,  # int32[C, A]  per-lane liveness, 0/1
+    st_rnd: torch.Tensor,  # int32[Gl, A, N]  this shard's acceptor slab, in place
+    st_vrnd: torch.Tensor,  # int32[Gl, A, N]
+    st_val: torch.Tensor,  # int32[Gl, A, N, V]
+    ldel: torch.Tensor,  # int32[Gl, N]  this shard's learner slab, in place
+    linst: torch.Tensor,  # int32[Gl, N]
+    lval: torch.Tensor,  # int32[Gl, N, V]
+    values: torch.Tensor,  # int32[C, B, V]  packed burst, lane order
+    enabled: torch.Tensor | None = None,  # int32[C] 0/1; None = every lane real
+    limit: torch.Tensor | None = None,  # int32[C]; None = no reclamation
+    *,
+    block_b: int = DEFAULT_BLOCK_B,
+    lanes_host: tuple[np.ndarray, np.ndarray] | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """K6, replacing the reference's ``packed_shard_round``: one fused
+    Phase-2 round over a shard's packed lane table, on the card.  Lane
+    ``j`` serves slab row ``segids[j]`` with its own watermark, round,
+    liveness and limit; a pad lane (``enabled == 0``) touches no row and
+    gives fresh 0, win NO_ROUND, value 0.  The per-lane tables are device
+    tensors; the host checks of ``check_packed_lanes`` read ``lanes_host``
+    (host copies of ``segids`` and ``enabled``) where the caller has them,
+    else copy the two tables back.  ``block_b`` is the launch's threads per
+    block, capped at B: it changes no result.  Returns ``(st_rnd, st_vrnd,
+    st_val, ldel, linst, lval, fresh[C, B], win_vrnd[C, B], value[C, B,
+    V])``: the six state tensors are the inputs, updated in place; ``fresh``
+    is a bool mask."""
+    what = "packed_shard_round"
+    dev = values.device
+    _build.on_card(what, dev)
+    gl, a, n = st_rnd.shape
+    c, b, v = values.shape
+    if not 1 <= a <= MAX_A:
+        raise ValueError(f"{what} needs 1 <= A <= {MAX_A}, got {a}")
+    i32 = torch.int32
+    if enabled is None:
+        enabled = torch.ones((c,), dtype=i32, device=dev)
+    if limit is None:
+        limit = torch.full((c,), INT32_MAX, dtype=i32, device=dev)
+    seg_h, en_h = lanes_host if lanes_host is not None else (segids, enabled)
+    check_packed_lanes(what, seg_h, en_h, gl, c, b, n, block_b)
+    for name, t, dtype, shape in (
+        ("segids", segids, i32, (c,)),
+        ("next_inst", next_inst, i32, (c,)),
+        ("crnd", crnd, i32, (c,)),
+        ("limit", limit, i32, (c,)),
+        ("alive", alive, i32, (c, a)),
+        ("enabled", enabled, i32, (c,)),
+        ("st_rnd", st_rnd, i32, (gl, a, n)),
+        ("st_vrnd", st_vrnd, i32, (gl, a, n)),
+        ("st_val", st_val, i32, (gl, a, n, v)),
+        ("ldel", ldel, i32, (gl, n)),
+        ("linst", linst, i32, (gl, n)),
+        ("lval", lval, i32, (gl, n, v)),
+        ("values", values, i32, (c, b, v)),
+    ):
+        _build.require(what, name, t, dtype, shape, dev)
+    global packed_launches
+    out = _packed_launch(
+        segids, next_inst, crnd, limit, alive, enabled, quorum,
+        st_rnd, st_vrnd, st_val, ldel, linst, lval, values, min(block_b, b),
+    )  # fmt: skip
+    packed_launches += 1
+    return out
+
+
+def _packed_launch(
+    segids, next_inst, crnd, limit, alive, enabled, quorum,
+    st_rnd, st_vrnd, st_val, ldel, linst, lval, values,
+    block_b: int,
+) -> tuple[torch.Tensor, ...]:
+    """Launch K6 on checked inputs (CUDA-graph capturable: no host copy).
+    ``packed_shard_round`` is the checked wrapper and counts the launch."""
+    gl, a, n = st_rnd.shape
+    c, b, v = values.shape
+    dev = values.device
+    fresh = torch.empty((c, b), dtype=torch.bool, device=dev)
+    win = torch.empty((c, b), dtype=torch.int32, device=dev)
+    value = torch.empty((c, b, v), dtype=torch.int32, device=dev)
+    fn = _packed_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            segids.data_ptr(), next_inst.data_ptr(), crnd.data_ptr(), limit.data_ptr(),
+            alive.data_ptr(), enabled.data_ptr(),
+            int(quorum), c, gl, a, n, v, b, block_b,
+            st_rnd.data_ptr(), st_vrnd.data_ptr(), st_val.data_ptr(),
+            ldel.data_ptr(), linst.data_ptr(), lval.data_ptr(),
+            values.data_ptr(), fresh.data_ptr(), win.data_ptr(), value.data_ptr(),
+            stream,
+        )  # fmt: skip
+    _build.check(rc, "packed_shard_round launch")
+    return st_rnd, st_vrnd, st_val, ldel, linst, lval, fresh, win, value
 
 
 def _persistent_kernel():

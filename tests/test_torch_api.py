@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 import repro.core as R  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 from repro_torch.core.bridge import export_state, import_state  # noqa: E402
+from repro_torch.launch.mesh import make_group_mesh  # noqa: E402
 
 CFG = dict(n_acceptors=3, n_instances=256, value_words=16, batch=16)
 FAULTS = dict(drop=0.08, dup=0.05, reorder=0.1)
@@ -194,10 +195,12 @@ def test_export_state_copies():
     assert export_state(hw)["lstate.delivered"].sum() == 16
 
 
-def test_grouped_and_sharded_contexts_are_not_ported_yet():
-    """The sharded dataplane (``mesh=``), not ported yet, raises at
-    construction.  Persistent waves are ported: a grouped context with
-    ``persistent_rounds=2`` builds and runs a wave of two rounds."""
+def test_grouped_and_sharded_contexts_are_not_ported_yet(monkeypatch):
+    """A ``groups`` mesh over several distinct cards, not ported yet, raises
+    when it is made; the sharded dataplane on one device is ported and a
+    ``mesh=`` context builds it.  Persistent waves are ported: a grouped
+    context with ``persistent_rounds=2`` builds and runs a wave of two
+    rounds."""
     ctx = T.PaxosContext(T.PaxosConfig(n_groups=2, persistent_rounds=2, **CFG), device="cpu")
     waves = []
     persistent = ctx.hw.pipeline_persistent
@@ -212,8 +215,13 @@ def test_grouped_and_sharded_contexts_are_not_ported_yet():
     ctx.run_until_quiescent()
     assert waves == [((1,), 2)] and ctx.hw.dispatch_count == 1
     assert [p for _i, p in ctx.group_log[1]] == [f"w{i}".encode() for i in range(32)]
+    sharded = T.PaxosContext(T.PaxosConfig(**CFG), mesh=make_group_mesh(device="cpu"),
+                             device="cpu")  # fmt: skip
+    assert isinstance(sharded.hw, T.ShardedMultiGroupDataplane) and sharded.grouped
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.PaxosContext(T.PaxosConfig(), mesh=object(), device="cpu")
+        T.PaxosContext(T.PaxosConfig(), mesh=make_group_mesh(), device="cpu")
 
 
 def test_staged_path_runs_plain_on_the_cpu():

@@ -663,3 +663,154 @@ def test_default_grouped_context_on_the_card_matches_the_cpu(cuda, async_pump):
     want, have = export_state(on_cpu.hw), export_state(on_card.hw)
     for key in want:
         np.testing.assert_array_equal(have[key], want[key], err_msg=key)
+
+
+@pytest.mark.parametrize(
+    "gl,lanes,block_b",
+    [
+        (8, [(5, 4096, 1)], 128),
+        (8, [(0, 9, 1), (7, 2**31 - 64, 1)], 32),
+        (4, [(3, 3 * 4096 - 60, 1), (1, 640, 1), (3, 0, 0), (0, 0, 0)], 128),
+        (4, [(2, 0, 1), (0, 128, 1), (1, 4096 - 64, 1), (3, 77, 1)], 32),
+    ],
+)
+def test_packed_shard_kernel_matches_plain(cuda, gl, lanes, block_b):
+    """K6 against ``batched.packed_multigroup_round``: C in {1, 2, Gl},
+    ragged tables whose pads name enabled lanes' rows, windows across 2**31
+    and across the ring end, a dead acceptor, a limit inside a window; the
+    state in place; one launch counted in ``packed_launches``; rows no
+    enabled lane names untouched."""
+    a, n, v, b = 3, 4096, 16, 128
+    c = len(lanes)
+    rng = np.random.default_rng([gl, c, block_b])
+    stack, lstate = _slabs(rng, gl, a, n, v, 8, cuda)
+    twin = (AcceptorState(*(x.clone() for x in vars(stack).values())),
+            batched.LearnerState(*(x.clone() for x in vars(lstate).values())))  # fmt: skip
+    ptrs = [x.data_ptr() for x in (*vars(stack).values(), *vars(lstate).values())]
+    i32 = dict(dtype=torch.int32, device=cuda)
+    seg = torch.tensor([r for r, _, _ in lanes], **i32)
+    ni = torch.tensor([x for _, x, _ in lanes], **i32)
+    en = torch.tensor([e for _, _, e in lanes], **i32)
+    crnd = torch.from_numpy(rng.integers(1, 6, c, dtype=np.int32)).to(cuda)
+    alive = torch.ones((c, a), **i32)
+    alive[0, 1] = 0
+    limit = torch.full((c,), I32_MAX, **i32)
+    limit[-1] = ni[-1] + b // 2
+    values = torch.from_numpy(
+        rng.integers(I32_MIN, I32_MAX, (c, b, v), dtype=np.int32, endpoint=True)
+    ).to(cuda)
+    before = k_wirepath.packed_launches
+    got = ops.packed_shard_round(stack, lstate, seg, ni, crnd, alive, 2, values, en, limit,
+                                 block_b=block_b)  # fmt: skip
+    want = batched.packed_multigroup_round(*twin, seg, ni, crnd, alive, 2, values, en, limit)
+    assert k_wirepath.packed_launches == before + 1
+    mine = (*vars(got[0]).values(), *vars(got[1]).values(), *got[2:])
+    plain = (*vars(want[0]).values(), *vars(want[1]).values(), *want[2:])
+    for x, y in zip(mine, plain, strict=True):
+        assert torch.equal(x, y)
+    assert [x.data_ptr() for x in (*vars(stack).values(), *vars(lstate).values())] == ptrs
+    pads = en == 0
+    assert not got[2][pads].any() and bool((got[3][pads] == -1).all())
+
+
+def test_packed_shard_kernel_refuses_before_launch(cuda):
+    """Duplicate enabled rows, C > Gl and a block that does not divide B are
+    refused on the host; nothing launches and no state moves."""
+    gl, a, n, v, b = 2, 3, 256, 4, 16
+    stack, lstate = _slabs(np.random.default_rng(3), gl, a, n, v, 8, cuda)
+    state = [x.clone() for x in (*vars(stack).values(), *vars(lstate).values())]
+    i32 = dict(dtype=torch.int32, device=cuda)
+
+    def call(seg, en, c=2, block_b=128, bb=b):
+        z = torch.zeros((c,), **i32)
+        return ops.packed_shard_round(
+            stack, lstate, torch.tensor(seg, **i32), z, z + 1, torch.ones((c, a), **i32), 2,
+            torch.zeros((c, bb, v), **i32), torch.tensor(en, **i32), block_b=block_b,
+        )  # fmt: skip
+
+    before = k_wirepath.packed_launches
+    with pytest.raises(ValueError, match="distinct rows"):
+        call([1, 1], [1, 1])
+    with pytest.raises(ValueError, match="C <= Gl"):
+        call([0, 1, 1], [1, 1, 0], c=3)
+    with pytest.raises(ValueError, match="dividing B"):
+        call([0, 1], [1, 1], block_b=12)
+    assert k_wirepath.packed_launches == before
+    for x, y in zip((*vars(stack).values(), *vars(lstate).values()), state, strict=True):
+        assert torch.equal(x, y)
+    call([1, 1], [1, 0])  # a pad may share an enabled lane's row
+    assert k_wirepath.packed_launches == before + 1
+
+
+@pytest.mark.parametrize("offset", [0, 4])
+def test_shard_slab_kernel_matches_plain(cuda, offset):
+    """K1's shard slice against ``batched.shard_slab_round`` on one shard's
+    row views of a G=8 slab at offsets 0 and Gl=4: the other shard's rows
+    untouched, one launch counted in ``shard_launches``."""
+    g, gl, a, n, v, b = 8, 4, 3, 4096, 16, 128
+    rng = np.random.default_rng(offset)
+    stack, lstate = _slabs(rng, g, a, n, v, 8, cuda)
+    twin = (AcceptorState(*(x.clone() for x in vars(stack).values())),
+            batched.LearnerState(*(x.clone() for x in vars(lstate).values())))  # fmt: skip
+    i32 = dict(dtype=torch.int32, device=cuda)
+    ni = torch.tensor([0, 9, 2**31 - 64, 4096 - 60, 640, 5, 77, 4096], **i32)
+    crnd = torch.from_numpy(rng.integers(1, 6, g, dtype=np.int32)).to(cuda)
+    crnd[offset + 1] = -1  # a frozen group
+    alive = torch.ones((g, a), dtype=torch.bool, device=cuda)
+    alive[offset + 2, 0] = False
+    en = torch.tensor([1, 1, 1, 0, 1, 1, 1, 0], **i32)
+    limit = torch.tensor(np.asarray([0] * 7 + [2**31 - 100], np.int32) + n).to(cuda)
+    values = torch.from_numpy(
+        rng.integers(I32_MIN, I32_MAX, (gl, b, v), dtype=np.int32, endpoint=True)
+    ).to(cuda)
+
+    def rows(st):
+        return type(st)(*(x[offset : offset + gl] for x in vars(st).values()))
+
+    before = k_wirepath.shard_launches
+    got = ops.shard_slab_round(offset, ni, crnd, alive, 2, rows(stack), rows(lstate), values,
+                               en, limit, group_block=2)  # fmt: skip
+    want = batched.shard_slab_round(offset, ni, crnd, alive, 2, rows(twin[0]), rows(twin[1]),
+                                    values, en, limit)  # fmt: skip
+    assert k_wirepath.shard_launches == before + 1
+    for x, y in zip(got[2:], want[2:], strict=True):
+        assert torch.equal(x, y)
+    for x, y in zip((*vars(stack).values(), *vars(lstate).values()),
+                    (*vars(twin[0]).values(), *vars(twin[1]).values()), strict=True):  # fmt: skip
+        assert torch.equal(x, y)
+
+
+def test_sharded_context_on_the_card_matches_the_cpu(cuda):
+    """A 2-shard context on the card (K6 and K1's shard slice) against the
+    same context on the CPU: logs, slabs, mirrors and placement equal
+    through waves, a failover, a retire and a migration."""
+    from repro_torch.launch.mesh import make_group_mesh
+
+    cfg = PaxosConfig(n_instances=1024, batch=32, n_groups=4)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        ctx = PaxosContext(cfg, mesh=make_group_mesh(2, dev), snapshots=True, device=dev,
+                           net=SimNet(FaultSpec(drop=0.02, dup=0.02, reorder=0.05), 4))  # fmt: skip
+        before = (k_wirepath.packed_launches, k_wirepath.shard_launches)
+        for w in range(6):
+            for gid in ctx.live_groups():
+                for j in range(3 * 32 + 5 if gid == 0 else 7 + w):
+                    ctx.submit(f"w{w}g{gid}j{j}".encode(), group=gid)
+            ctx.run_until_quiescent()
+            if w == 1:
+                ctx.fail_coordinator(group=1)
+            if w == 2:
+                ctx.restore_hardware_coordinator(group=1)
+                ctx.retire_group(3)
+                ctx.migrate_group(0, 1)
+        grew = (k_wirepath.packed_launches - before[0], k_wirepath.shard_launches - before[1])
+        assert all(grew) == (dev.type == "cuda"), grew
+        runs.append(ctx)
+    on_card, on_cpu = runs
+    for gid in range(4):
+        assert on_card.full_group_log(gid) == on_cpu.full_group_log(gid)
+    assert on_card.hw.group_placement() == on_cpu.hw.group_placement() == [1, 0, 1, 0]
+    want, have = export_state(on_cpu.hw), export_state(on_card.hw)
+    for key in want:
+        np.testing.assert_array_equal(have[key], want[key], err_msg=key)
+    assert on_card.hw.dispatch_count == on_cpu.hw.dispatch_count
