@@ -54,9 +54,24 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    order of ``deliver`` callbacks, seals, state, dispatch count, fold
    widths, placement and plan; every dispatch must launch K6 or K1's shard
    slice once per shard;
-10. times: each kernel by CUDA events at its path's shapes beside its bound
-   and its plain version, and each path's decided values/s and latency;
-11. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+10. K9, the attention kernel, against its plain version at the cases of
+   ``tests/test_flash_kernel.py``, rows that see no key, ragged lengths and
+   the LM path's shapes (float32 at 2e-5 with TF32 off, bfloat16 at 2e-2);
+   the same model at a reduced width on the card against the CPU;
+11. LM serving at gemma3-27b's full width, its depth cut from 62 to 12
+   layers (two 5:1 local:global superblocks), random weights from a seeded
+   generator on the card (``lm_params``): ``make_prefill_step`` on 2 prompts
+   of 2048 tokens in bfloat16, K9 12 times a call and the plain attention
+   never, its last logits against the same step on K9's plain version; the
+   float32 prefill of one 1536-token prompt against teacher-forced
+   ``serve_step`` decode; ``ServeLoop`` answering 8 requests of 64-512
+   prompt tokens and 16 new ones at batch 4, twice alike, and two of them
+   alone as in the batch;
+12. times: each kernel by CUDA events at its path's shapes beside its bound
+   and its plain version (K9 also beside PyTorch's
+   ``scaled_dot_product_attention``), each consensus path's decided values/s
+   and latency, and the LM path's prefill and decode times;
+13. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run.
@@ -66,7 +81,9 @@ Any failure raises, so the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -74,6 +91,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -87,11 +105,23 @@ from repro_torch.kernels import coordinator as k_coordinator  # noqa: E402
 from repro_torch.kernels import digest as k_digest  # noqa: E402
 from repro_torch.kernels import learner as k_learner  # noqa: E402
 from repro_torch.kernels import wirepath as k_wirepath  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
 from repro_torch.launch.mesh import make_group_mesh  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import registry as lm_registry  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.serve.engine import (  # noqa: E402
+    Request,
+    ServeLoop,
+    make_prefill_step,
+    make_serve_step,
+)
 
 SEED = 20160519
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12  # no int32 row in the data sheet: the f32 non-tensor rate
+BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate (NVIDIA data sheet)
 
 CARD = ""  # "name, power limit" from nvidia-smi, set by main()
 
@@ -962,6 +992,7 @@ LAUNCHES = {  # kernel name -> (module, attribute) of its wrapper's count
     "K5": (k_wirepath, "persistent_launches"),
     "K6": (k_wirepath, "packed_launches"),
     "K1-shard": (k_wirepath, "shard_launches"),
+    "K9": (k_flash, "launches"),
 }
 
 
@@ -1402,6 +1433,268 @@ def run_multigroup_path(
 
 
 # ---------------------------------------------------------------------------
+# LM serving: K9 and the dense transformer at gemma3-27b's width
+# ---------------------------------------------------------------------------
+LM_ARCH, LM_LAYERS = "gemma3-27b", 12  # depth cut from 62 layers: two 5:1 superblocks
+K9_PATH = (2, 32, 16, 2048, 128)  # B, H, KVH, S, D of the LM path's prefill
+DECODE_LEN = 1536  # the prefill-against-decode prompt: longer than the window (1024)
+# K9 against its plain version, the tolerances of tests/test_flash_kernel.py:
+# float32 sums in another order; bf16 rounds the output and p once each
+F32_ATOL, BF16_ATOL = 2e-5, 2e-2
+# last logits (under 1 in size) of the bf16 prefill on K9 against the same
+# step on K9's plain version: both round q.k's inputs and p to bf16, the
+# output to bf16 at other points of its sums, through 12 layers
+PREFILL_BF16_ATOL = 2e-2
+# float32 prefill against teacher-forced decode, and the reduced models on
+# the card against the CPU: float32 sums in other orders through the layers
+PREFILL_DECODE_ATOL = SMALL_ATOL = 1e-4
+
+K9_CHECKS = [  # (b, h, kvh, sq, sk, d, window, causal, dtype)
+    # tests/test_flash_kernel.py: the causal sweep, the windows, non-causal, bf16
+    (1, 4, 2, 256, 256, 64, 0, True, torch.float32),
+    (2, 4, 4, 128, 128, 128, 0, True, torch.float32),
+    (1, 8, 1, 256, 256, 64, 0, True, torch.float32),
+    (1, 2, 2, 384, 384, 128, 0, True, torch.float32),
+    (1, 4, 2, 256, 256, 64, 64, True, torch.float32),
+    (1, 4, 2, 256, 256, 64, 128, True, torch.float32),
+    (1, 4, 2, 256, 256, 64, 1024, True, torch.float32),
+    (1, 2, 1, 128, 128, 64, 0, False, torch.float32),
+    (1, 4, 2, 128, 128, 128, 0, True, torch.bfloat16),
+    # rows 191 and up see no key (causal, window 64, Sq 256 > Sk 128)
+    (1, 4, 2, 256, 128, 64, 64, True, torch.float32),
+    (1, 4, 2, 256, 128, 64, 64, True, torch.bfloat16),
+    # ragged lengths
+    (1, 4, 2, 200, 200, 64, 0, True, torch.float32),
+    (1, 4, 2, 200, 200, 64, 0, True, torch.bfloat16),
+    # the LM path's shapes: a global layer and a local one
+    (2, 32, 16, 2048, 2048, 128, 0, True, torch.bfloat16),
+    (2, 32, 16, 2048, 2048, 128, 1024, True, torch.bfloat16),
+    # the float32 prefill-against-decode run's shapes, a global and a local layer
+    (1, 32, 16, 1536, 1536, 128, 0, True, torch.float32),
+    (1, 32, 16, 1536, 1536, 128, 1024, True, torch.float32),
+]
+
+
+def k9_inputs(gen, b, h, kvh, sq, sk, d, dtype, dev):
+    shapes = ((b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d))
+    return tuple(torch.randn(s, generator=gen, device=dev).to(dtype) for s in shapes)
+
+
+def check_k9(dev) -> float:
+    """K9 against its plain version on the card at ``K9_CHECKS``; rows that
+    see no key must also be the mean of V over all Sk keys.  Returns the
+    largest error."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    worst = 0.0
+    for b, h, kvh, sq, sk, d, window, causal, dtype in K9_CHECKS:
+        q, k, v = k9_inputs(gen, b, h, kvh, sq, sk, d, dtype, dev)
+        got = k_flash.flash_attention(q, k, v, window=window, causal=causal)
+        want = k_flash.flash_attention_plain(q, k, v, window=window, causal=causal)
+        err = (got.float() - want.float()).abs().max().item()
+        atol = F32_ATOL if dtype == torch.float32 else BF16_ATOL
+        blind = sk + window - 1  # the first row that sees no key, where there is one
+        if window and blind < sq:
+            mean = v.float().mean(dim=2).repeat_interleave(h // kvh, dim=1)[:, :, None]
+            err = max(err, (got[:, :, blind:].float() - mean).abs().max().item())
+        print(f"  K9 B={b} H={h} KVH={kvh} Sq={sq} Sk={sk} D={d} window={window} "
+              f"causal={causal} {str(dtype)[6:]}: max_abs_err {err}")  # fmt: skip
+        if not (bool(got.isfinite().all()) and err <= atol):
+            raise AssertionError(f"K9 differs from its plain version by {err} > {atol}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_lm_small(dev) -> None:
+    """The reduced gemma3-27b and qwen3-4b on the card (K9 in float32 at
+    head dim 16) against the same models on the CPU (the chunked attention
+    that the CPU tests hold against the reference): prefill's last logits
+    within ``SMALL_ATOL`` and ``ServeLoop``'s tokens equal."""
+    for arch in ("gemma3-27b", "qwen3-4b"):
+        cfg = get_config(arch).reduced()
+        on_cpu = lm_registry.init_params(cfg, torch.Generator().manual_seed(SEED))
+        on_card = lm_layers.tree_map(lambda t: t.to(dev), on_cpu)
+        rng = np.random.default_rng(SEED)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))
+        step = make_prefill_step(cfg)
+        got = step(on_card, {"tokens": tokens.to(dev)})[0].cpu()
+        err = (got - step(on_cpu, {"tokens": tokens})[0]).abs().max().item()
+        reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, n).astype(np.int32), max_new=6)
+                for i, n in enumerate([5, 12, 0, 9, 3])]  # fmt: skip
+        want = ServeLoop(cfg, on_cpu, 4, 24, device="cpu").run(reqs)
+        got = ServeLoop(cfg, on_card, 4, 24, device=dev).run(reqs)
+        print(f"  reduced {arch}, card against CPU: prefill logits max_abs_err {err}, "
+              f"ServeLoop tokens equal: {got == want}")  # fmt: skip
+        if err > SMALL_ATOL or got != want:
+            raise AssertionError(f"reduced {arch} differs between the card and the CPU")
+
+
+def lm_config(dtype: str):
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS, dtype=dtype)
+
+
+def lm_params(dev) -> tuple[dict, dict]:
+    """The 12-layer gemma3-27b's weights in float32 and their bf16 cast,
+    drawn on the card by ``registry.init_params`` from a seeded generator,
+    then ``wq`` and ``wk`` scaled by sqrt(heads / d_model).
+
+    The reference's fan-in rule takes a (d_model, heads, head_dim) weight's
+    head count as its fan-in, which at this width gives q and k a spread of
+    about 13 and 18 and the scores one of about 240: near one-hot attention,
+    whose near-ties carry a difference in the last bits of any sum from
+    layer to layer until the logits differ entirely (a 12-layer model of
+    this kind at d_model 1024 gave float32 prefill and decode logits 0.48
+    apart, as large as the logits).  The scaling gives q and k unit spread,
+    so the comparisons below can tell a right kernel from a wrong one."""
+    cfg = lm_config("float32")
+    params = lm_registry.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    attn = params["blocks"]["attn"]
+    for name in ("wq", "wk"):  # (layers, d_model, heads, head_dim)
+        attn[name].mul_(math.sqrt(attn[name].shape[2] / cfg.d_model))
+    return params, lm_layers.tree_map(lambda t: t.to(torch.bfloat16), params)
+
+
+class PlainAttention:
+    """Counts the calls of K9's plain version while entered.  With
+    ``route=True`` every attention call goes to the plain version instead of
+    K9: the comparison run on the card (a hook of this script, not a path of
+    the port)."""
+
+    def __init__(self, route: bool = False):
+        self.calls = 0
+        self._route = route
+
+    def __enter__(self):
+        self._plain, self._router = k_flash.flash_attention_plain, k_flash.flash_attention
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self._plain(*args, **kw)
+
+        k_flash.flash_attention_plain = counted
+        if self._route:
+            k_flash.flash_attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        k_flash.flash_attention_plain, k_flash.flash_attention = self._plain, self._router
+
+
+def run_lm_prefill(dev, params: dict, calls: int = 5) -> dict:
+    """``make_prefill_step`` on B=2 prompts of S=2048 tokens, bf16: one
+    warm-up call, then ``calls`` timed calls with the launch counts set to 0
+    just before them, then one call on K9's plain version to compare."""
+    cfg = lm_config("bfloat16")
+    b, _, kvh, s, hd = K9_PATH
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab, (b, s)))
+    batch = {"tokens": tokens.to(dev)}
+    step = make_prefill_step(cfg)
+    step(params, batch)
+    sync(dev)
+    reset_launches()
+    call_s = []
+    with PlainAttention() as plain:
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            last, cache = step(params, batch)
+            sync(dev)
+            call_s.append(time.perf_counter() - t0)
+    launches = read_launches()
+    if launches["K9"] != LM_LAYERS * calls or plain.calls:
+        raise AssertionError(f"the prefill did not run K9 once a layer: {launches}, "
+                             f"plain attention calls {plain.calls}")  # fmt: skip
+    want_cache = (LM_LAYERS, b, s, kvh, hd)
+    if tuple(last.shape) != (b, cfg.vocab) or tuple(cache["k"].shape) != want_cache:
+        raise AssertionError(f"prefill shapes {tuple(last.shape)}, {tuple(cache['k'].shape)}")
+    if not bool(last.isfinite().all()):
+        raise AssertionError("the prefill's logits are not finite")
+    with PlainAttention(route=True) as ref:
+        ref_last, _ = step(params, batch)
+    if ref.calls != LM_LAYERS or k_flash.launches != launches["K9"]:
+        raise AssertionError("the comparison prefill did not run on K9's plain version")
+    err = (last.float() - ref_last.float()).abs().max().item()
+    same = (last.argmax(-1) == ref_last.argmax(-1)).tolist()
+    print(f"  K9 launches {launches['K9']} in {calls} calls, plain attention calls "
+          f"{plain.calls}; last logits against the plain attention's: max_abs_err {err} "
+          f"(|logit| up to {ref_last.float().abs().max().item()}), argmax equal {same}")
+    if err > PREFILL_BF16_ATOL:
+        raise AssertionError(f"prefill on K9 differs from prefill on its plain version by {err}")
+    p50, _ = percentiles(call_s)
+    return dict(launches=launches, max_abs_err=err, argmax_equal=same, call_s=call_s,
+                prefill_ms_p50=p50, tokens_per_s=b * s / (p50 / 1e3))  # fmt: skip
+
+
+def run_prefill_against_decode(dev, params: dict) -> dict:
+    """Float32, B=1, S=1536: the prefill step's last logits against
+    teacher-forced ``serve_step`` decode's at the same position."""
+    cfg = lm_config("float32")
+    s = DECODE_LEN
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 5).integers(0, cfg.vocab, (1, s)))
+    tokens = tokens.to(dev)
+    before = k_flash.launches
+    last, _ = make_prefill_step(cfg)(params, {"tokens": tokens})
+    if k_flash.launches - before != LM_LAYERS:
+        raise AssertionError("the float32 prefill did not run K9 once a layer")
+    cache = transformer.init_cache(cfg, 1, s, torch.float32, dev)
+    step = make_serve_step(cfg)
+    sync(dev)
+    t0 = time.perf_counter()
+    for t in range(s):
+        logits, cache = step(params, tokens[:, t : t + 1], cache, t)
+    sync(dev)
+    decode_s = time.perf_counter() - t0
+    err = (logits - last).abs().max().item()
+    same = bool(logits.argmax() == last.argmax())
+    print(f"  prefill against {s} decode steps: last logits max_abs_err {err} (|logit| up to "
+          f"{last.abs().max().item()}), argmax equal {same}, decode {decode_s:.3f} s")
+    if not (err <= PREFILL_DECODE_ATOL and same and bool(last.isfinite().all())):
+        raise AssertionError(f"float32 prefill and decode differ: {err}, argmax equal {same}")
+    return dict(max_abs_err=err, argmax_equal=same, decode_steps=s, decode_s=decode_s)
+
+
+def run_lm_serving(dev, params: dict) -> dict:
+    """``ServeLoop`` at batch 4 on 8 requests of 64-512 prompt tokens and
+    16 new ones, bf16; again on the same requests; the two shortest alone."""
+    cfg = lm_config("bfloat16")
+    rng = np.random.default_rng(SEED + 6)
+    lens = rng.integers(64, 513, 8)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, n).astype(np.int32), max_new=16)
+            for i, n in enumerate(lens)]  # fmt: skip
+    max_len = int(lens.max()) + 16
+
+    def loop():
+        return ServeLoop(cfg, params, batch_size=4, max_len=max_len, device=dev)
+
+    first, step_s = loop(), []
+    decode = first._decode
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = decode(*args)
+        sync(dev)
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    first._decode = timed
+    t0 = time.perf_counter()
+    out = first.run(reqs)
+    wall = time.perf_counter() - t0
+    again = loop().run(reqs)
+    solo = {r.rid: loop().run([r])[r.rid] for r in sorted(reqs, key=lambda r: len(r.prompt))[:2]}
+    tokens = sum(len(g) for g in out.values())
+    print(f"  {len(reqs)} requests, prompt lengths {lens.tolist()}: {tokens} tokens in "
+          f"{first.steps} decode steps; again alike: {again == out}; requests {sorted(solo)} "
+          f"alone as in the batch: {all(out[i] == g for i, g in solo.items())}")  # fmt: skip
+    if sorted(out) != list(range(len(reqs))) or any(len(g) != 16 for g in out.values()):
+        raise AssertionError("a request did not get its 16 tokens")
+    if again != out or any(out[i] != g for i, g in solo.items()):
+        raise AssertionError("ServeLoop is not deterministic, or a request alone differs")
+    p50, p99 = percentiles(step_s)
+    return dict(requests=len(reqs), generated_tokens=tokens, wall_s=wall, decode_steps=first.steps,
+                generated_tokens_per_s=tokens / wall, decode_step_ms_p50=p50,
+                decode_step_ms_p99=p99)  # fmt: skip
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 def time_walk(call, count: int, graph: bool, restore=lambda: None, reps: int = 5) -> float:
@@ -1439,8 +1732,8 @@ def time_walk(call, count: int, graph: bool, restore=lambda: None, reps: int = 5
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, ops_: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / INT32_OPS_PER_S
+def bound_ms(nbytes: float, ops_: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1944,6 +2237,48 @@ def time_k1_shard(dev) -> dict:
     return out
 
 
+def time_k9(dev) -> dict:
+    """K9 at the LM path's shapes (B=2, H=32, KVH=16, S=2048, D=128, bf16),
+    causal, at window 0 (a global layer) and 1024 (a local one): the kernel,
+    its plain version and ``scaled_dot_product_attention`` (GQA, causal or
+    the window's boolean mask), each in a CUDA graph.  The bound counts 4*D
+    operations for each unmasked pair of this run's mask at the bf16
+    tensor-core rate, and q, k, v read once and the output written once."""
+    b, h, kvh, s, d = K9_PATH
+    q, k, v = k9_inputs(torch.Generator(device=dev).manual_seed(SEED + 91), b, h, kvh, s, s, d,
+                        torch.bfloat16, dev)  # fmt: skip
+    pos = torch.arange(s, device=dev)
+    out = {}
+    for window in (0, 1024):
+        mask = pos[None, :] <= pos[:, None]
+        if window:
+            mask &= pos[None, :] > pos[:, None] - window
+        pairs = int(mask.sum().item()) * b * h
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        bms, by = bound_ms(nbytes, 4 * d * pairs, BF16_OPS_PER_S)
+
+        def kernel(i, window=window):
+            k_flash.flash_attention(q, k, v, window=window)
+
+        def plain(i, window=window):
+            k_flash.flash_attention_plain(q, k, v, window=window)
+
+        def library(i, mask=mask, window=window):
+            if window:
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+        lib_err = (library(0).float() - k_flash.flash_attention(q, k, v, window=window).float())
+        out[window] = dict(
+            ms=time_walk(kernel, 20, True),
+            plain_ms=time_walk(plain, 3, True),
+            library_ms=time_walk(library, 20, True),
+            bound_ms=bms, bound_by=by, operations=4 * d * pairs, bytes=nbytes, window=window,
+            library_max_abs_diff=lib_err.abs().max().item(),
+        )  # fmt: skip
+    return dict(out[0], window_1024=out[1024])
+
+
 def percentiles(round_s: list[float]) -> tuple[float, float]:
     ms = np.asarray(round_s) * 1e3
     return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
@@ -1979,6 +2314,8 @@ def main() -> None:
 
 def run(dev: torch.device) -> None:
     """Every phase on ``dev``; raises on the first failure."""
+    # float32 products in full float32: K9 never uses TF32, the plain versions must not
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     build_s = _build.build_all()
     print(f"build: {build_s:.3f} s for {', '.join(_build.sources())}")
     for name in _build.sources():
@@ -1993,6 +2330,8 @@ def run(dev: torch.device) -> None:
     errs["K5"] = check_k5(dev)
     errs["K6"] = check_k6(dev)
     errs["K1-shard"] = check_k1_shard(dev)
+    errs["K9"] = check_k9(dev)
+    check_lm_small(dev)
     # timed here, before the paths, and printed after them
     times = {"wirepath_round": time_k1(dev), "digest": time_k4(dev, PaxosConfig().n_instances // 4)}
     times.update(time_staged(dev))
@@ -2000,6 +2339,7 @@ def run(dev: torch.device) -> None:
     times["K5"] = time_k5(dev)
     times["K6"] = time_k6(dev)
     times["K1-shard"] = time_k1_shard(dev)
+    times["K9"] = time_k9(dev)
 
     print("main path: PaxosContext(PaxosConfig(), fused=True, use_kernels=True, snapshots=True)")
     reset_launches()
@@ -2193,6 +2533,22 @@ def run(dev: torch.device) -> None:
     print(f"  fold widths seen (width: dispatches): {dict(sorted(shd['folds'].items()))}, "
           f"stats {shd['stats']}")  # fmt: skip
 
+    print(f"LM weights: {LM_ARCH} at full width, {LM_LAYERS} of its 62 layers, random from a "
+          f"seeded generator on the card, float32 and bfloat16")  # fmt: skip
+    params32, params16 = lm_params(dev)
+    print("LM prefill path: make_prefill_step(gemma3-27b, 12 layers) on 2 prompts of 2048 tokens, "
+          "bfloat16")  # fmt: skip
+    lm = run_lm_prefill(dev, params16)
+    lm_launches = lm.pop("launches")
+    require_launched("LM prefill path", lm_launches, ["K9"])
+    print(f"LM prefill against decode: float32, 1 prompt of {DECODE_LEN} tokens, TF32 off")
+    lm_decode = run_prefill_against_decode(dev, params32)
+    del params32
+    print("LM serving: ServeLoop(gemma3-27b, 12 layers, batch_size=4), bfloat16")
+    lm_serve = run_lm_serving(dev, params16)
+    del params16
+    torch.cuda.empty_cache()
+
     print(f"times on {CARD}")
     path_metrics = {}
     for name, run, base in (("main path", kern, plain), ("staged path", staged, staged_plain)):
@@ -2232,6 +2588,11 @@ def run(dev: torch.device) -> None:
             plain_dispatch_ms_p50=plain_p50,
             plain_dispatch_ms_p99=plain_p99,
         )
+    lm.pop("call_s")
+    path_metrics["LM prefill path"] = dict(card=CARD, batch=K9_PATH[0], prompt_tokens=K9_PATH[3],
+                                           layers=LM_LAYERS, **lm)  # fmt: skip
+    path_metrics["LM prefill against decode"] = dict(card=CARD, **lm_decode)
+    path_metrics["LM serving"] = dict(card=CARD, **lm_serve)
     for name, t in times.items():
         print(f"  {name} {json.dumps(t)}")
     for name, m in path_metrics.items():
@@ -2249,12 +2610,13 @@ def run(dev: torch.device) -> None:
         ("K5", "wirepath.cu", "src/repro/kernels/wirepath.py:524", dflt_launches),
         ("K6", "wirepath.cu", "src/repro/kernels/wirepath.py:780", sh_launches),
         ("K1-shard", "wirepath.cu", "src/repro/kernels/wirepath.py:706", sh_launches),
+        ("K9", "flash_attention.cu", "src/repro/kernels/flash_attention.py:96", lm_launches),
     ]  # fmt: skip
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}", replaces=replaces,
              launches=counts[name], max_abs_err=errs[name], ms=times[name]["ms"],
              plain_ms=times[name]["plain_ms"], bound_ms=times[name]["bound_ms"],
-             bound_by=times[name]["bound_by"], library_ms=None)
+             bound_by=times[name]["bound_by"], library_ms=times[name].get("library_ms"))
         for name, src, replaces, counts in rows
     ]  # fmt: skip
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,157 @@
+"""K9: online-softmax GQA attention, a CUDA kernel, with its plain version.
+
+``flash_attention`` routes by device: a CPU tensor goes to
+``flash_attention_plain``, a CUDA tensor to ``flash_attention_kernel``,
+which launches ``csrc/flash_attention.cu`` or raises.  The kernel replaces
+the TPU kernel ``repro.kernels.flash_attention.flash_attention`` (body
+``_flash_kernel``); the plain version is a twin of its oracle
+``repro.kernels.ref.flash_attention``.
+
+Layout (the reference's): q ``(B, H, Sq, D)``, k and v ``(B, KVH, Sk, D)``,
+``H = KVH * G``; head ``bh`` of the flattened ``B*H`` reads kv head
+``(bh % H) // G + (bh // H) * KVH``.  Scores are ``q . k`` in float32 times
+the scale (``D ** -0.5`` by default); the query at row ``i`` sees the key
+at column ``j`` where ``j <= i`` (causal) and ``j > i - window``
+(``window > 0``); the other scores are ``-1e30``, so a row that sees no key
+averages V over all ``Sk`` keys.  P is cast to V's dtype before the PV
+product, which sums in float32; the output is cast to q's dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_HEAD_DIM = 256
+
+# launches of the kernel in this process; reset by whoever reads it
+launches = 0
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.library("flash_attention").flash_attention
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [i, i, i, i, i, i, i, i, i, f, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _shapes(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"{what}: q must be (B, H, Sq, D) and k, v one (B, KVH, Sk, D) shape, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or kvh < 1 or h % kvh:
+        raise ValueError(f"{what}: k {tuple(k.shape)} does not fit q {tuple(q.shape)}")
+    return b, h, kvh, sq, sk, d
+
+
+def _window(what: str, window: int) -> None:
+    # The kernel masks only for window > 0, the plain version for any window
+    # but 0: a negative one would make the two routes disagree.
+    if window < 0:
+        raise ValueError(f"{what} takes a window >= 0 (0: none), got {window}")
+
+
+def flash_attention_kernel(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int = 0,
+    causal: bool = True,
+    softmax_scale: float | None = None,
+) -> torch.Tensor:
+    """K9 on the card: the attention output ``(B, H, Sq, D)`` in q's dtype,
+    a new tensor.  Takes float32 or bfloat16 (all three alike), contiguous,
+    ``Sq, Sk >= 1`` and ``D`` a multiple of 16 up to 256."""
+    global launches
+    what = "flash_attention"
+    dev = q.device
+    _build.on_card(what, dev)
+    b, h, kvh, sq, sk, d = _shapes(what, q, k, v)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes float32 or bfloat16, got {q.dtype}")
+    if sq < 1 or sk < 1 or b < 1:
+        raise ValueError(f"{what} needs B, Sq, Sk >= 1, got {b}, {sq}, {sk}")
+    if d % 16 or not 16 <= d <= _MAX_HEAD_DIM:
+        raise ValueError(f"{what} takes a head dim that is a multiple of 16 up to 256, got {d}")
+    _window(what, window)
+    _build.require(what, "q", q, q.dtype, (b, h, sq, d), dev)
+    _build.require(what, "k", k, q.dtype, (b, kvh, sk, d), dev)
+    _build.require(what, "v", v, q.dtype, (b, kvh, sk, d), dev)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{what}: q, k and v must start on a 16-byte boundary")
+    scale = softmax_scale if softmax_scale is not None else d**-0.5
+    out = torch.empty_like(q)
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            _DTYPES[q.dtype], b, h, kvh, sq, sk, d, int(window), int(bool(causal)),
+            float(scale), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), stream,
+        )  # fmt: skip
+    _build.check(rc, f"{what} launch")
+    launches += 1
+    return out
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int = 0,
+    causal: bool = True,
+    softmax_scale: float | None = None,
+) -> torch.Tensor:
+    """The same attention in plain PyTorch, on any device: the direct
+    softmax over every key (no tiling), in float32 from the inputs' values."""
+    b, h, kvh, sq, sk, d = _shapes("flash_attention_plain", q, k, v)
+    g = h // kvh
+    scale = softmax_scale if softmax_scale is not None else d**-0.5
+    qg = q.reshape(b, kvh, g, sq, d).float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p.to(v.dtype).float(), v.float())
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int = 0,
+    causal: bool = True,
+    softmax_scale: float | None = None,
+) -> torch.Tensor:
+    """K9 for a CUDA tensor, its plain version for a CPU one."""
+    _window("flash_attention", window)
+    kw = dict(window=window, causal=causal, softmax_scale=softmax_scale)
+    if q.device.type == "cuda":
+        return flash_attention_kernel(q, k, v, **kw)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, **kw)
+    raise ValueError(f"flash_attention: no kernel or plain version for device {q.device}")

@@ -814,3 +814,135 @@ def test_sharded_context_on_the_card_matches_the_cpu(cuda):
     for key in want:
         np.testing.assert_array_equal(have[key], want[key], err_msg=key)
     assert on_card.hw.dispatch_count == on_cpu.hw.dispatch_count
+
+
+# ---------------------------------------------------------------------------
+# K9: attention
+# ---------------------------------------------------------------------------
+def _qkv(rng, b, h, kvh, sq, sk, d, dtype, dev):
+    def t(shape):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return x.to(dtype).to(dev)
+
+    return t((b, h, sq, d)), t((b, kvh, sk, d)), t((b, kvh, sk, d))
+
+
+@pytest.fixture
+def full_f32(cuda):
+    """float32 products in full float32: the kernel never uses TF32, and the
+    plain version must not either."""
+    before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+# (b, h, kvh, sq, sk, d, window, causal): the cases of tests/test_flash_kernel.py,
+# the fully masked rows (causal, window 64, Sq 256 > Sk 128), ragged lengths and
+# head dims that fill no whole register tile
+K9_CASES = [
+    (1, 4, 2, 256, 256, 64, 0, True),
+    (2, 4, 4, 128, 128, 128, 0, True),
+    (1, 8, 1, 256, 256, 64, 0, True),
+    (1, 2, 2, 384, 384, 128, 0, True),
+    (1, 4, 2, 256, 256, 64, 64, True),
+    (1, 4, 2, 256, 256, 64, 128, True),
+    (1, 4, 2, 256, 256, 64, 1024, True),
+    (1, 2, 1, 128, 128, 64, 0, False),
+    (1, 4, 2, 128, 128, 128, 0, True),
+    (1, 4, 2, 256, 128, 64, 64, True),
+    (1, 4, 2, 200, 200, 64, 0, True),
+    (2, 4, 2, 77, 200, 32, 0, False),
+    (1, 2, 1, 200, 131, 16, 50, False),
+    (1, 4, 2, 150, 150, 80, 0, True),
+    (1, 2, 1, 100, 100, 256, 33, True),
+]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,window,causal", K9_CASES)
+def test_attention_kernel_matches_plain(full_f32, dtype, atol, b, h, kvh, sq, sk, d, window,
+                                        causal):  # fmt: skip
+    from repro_torch.kernels import flash_attention as k_flash
+
+    rng = np.random.default_rng(7)
+    q, k, v = _qkv(rng, b, h, kvh, sq, sk, d, dtype, full_f32)
+    before = k_flash.launches
+    got = k_flash.flash_attention(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert k_flash.launches == before + 1
+    want = k_flash.flash_attention_plain(q, k, v, window=window, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=atol)
+
+
+def test_attention_kernel_averages_v_where_a_row_sees_no_key(cuda):
+    """Causal with window 64 and Sq 256 > Sk 128: rows 191 and up see no key
+    and must come out as the mean of V over all 128 keys."""
+    from repro_torch.kernels import flash_attention as k_flash
+
+    q, k, v = _qkv(np.random.default_rng(3), 1, 4, 2, 256, 128, 64, torch.float32, cuda)
+    got = k_flash.flash_attention(q, k, v, window=64, causal=True).cpu()
+    mean = v.mean(dim=2).repeat_interleave(2, dim=1).cpu()  # (1, 4, 64)
+    for row in (191, 200, 255):
+        np.testing.assert_allclose(got[:, :, row].numpy(), mean.numpy(), atol=2e-5)
+
+
+@pytest.mark.parametrize(
+    "shape_k,dtype,why",
+    [
+        ((1, 2, 64, 20), torch.float32, "multiple of 16"),
+        ((1, 2, 64, 272), torch.float32, "multiple of 16"),
+        ((1, 2, 64, 64), torch.float16, "float32 or bfloat16"),
+        ((1, 3, 64, 64), torch.float32, "does not fit"),
+    ],
+)
+def test_attention_kernel_refuses_before_launch(cuda, shape_k, dtype, why):
+    from repro_torch.kernels import flash_attention as k_flash
+
+    d = shape_k[3]
+    q = torch.zeros((1, 4, 64, d), dtype=dtype, device=cuda)
+    k = torch.zeros(shape_k, dtype=dtype, device=cuda)
+    before = k_flash.launches
+    with pytest.raises((ValueError, TypeError), match=why):
+        k_flash.flash_attention(q, k, k.clone())
+    strided = torch.zeros((1, 4, 64, 128), device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        k_flash.flash_attention(strided, strided, strided)
+    assert k_flash.launches == before
+
+
+def test_attention_kernel_refuses_a_negative_window(cuda):
+    from repro_torch.kernels import flash_attention as k_flash
+
+    q = torch.zeros((1, 4, 64, 64), device=cuda)
+    k = torch.zeros((1, 2, 64, 64), device=cuda)
+    before = k_flash.launches
+    for call in (k_flash.flash_attention, k_flash.flash_attention_kernel):
+        with pytest.raises(ValueError, match="window >= 0"):
+            call(q, k, k.clone(), window=-64)
+    assert k_flash.launches == before
+
+
+def test_model_attention_runs_k9_on_the_card(full_f32):
+    """``models.layers.flash_attention`` on a CUDA tensor launches K9 once and
+    equals its CPU path (the reference's chunked softmax); offsets and key
+    positions, which no path of the card takes yet, raise there."""
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((2, 100, 2, 2, 32)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 100, 2, 32)).astype(np.float32))
+            for _ in range(2))  # fmt: skip
+    want = layers.flash_attention(q, k, v, window=24, chunk_q=32, chunk_k=48)
+    before = k_flash.launches
+    got = layers.flash_attention(*(t.to(full_f32) for t in (q, k, v)), window=24)
+    assert k_flash.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=2e-5)
+    card = [t.to(full_f32) for t in (q, k, v)]
+    with pytest.raises(NotImplementedError, match="q_offset"):
+        layers.flash_attention(*card, q_offset=3)
+    with pytest.raises(NotImplementedError, match="k_positions"):
+        layers.flash_attention(*card, k_positions=torch.arange(100, device=full_f32))
+    assert k_flash.launches == before + 1

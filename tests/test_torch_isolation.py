@@ -27,7 +27,9 @@ import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), leaked)
 assert not leaked, leaked
-for name in ("kernels.wirepath", "core.api", "core.fabric", "launch", "launch.mesh"):
+for name in ("kernels.wirepath", "core.api", "core.fabric", "launch", "launch.mesh",
+             "kernels.flash_attention", "models.transformer", "serve.engine", "configs",
+             "launch.serve"):
     assert "repro_torch." + name in names, names
 """
 
