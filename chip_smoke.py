@@ -55,21 +55,26 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    widths, placement and plan; every dispatch must launch K6 or K1's shard
    slice once per shard;
 10. K9, the attention kernel, against its plain version at the cases of
-   ``tests/test_flash_kernel.py``, rows that see no key, ragged lengths and
-   the LM path's shapes (float32 at 2e-5 with TF32 off, bfloat16 at 2e-2);
-   the same model at a reduced width on the card against the CPU;
+   ``tests/test_flash_kernel.py``, rows that see no key, ragged lengths,
+   head dims 16 to 256 and the LM path's shapes, on contiguous tensors and
+   on (B, H, S, D) views of (B, S, H, D) ones (float32 at 2e-5 with TF32
+   off, bfloat16 at 2e-2); the same model at a reduced width on the card
+   against the CPU;
 11. LM serving at gemma3-27b's full width, its depth cut from 62 to 12
    layers (two 5:1 local:global superblocks), random weights from a seeded
    generator on the card (``lm_params``): ``make_prefill_step`` on 2 prompts
-   of 2048 tokens in bfloat16, K9 12 times a call and the plain attention
-   never, its last logits against the same step on K9's plain version; the
+   of 2048 tokens in bfloat16, K9 12 times a call on views of the layers'
+   q, k, v (no copies) and the plain attention never, its last logits
+   against the same step on K9's plain version; the
    float32 prefill of one 1536-token prompt against teacher-forced
    ``serve_step`` decode; ``ServeLoop`` answering 8 requests of 64-512
    prompt tokens and 16 new ones at batch 4, twice alike, and two of them
    alone as in the batch;
 12. times: each kernel by CUDA events at its path's shapes beside its bound
    and its plain version (K9 also beside PyTorch's
-   ``scaled_dot_product_attention``), each consensus path's decided values/s
+   ``scaled_dot_product_attention``, with its registers and spills and its
+   library's HGMMA and UTMALDG counts, which must not be 0), each consensus
+   path's decided values/s
    and latency, and the LM path's prefill and decode times;
 13. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
@@ -1449,7 +1454,7 @@ PREFILL_BF16_ATOL = 2e-2
 # the card against the CPU: float32 sums in other orders through the layers
 PREFILL_DECODE_ATOL = SMALL_ATOL = 1e-4
 
-K9_CHECKS = [  # (b, h, kvh, sq, sk, d, window, causal, dtype)
+K9_CHECKS = [  # (b, h, kvh, sq, sk, d, window, causal, dtype[, "views"])
     # tests/test_flash_kernel.py: the causal sweep, the windows, non-causal, bf16
     (1, 4, 2, 256, 256, 64, 0, True, torch.float32),
     (2, 4, 4, 128, 128, 128, 0, True, torch.float32),
@@ -1472,24 +1477,52 @@ K9_CHECKS = [  # (b, h, kvh, sq, sk, d, window, causal, dtype)
     # the float32 prefill-against-decode run's shapes, a global and a local layer
     (1, 32, 16, 1536, 1536, 128, 0, True, torch.float32),
     (1, 32, 16, 1536, 1536, 128, 1024, True, torch.float32),
+    # "views": (B, H, S, D) views of (B, S, H, D) tensors, as the models hand
+    # them over: the LM path's two layers, ragged lengths across a 128-row
+    # and a 128-key tile edge, a Whisper-shaped cross-attention, and S=8192 at
+    # window 1024, where the K/V ring wraps many times
+    (2, 32, 16, 2048, 2048, 128, 0, True, torch.bfloat16, "views"),
+    (2, 32, 16, 2048, 2048, 128, 1024, True, torch.bfloat16, "views"),
+    (1, 32, 16, 1536, 1536, 128, 1024, True, torch.float32, "views"),
+    (1, 4, 2, 200, 333, 128, 0, True, torch.bfloat16, "views"),
+    (1, 8, 8, 448, 1500, 64, 0, False, torch.bfloat16, "views"),
+    (1, 2, 1, 8192, 8192, 128, 1024, True, torch.bfloat16, "views"),
+    # head dims that fill no whole register tile (16, 32, 80) and D=256,
+    # whose 64-key tiles ring through many stages at S=1024
+    (2, 4, 2, 77, 200, 32, 0, False, torch.bfloat16),
+    (1, 2, 1, 200, 131, 16, 50, False, torch.bfloat16),
+    (1, 4, 2, 150, 150, 80, 0, True, torch.bfloat16),
+    (1, 2, 1, 100, 100, 256, 33, True, torch.bfloat16),
+    (1, 4, 2, 1024, 1024, 256, 512, True, torch.bfloat16),
+    (1, 4, 2, 1024, 1024, 256, 512, True, torch.float32),
 ]
 
 
-def k9_inputs(gen, b, h, kvh, sq, sk, d, dtype, dev):
+def k9_inputs(gen, b, h, kvh, sq, sk, d, dtype, dev, views: bool = False):
+    """q, k, v as (B, H, S, D): contiguous, or ``views`` of (B, S, H, D)
+    tensors as the models make them."""
     shapes = ((b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d))
-    return tuple(torch.randn(s, generator=gen, device=dev).to(dtype) for s in shapes)
+    if not views:
+        return tuple(torch.randn(s, generator=gen, device=dev).to(dtype) for s in shapes)
+    return tuple(torch.randn((s[0], s[2], s[1], s[3]), generator=gen, device=dev).to(dtype)
+                 .permute(0, 2, 1, 3) for s in shapes)  # fmt: skip
 
 
 def check_k9(dev) -> float:
-    """K9 against its plain version on the card at ``K9_CHECKS``; rows that
-    see no key must also be the mean of V over all Sk keys.  Returns the
-    largest error."""
+    """K9 against its plain version on the card at ``K9_CHECKS`` (the plain
+    version on contiguous copies of the views); rows that see no key must
+    also be the mean of V over all Sk keys, and the output of views must be
+    laid out as q is.  Returns the largest error."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 90)
     worst = 0.0
-    for b, h, kvh, sq, sk, d, window, causal, dtype in K9_CHECKS:
-        q, k, v = k9_inputs(gen, b, h, kvh, sq, sk, d, dtype, dev)
+    for b, h, kvh, sq, sk, d, window, causal, dtype, *layout in K9_CHECKS:
+        views = layout == ["views"]
+        q, k, v = k9_inputs(gen, b, h, kvh, sq, sk, d, dtype, dev, views)
         got = k_flash.flash_attention(q, k, v, window=window, causal=causal)
-        want = k_flash.flash_attention_plain(q, k, v, window=window, causal=causal)
+        if views and (got.stride() != q.stride() or q.is_contiguous()):
+            raise AssertionError(f"K9 on views: output strides {got.stride()}, q's {q.stride()}")
+        want = k_flash.flash_attention_plain(*(t.contiguous() for t in (q, k, v)), window=window,
+                                             causal=causal)  # fmt: skip
         err = (got.float() - want.float()).abs().max().item()
         atol = F32_ATOL if dtype == torch.float32 else BF16_ATOL
         blind = sk + window - 1  # the first row that sees no key, where there is one
@@ -1497,7 +1530,8 @@ def check_k9(dev) -> float:
             mean = v.float().mean(dim=2).repeat_interleave(h // kvh, dim=1)[:, :, None]
             err = max(err, (got[:, :, blind:].float() - mean).abs().max().item())
         print(f"  K9 B={b} H={h} KVH={kvh} Sq={sq} Sk={sk} D={d} window={window} "
-              f"causal={causal} {str(dtype)[6:]}: max_abs_err {err}")  # fmt: skip
+              f"causal={causal} {str(dtype)[6:]}{' views' if views else ''}: "
+              f"max_abs_err {err}")  # fmt: skip
         if not (bool(got.isfinite().all()) and err <= atol):
             raise AssertionError(f"K9 differs from its plain version by {err} > {atol}")
         worst = max(worst, err)
@@ -1579,6 +1613,34 @@ class PlainAttention:
         k_flash.flash_attention_plain, k_flash.flash_attention = self._plain, self._router
 
 
+class K9Layouts:
+    """Records, while entered, what each model attention call hands K9: the
+    layer's q, k, v (dense in the models' (B, S, ., D) layout, or copied by
+    ``.contiguous()``) and K9's (views of the layer's storage, or copies)."""
+
+    def __init__(self):
+        self.layer_dense, self.k9_views = [], []
+
+    def __enter__(self):
+        self._layer, self._k9 = lm_layers.flash_attention, k_flash.flash_attention
+
+        def layer(q, k, v, **kw):
+            self.layer_dense.append([t.is_contiguous() for t in (q, k, v)])
+            self._inputs = (q, k, v)
+            return self._layer(q, k, v, **kw)
+
+        def k9(q, k, v, **kw):
+            self.k9_views.append([not t.is_contiguous() and t.data_ptr() == src.data_ptr()
+                                  for t, src in zip((q, k, v), self._inputs)])  # fmt: skip
+            return self._k9(q, k, v, **kw)
+
+        lm_layers.flash_attention, k_flash.flash_attention = layer, k9
+        return self
+
+    def __exit__(self, *exc):
+        lm_layers.flash_attention, k_flash.flash_attention = self._layer, self._k9
+
+
 def run_lm_prefill(dev, params: dict, calls: int = 5) -> dict:
     """``make_prefill_step`` on B=2 prompts of S=2048 tokens, bf16: one
     warm-up call, then ``calls`` timed calls with the launch counts set to 0
@@ -1588,8 +1650,15 @@ def run_lm_prefill(dev, params: dict, calls: int = 5) -> dict:
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab, (b, s)))
     batch = {"tokens": tokens.to(dev)}
     step = make_prefill_step(cfg)
-    step(params, batch)
+    with K9Layouts() as layouts:  # the warm-up call
+        step(params, batch)
     sync(dev)
+    print(f"  layer inputs q, k, v dense in (B, S, ., D), so .contiguous() copies none: "
+          f"{layouts.layer_dense[0]} (every layer alike: "
+          f"{all(x == layouts.layer_dense[0] for x in layouts.layer_dense)}); K9 handed views "
+          f"of their storage, no copies: {all(map(all, layouts.k9_views))}")  # fmt: skip
+    if len(layouts.k9_views) != LM_LAYERS or not all(map(all, layouts.k9_views)):
+        raise AssertionError(f"the prefill copied q, k or v around K9: {layouts.k9_views}")
     reset_launches()
     call_s = []
     with PlainAttention() as plain:
@@ -1620,7 +1689,8 @@ def run_lm_prefill(dev, params: dict, calls: int = 5) -> dict:
         raise AssertionError(f"prefill on K9 differs from prefill on its plain version by {err}")
     p50, _ = percentiles(call_s)
     return dict(launches=launches, max_abs_err=err, argmax_equal=same, call_s=call_s,
-                prefill_ms_p50=p50, tokens_per_s=b * s / (p50 / 1e3))  # fmt: skip
+                prefill_ms_p50=p50, tokens_per_s=b * s / (p50 / 1e3),
+                layer_inputs_dense=layouts.layer_dense[0])  # fmt: skip
 
 
 def run_prefill_against_decode(dev, params: dict) -> dict:
@@ -2237,16 +2307,43 @@ def time_k1_shard(dev) -> dict:
     return out
 
 
+def k9_build_facts() -> dict:
+    """The bf16 kernel's registers, spills and stack (``-Xptxas -v``) at each
+    register tile DT, and the counts of HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions in ``cuobjdump --dump-sass`` of the built library."""
+    facts, dt = {}, None
+    for line in _build.build_log("flash_attention").splitlines():
+        if "Compiling entry function" in line:
+            dt = line.split("ILi")[1].split("E")[0] if "flash_wgmma_kernel" in line else None
+        elif dt and "spill stores" in line:
+            facts[f"DT{dt}"] = {"stack_bytes": int(line.split()[0]),
+                                "spill_store_bytes": int(line.split(",")[1].split()[0]),
+                                "spill_load_bytes": int(line.split(",")[2].split()[0])}  # fmt: skip
+        elif dt and "Used" in line and "registers" in line:
+            facts[f"DT{dt}"]["registers"] = int(line.split("Used")[1].split()[0])
+    sass = _build.sass("flash_attention")
+    facts["sass"] = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG", "STL")}
+    return facts
+
+
 def time_k9(dev) -> dict:
     """K9 at the LM path's shapes (B=2, H=32, KVH=16, S=2048, D=128, bf16),
     causal, at window 0 (a global layer) and 1024 (a local one): the kernel,
-    its plain version and ``scaled_dot_product_attention`` (GQA, causal or
-    the window's boolean mask), each in a CUDA graph.  The bound counts 4*D
+    on contiguous (B, H, S, D) tensors (the yardstick of earlier runs) and on
+    the views of (B, S, H, D) tensors that the path hands it, its plain
+    version and ``scaled_dot_product_attention`` (GQA, causal or the
+    window's boolean mask), each in a CUDA graph.  The bound counts 4*D
     operations for each unmasked pair of this run's mask at the bf16
-    tensor-core rate, and q, k, v read once and the output written once."""
+    tensor-core rate, and q, k, v read once and the output written once.
+    Fails unless the bf16 kernel was built from wgmma and TMA loads."""
+    facts = k9_build_facts()
+    print(f"  K9 build: {json.dumps(facts)}")
+    if not (facts["sass"]["HGMMA"] and facts["sass"]["UTMALDG"]):
+        raise AssertionError(f"K9's library has no wgmma or no TMA load: {facts['sass']}")
     b, h, kvh, s, d = K9_PATH
-    q, k, v = k9_inputs(torch.Generator(device=dev).manual_seed(SEED + 91), b, h, kvh, s, s, d,
-                        torch.bfloat16, dev)  # fmt: skip
+    gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+    q, k, v = k9_inputs(gen, b, h, kvh, s, s, d, torch.bfloat16, dev)
+    qv, kv_, vv = k9_inputs(gen, b, h, kvh, s, s, d, torch.bfloat16, dev, views=True)
     pos = torch.arange(s, device=dev)
     out = {}
     for window in (0, 1024):
@@ -2260,6 +2357,9 @@ def time_k9(dev) -> dict:
         def kernel(i, window=window):
             k_flash.flash_attention(q, k, v, window=window)
 
+        def on_views(i, window=window):
+            k_flash.flash_attention(qv, kv_, vv, window=window)
+
         def plain(i, window=window):
             k_flash.flash_attention_plain(q, k, v, window=window)
 
@@ -2269,14 +2369,39 @@ def time_k9(dev) -> dict:
             return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
         lib_err = (library(0).float() - k_flash.flash_attention(q, k, v, window=window).float())
+        ms = time_walk(kernel, 20, True)
         out[window] = dict(
-            ms=time_walk(kernel, 20, True),
+            ms=ms,
+            tflop_per_s=4 * d * pairs / (ms * 1e-3) / 1e12,
+            views_ms=time_walk(on_views, 20, True),
             plain_ms=time_walk(plain, 3, True),
             library_ms=time_walk(library, 20, True),
             bound_ms=bms, bound_by=by, operations=4 * d * pairs, bytes=nbytes, window=window,
             library_max_abs_diff=lib_err.abs().max().item(),
         )  # fmt: skip
-    return dict(out[0], window_1024=out[1024])
+    return dict(out[0], window_1024=out[1024], build=facts, other_shapes=time_k9_shapes(dev))
+
+
+def time_k9_shapes(dev) -> dict:
+    """K9 (bf16, on views) beside ``scaled_dot_product_attention`` at shapes
+    off the path, in a CUDA graph: non-causal at the path's width with 128
+    keys (one k tile an item: the fixed cost of an item) and with 2048 (16
+    tiles an item), and head dim 256 (B=1, H=16, KVH=8, S=4096, causal)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 92)
+    b, h, kvh, s, d = K9_PATH
+    out = {}
+    for name, (shape, causal) in {
+        "noncausal_sk128": ((b, h, kvh, s, 128, d), False),
+        "noncausal_sk2048": ((b, h, kvh, s, s, d), False),
+        "d256_causal_s4096": ((1, 16, 8, 4096, 4096, 256), True),
+    }.items():
+        q, k, v = k9_inputs(gen, *shape, torch.bfloat16, dev, views=True)
+        out[name] = dict(
+            ms=time_walk(lambda i: k_flash.flash_attention(q, k, v, causal=causal), 20, True),
+            library_ms=time_walk(lambda i: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), 20, True),
+        )  # fmt: skip
+    return out
 
 
 def percentiles(round_s: list[float]) -> tuple[float, float]:

@@ -101,6 +101,13 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def sass(name: str) -> str:
+    """``cuobjdump --dump-sass`` of the built library of ``csrc/<name>.cu``."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "--dump-sass", str(_target(name))], check=True,
+                          capture_output=True, text=True).stdout  # fmt: skip
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _libs.get(name)

@@ -7,7 +7,7 @@ the TPU kernel ``repro.kernels.flash_attention.flash_attention`` (body
 ``_flash_kernel``); the plain version is a twin of its oracle
 ``repro.kernels.ref.flash_attention``.
 
-Layout (the reference's): q ``(B, H, Sq, D)``, k and v ``(B, KVH, Sk, D)``,
+Shapes (the reference's): q ``(B, H, Sq, D)``, k and v ``(B, KVH, Sk, D)``,
 ``H = KVH * G``; head ``bh`` of the flattened ``B*H`` reads kv head
 ``(bh % H) // G + (bh // H) * KVH``.  Scores are ``q . k`` in float32 times
 the scale (``D ** -0.5`` by default); the query at row ``i`` sees the key
@@ -15,6 +15,12 @@ at column ``j`` where ``j <= i`` (causal) and ``j > i - window``
 (``window > 0``); the other scores are ``-1e30``, so a row that sees no key
 averages V over all ``Sk`` keys.  P is cast to V's dtype before the PV
 product, which sums in float32; the output is cast to q's dtype.
+
+Layout: the kernel reads q, k and v through their strides and writes an
+output laid out as q is (``torch.empty_like``), so a ``(B, H, S, D)``
+view permuted from the models' ``(B, S, H, D)`` tensors needs no copy.
+``layout_problem`` says what it takes: the last dim contiguous, every other
+stride a multiple of 8 elements, the start 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -35,15 +41,53 @@ launches = 0
 _fn = None
 
 
+_STRIDE_UNIT = 8  # elements: 16-byte rows in bf16, as TMA needs
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = _build.library("flash_attention").flash_attention
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, i, i, i, i, i, i, i, i, f, p, p, p, p, p]
+        fn.argtypes = [i, i, i, i, i, i, i, i, i, f, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def layout_problem(shape, strides, address: int) -> str | None:
+    """Why the kernel cannot read a tensor of this shape, these strides (in
+    elements) and this start address in place, or None if it can.  Dims of
+    size 1 take any stride."""
+    if shape[-1] > 1 and strides[-1] != 1:
+        return f"must be contiguous in its last dim, got strides {tuple(strides)}"
+    for n, st in zip(shape[:-1], strides[:-1]):
+        if n > 1 and (st <= 0 or st % _STRIDE_UNIT):
+            return (
+                f"must be read as contiguous rows of 16 bytes: every stride but the last a "
+                f"positive multiple of {_STRIDE_UNIT} elements, got strides {tuple(strides)}"
+            )
+    if address % 16:
+        return "must start on a 16-byte boundary"
+    return None
+
+
+def _plane_strides(t: torch.Tensor) -> list[int]:
+    """``t``'s strides of dims (b, head, s); a dim of size 1 gets the stride
+    a contiguous tensor would have there, which TMA takes."""
+    dense = [t.shape[1] * t.shape[2] * t.shape[3], t.shape[2] * t.shape[3], t.shape[3]]
+    return [st if n > 1 else dn for n, st, dn in zip(t.shape[:3], t.stride()[:3], dense)]
+
+
+def _require(what: str, name: str, t: torch.Tensor, dtype, shape: tuple, dev) -> None:
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
+        raise ValueError(
+            f"{what}: {name} must be a {dtype} tensor of shape {shape} on {dev}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+    why = layout_problem(tuple(t.shape), t.stride(), t.data_ptr())
+    if why is not None:
+        raise ValueError(f"{what}: {name} {why}")
 
 
 def _shapes(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -76,8 +120,9 @@ def flash_attention_kernel(
     softmax_scale: float | None = None,
 ) -> torch.Tensor:
     """K9 on the card: the attention output ``(B, H, Sq, D)`` in q's dtype,
-    a new tensor.  Takes float32 or bfloat16 (all three alike), contiguous,
-    ``Sq, Sk >= 1`` and ``D`` a multiple of 16 up to 256."""
+    a new tensor laid out as q is.  Takes float32 or bfloat16 (all three
+    alike) in any layout that ``layout_problem`` passes, ``Sq, Sk >= 1``
+    and ``D`` a multiple of 16 up to 256."""
     global launches
     what = "flash_attention"
     dev = q.device
@@ -90,19 +135,19 @@ def flash_attention_kernel(
     if d % 16 or not 16 <= d <= _MAX_HEAD_DIM:
         raise ValueError(f"{what} takes a head dim that is a multiple of 16 up to 256, got {d}")
     _window(what, window)
-    _build.require(what, "q", q, q.dtype, (b, h, sq, d), dev)
-    _build.require(what, "k", k, q.dtype, (b, kvh, sk, d), dev)
-    _build.require(what, "v", v, q.dtype, (b, kvh, sk, d), dev)
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{what}: q, k and v must start on a 16-byte boundary")
+    _require(what, "q", q, q.dtype, (b, h, sq, d), dev)
+    _require(what, "k", k, q.dtype, (b, kvh, sk, d), dev)
+    _require(what, "v", v, q.dtype, (b, kvh, sk, d), dev)
     scale = softmax_scale if softmax_scale is not None else d**-0.5
-    out = torch.empty_like(q)
+    out = torch.empty_like(q)  # q's layout where q is dense, else contiguous: both pass
+    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in _plane_strides(t)))
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             _DTYPES[q.dtype], b, h, kvh, sq, sk, d, int(window), int(bool(causal)),
-            float(scale), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), stream,
+            float(scale), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            ctypes.addressof(strides), stream,
         )  # fmt: skip
     _build.check(rc, f"{what} launch")
     launches += 1

@@ -142,11 +142,13 @@ def flash_attention(
 ) -> torch.Tensor:
     """Online-softmax attention that never materializes (Sq, Sk).
 
-    On a CUDA tensor: K9, in its ``(B, H, S, D)`` layout, for the models'
-    call (``q_offset == 0``, no ``k_positions``, as every model of the
-    reference makes it); other offsets or key positions raise
-    ``NotImplementedError`` there.  On a CPU tensor: the reference's
-    chunked online softmax, padding and key-validity mask included.
+    On a CUDA tensor: K9 for the models' call (``q_offset == 0``, no
+    ``k_positions``, as every model of the reference makes it), handed
+    ``(B, H, S, D)`` views of the ``(B, S, H, D)`` tensors, no copies; its
+    output, laid out as q is, reshapes back for free.  Other offsets or key
+    positions raise ``NotImplementedError`` there.  On a CPU tensor: the
+    reference's chunked online softmax, padding and key-validity mask
+    included.
     """
     b, sq, kvh, g, d = q.shape
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
@@ -156,12 +158,14 @@ def flash_attention(
                 "flash_attention on the card takes q_offset 0 and no k_positions, the models' "
                 "call: K9 masks by row and column index (ROADMAP.md queue 1, item 8)"
             )
-        qh = q.reshape(b, sq, kvh * g, d).permute(0, 2, 1, 3).contiguous()
-        kh = k.permute(0, 2, 1, 3).contiguous()
-        vh = v.permute(0, 2, 1, 3).contiguous()
+        # .contiguous() copies only a tensor that is not dense in its own
+        # (B, S, ., D) layout; the permutes are views
+        qh = q.contiguous().reshape(b, sq, kvh * g, d).permute(0, 2, 1, 3)
+        kh = k.contiguous().permute(0, 2, 1, 3)
+        vh = v.contiguous().permute(0, 2, 1, 3)
         out = _k9.flash_attention(
             qh, kh, vh, window=int(window), causal=causal, softmax_scale=scale
-        )  # (B, H, Sq, D)
+        )  # (B, H, Sq, D), dense as (B, Sq, H, D)
         return out.permute(0, 2, 1, 3).reshape(b, sq, kvh, g, d)
     return _chunked_attention(q, k, v, causal, int(window), int(q_offset), k_positions,
                               chunk_q, chunk_k, scale)  # fmt: skip

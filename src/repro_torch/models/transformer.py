@@ -20,6 +20,7 @@ from typing import Any
 
 import torch
 
+from ..core.api import resolve_device
 from . import layers as L
 from .layers import PSpec
 
@@ -152,7 +153,9 @@ def cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16) -> dict[str
 def init_cache(
     cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None
 ) -> dict[str, torch.Tensor]:
-    """An empty cache on ``device``: zero keys and values, positions -1."""
+    """An empty cache on ``device`` (``None``: the card, as for
+    ``ServeLoop``): zero keys and values, positions -1."""
+    device = resolve_device(device)
     specs_ = cache_specs(cfg, batch, max_len, dtype)
     return {
         name: torch.full(s.shape, -1, dtype=s.dtype, device=device)

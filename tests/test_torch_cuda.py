@@ -839,7 +839,10 @@ def full_f32(cuda):
 
 # (b, h, kvh, sq, sk, d, window, causal): the cases of tests/test_flash_kernel.py,
 # the fully masked rows (causal, window 64, Sq 256 > Sk 128), ragged lengths and
-# head dims that fill no whole register tile
+# head dims that fill no whole register tile; then ragged lengths across a
+# 128-row and a 128-key tile edge, a Whisper-shaped cross-attention, D=256 (64-key
+# tiles) ringing through many stages, and S=8192 at window 1024, where the K/V
+# ring wraps many times within an item and across items
 K9_CASES = [
     (1, 4, 2, 256, 256, 64, 0, True),
     (2, 4, 4, 128, 128, 128, 0, True),
@@ -856,6 +859,10 @@ K9_CASES = [
     (1, 2, 1, 200, 131, 16, 50, False),
     (1, 4, 2, 150, 150, 80, 0, True),
     (1, 2, 1, 100, 100, 256, 33, True),
+    (1, 4, 2, 200, 333, 128, 0, True),
+    (1, 8, 8, 448, 1500, 64, 0, False),
+    (1, 4, 2, 1024, 1024, 256, 512, True),
+    (1, 2, 1, 8192, 8192, 128, 1024, True),
 ]
 
 
@@ -873,6 +880,35 @@ def test_attention_kernel_matches_plain(full_f32, dtype, atol, b, h, kvh, sq, sk
     assert k_flash.launches == before + 1
     want = k_flash.flash_attention_plain(q, k, v, window=window, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("sq,sk,window,causal", [(384, 384, 0, True), (384, 384, 100, True),
+                                                  (200, 333, 0, False)])  # fmt: skip
+def test_attention_kernel_reads_model_layout_views(full_f32, dtype, atol, sq, sk, window, causal):
+    """q, k, v made as the models make them, (B, S, H, D), and handed over as
+    (B, H, S, D) views: K9 reads them in place and writes an output laid out
+    as q is, equal to the plain version on contiguous copies."""
+    from repro_torch.kernels import flash_attention as k_flash
+
+    rng = np.random.default_rng(9)
+    b, h, kvh, d = 2, 8, 4, 128
+
+    def t(shape):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return x.to(dtype).to(full_f32)
+
+    q, k, v = (x.permute(0, 2, 1, 3) for x in (t((b, sq, h, d)), t((b, sk, kvh, d)),
+                                                  t((b, sk, kvh, d))))  # fmt: skip
+    assert not any(x.is_contiguous() for x in (q, k, v))
+    before = k_flash.launches
+    got = k_flash.flash_attention(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert k_flash.launches == before + 1
+    assert got.stride() == q.stride() and got.permute(0, 2, 1, 3).is_contiguous()
+    want = k_flash.flash_attention_plain(*(x.contiguous() for x in (q, k, v)), window=window,
+                                         causal=causal)  # fmt: skip
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=atol)
 
 
@@ -922,6 +958,41 @@ def test_attention_kernel_refuses_a_negative_window(cuda):
         with pytest.raises(ValueError, match="window >= 0"):
             call(q, k, k.clone(), window=-64)
     assert k_flash.launches == before
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_model_attention_hands_k9_views_not_copies(full_f32, dtype, atol):
+    """``layers.flash_attention``'s card route passes K9 (B, H, S, D) views of
+    the models' (B, S, ., D) tensors, their own storage, and launches once;
+    the output comes back as the models' layout without a copy."""
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(6)
+    b, s, kvh, g, d = 2, 300, 2, 2, 64
+    q = torch.from_numpy(rng.standard_normal((b, s, kvh, g, d)).astype(np.float32)).to(dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, kvh, d)).astype(np.float32)).to(dtype)
+            for _ in range(2))  # fmt: skip
+    want = layers.flash_attention(q.float(), k.float(), v.float(), window=40)
+    card = [x.to(full_f32) for x in (q, k, v)]
+    seen = []
+    router = k_flash.flash_attention
+
+    def spy(*args, **kw):
+        seen.append(args)
+        return router(*args, **kw)
+
+    before = k_flash.launches
+    k_flash.flash_attention = spy
+    try:
+        got = layers.flash_attention(*card, window=40)
+    finally:
+        k_flash.flash_attention = router
+    assert k_flash.launches == before + 1 and len(seen) == 1
+    for arg, src in zip(seen[0], card):
+        assert not arg.is_contiguous() and arg.data_ptr() == src.data_ptr()
+    assert got.is_contiguous() and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(), atol=atol)
 
 
 def test_model_attention_runs_k9_on_the_card(full_f32):

@@ -2,7 +2,9 @@
 
 ``flash_attention_plain`` (``repro_torch.kernels.flash_attention``) against
 the reference's Pallas K9 run in interpret mode, at every case of
-``tests/test_flash_kernel.py`` and the fully masked rows; the port's
+``tests/test_flash_kernel.py`` and the fully masked rows, and on permuted
+views of the models' (B, S, H, D) layout; the kernel wrapper's layout
+check; the port's
 ``models.layers.flash_attention`` (its CPU path, the chunked online softmax)
 against the reference's at ragged lengths, windows, a non-zero ``q_offset``
 and explicit ``k_positions``.  Inputs come from numpy with a fixed seed.
@@ -75,6 +77,90 @@ def test_plain_matches_reference_k9(b, h, kvh, sq, sk, d, window, causal, dtype)
     np.testing.assert_allclose(
         got.float().numpy(), np.asarray(want, np.float32), atol=atol
     )
+
+
+# (b, h, kvh, sq, sk, d, window, causal, dtype): the LM path's call in
+# miniature (GQA, a global and a local layer), non-causal cross-attention
+# and ragged lengths across a 128-row and a 128-key tile edge, which the
+# reference's Pallas K9 does not take (its blocks must divide the lengths):
+# there its oracle ``ref.flash_attention`` stands in
+VIEW_CASES = [
+    (2, 4, 2, 256, 256, 64, 0, True, "f32"),
+    (2, 4, 2, 256, 256, 64, 96, True, "f32"),
+    (1, 4, 4, 96, 384, 32, 0, False, "f32"),
+    (1, 4, 2, 200, 333, 64, 0, True, "f32"),
+    (2, 4, 2, 256, 256, 64, 96, True, "bf16"),
+]
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,window,causal,dtype", VIEW_CASES)
+def test_plain_on_model_layout_views_matches_reference_k9(b, h, kvh, sq, sk, d, window, causal,
+                                                          dtype):  # fmt: skip
+    """q, k, v made in the models' (B, S, H, D) layout and handed over as
+    permuted (B, H, S, D) views, as ``layers.flash_attention`` hands them to
+    the kernel on the card, against the reference's K9 on the same values in
+    its own layout."""
+    rng = np.random.default_rng(17)
+    qm, km, vm = (rng.standard_normal(shape).astype(np.float32)
+                  for shape in ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d)))  # fmt: skip
+    (jq, jk, jv), _ = _both(*(np.ascontiguousarray(x.transpose(0, 2, 1, 3)) for x in (qm, km, vm)),
+                           dtype)  # fmt: skip
+    if sq % min(sq, 128) or sk % min(sk, 128):
+        want = jref.flash_attention(jq, jk, jv, window=window, causal=causal)
+    else:
+        want = jax_k9(jq, jk, jv, window=window, causal=causal, interpret=True)
+    _, (tq, tk, tv) = _both(qm, km, vm, dtype)
+    views = [t.permute(0, 2, 1, 3) for t in (tq, tk, tv)]
+    assert not any(t.is_contiguous() for t in views)
+    got = k_flash.flash_attention(*views, window=window, causal=causal)  # CPU: plain
+    assert got.dtype == tq.dtype and tuple(got.shape) == (b, h, sq, d)
+    atol = F32_ATOL if dtype == "f32" else BF16_ATOL
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=atol)
+
+
+def _layout_case(kind):
+    """A (B, H, S, D) tensor of one layout kind, and the refusal expected."""
+    if kind == "contiguous":
+        return torch.zeros(2, 4, 64, 32), None
+    if kind == "model view":  # (B, S, H, D) seen as (B, H, S, D)
+        return torch.zeros(2, 64, 4, 32).permute(0, 2, 1, 3), None
+    if kind == "padded rows":  # rows of 40 elements, 32 used: 80-byte strides in bf16
+        return torch.zeros(2, 4, 64, 40, dtype=torch.bfloat16)[..., :32], None
+    if kind == "size-1 dims":  # any stride where there is one index
+        return torch.zeros(1, 64, 4, 32).permute(0, 2, 1, 3)[:, :1], None
+    if kind == "strided last dim":
+        return torch.zeros(2, 4, 64, 64)[..., ::2], "contiguous in its last dim"
+    if kind == "odd row stride":  # rows of 36 elements: not a multiple of 8
+        return torch.zeros(2, 4, 64, 36)[..., :32], "multiple of 8"
+    if kind == "expanded head":
+        return torch.zeros(2, 1, 64, 32).expand(2, 4, 64, 32), "multiple of 8"
+    if kind == "misaligned start":  # 4 bf16 = 8 bytes in
+        return torch.zeros(2 * 4 * 64 * 32 + 4, dtype=torch.bfloat16)[4:].view(2, 4, 64, 32), (
+            "16-byte boundary"
+        )
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize(
+    "kind",
+    ["contiguous", "model view", "padded rows", "size-1 dims", "strided last dim",
+     "odd row stride", "expanded head", "misaligned start"],
+)  # fmt: skip
+def test_layout_check_takes_model_views_and_refuses_the_rest(kind):
+    """``layout_problem``, the kernel wrapper's check before any launch: the
+    last dim contiguous, every other stride (of a dim longer than 1) a
+    positive multiple of 8 elements, the start 16-byte aligned.  Every
+    refusal says "contiguous", as the card test of refusals expects."""
+    t, why = _layout_case(kind)
+    got = k_flash.layout_problem(tuple(t.shape), t.stride(), t.data_ptr())
+    if why is None:
+        assert got is None
+        dense = [t.shape[1] * t.shape[2] * t.shape[3], t.shape[2] * t.shape[3], t.shape[3]]
+        assert k_flash._plane_strides(t) == [
+            st if n > 1 else dn for n, st, dn in zip(t.shape[:3], t.stride()[:3], dense)
+        ]
+    else:
+        assert why in got and ("contiguous" in got or why == "16-byte boundary")
 
 
 def test_plain_averages_v_where_a_row_sees_no_key():

@@ -174,6 +174,23 @@ def test_moe_blocks_and_the_ring_cache_raise():
         transformer.decode_step(ring, params, torch.zeros(1, 1, dtype=torch.int64), {}, 0)
 
 
+def test_init_cache_means_the_card_by_default():
+    """``init_cache`` with no device means the card, as ``ServeLoop`` and
+    ``PaxosContext`` do: without one it raises, naming ``device='cpu'``.
+    Asked for the CPU, it is the reference's empty cache."""
+    cfg = get_config("qwen3-4b").reduced()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            transformer.init_cache(cfg, 1, 8)
+    jcfg = jax_config("qwen3-4b").reduced()
+    want = jreg.family_module(jcfg).init_cache(jcfg, 1, 8, jnp.float32)
+    got = transformer.init_cache(cfg, 1, 8, torch.float32, CPU)
+    assert set(got) == set(want)
+    for key, t in got.items():
+        assert t.device == CPU and t.dtype == (torch.int32 if key == "kpos" else torch.float32)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(want[key]))
+
+
 def test_inputs_match_the_reference_specs():
     from repro_torch.configs import SHAPES
 
