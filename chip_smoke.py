@@ -11,9 +11,12 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
 3. the kernel phase: each kernel against its plain PyTorch version on the
    card, at its path's shapes and at adversarial windows, bit for bit; the
    round kernel K1 at one group and in its cohort and multi-group forms, and
-   its persistent form K5, also against K sequential K1 launches, and the
-   packed shard round K6 and K1's shard slice, K6 also against K1's shard
-   slice on one cohort;
+   its persistent form K5, also against K sequential K1 launches (K5's
+   one-thread lane body against K1's team body), and the packed shard round
+   K6 and K1's shard slice, K6 also against K1's shard slice on one cohort;
+   K1 and K6 in both variants of their team body (vector at V = 16 on
+   16-byte aligned tensors, scalar at V = 5 and on views 4 bytes off 16),
+   each case printing the variant it took;
 4. the main path: ``PaxosContext(PaxosConfig(), fused=True, use_kernels=True,
    snapshots=True)`` on the card under a seeded lossy ``SimNet``, with ring
    wrap under reclamation, snapshots, an acceptor kill and revive, a crash
@@ -71,7 +74,12 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    prompt tokens and 16 new ones at batch 4, twice alike, and two of them
    alone as in the batch;
 12. times: each kernel by CUDA events at its path's shapes beside its bound
-   and its plain version (K9 also beside PyTorch's
+   and its plain version (K1 and K6 also beside the launch floor of their
+   grid, an empty kernel, their times at 64, 128 and 256 threads a block
+   and the one-thread-a-lane body on the same windows, with the
+   registers, spills and 128-bit load and store counts of
+   ``csrc/wirepath.cu``'s kernels, which must show no spill in K1's and
+   K6's and 128-bit stores in their vector variants; K9 also beside PyTorch's
    ``scaled_dot_product_attention``, with its registers and spills and its
    library's HGMMA and UTMALDG counts, which must not be 0), each consensus
    path's decided values/s
@@ -79,16 +87,20 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
 13. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Each path runs with every kernel's launch count set to 0 just before it and
-read just after; a kernel of the path that never launched fails the run.
+read just after; a kernel of the path that never launched fails the run, and
+so does a K1 or K6 launch of a path that did not take the vector variant.
 
 Any failure raises, so the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -204,6 +216,48 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+def off16(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary: K1 and K6 must take their scalar variant on it."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    if y.data_ptr() % 16 != 4:
+        raise AssertionError("off16: the view is not 4 bytes off 16")
+    return y
+
+
+def variants() -> tuple[int, int]:
+    return k_wirepath.vector_launches, k_wirepath.scalar_launches
+
+
+def variant_since(before: tuple[int, int]) -> str:
+    """Which of K1's and K6's variants the launches since ``before`` took."""
+    vec, sca = (now - was for now, was in zip(variants(), before, strict=True))
+    return "/".join(name for name, n in (("vector", vec), ("scalar", sca)) if n) or "none"
+
+
+@contextlib.contextmanager
+def lane_threads(threads: int):
+    """K1's and K6's threads per block (``k_wirepath.LANE_THREADS``) while
+    entered."""
+    was, k_wirepath.LANE_THREADS = k_wirepath.LANE_THREADS, threads
+    try:
+        yield
+    finally:
+        k_wirepath.LANE_THREADS = was
+
+
+def held(stack, lstate, off: str | None):
+    """The slabs with the value slab ``off`` names (``st_val`` or ``lval``)
+    moved 4 bytes off 16, the same values."""
+    if off == "st_val":
+        stack = AcceptorState(stack.rnd, stack.vrnd, off16(stack.value))
+    if off == "lval":
+        lstate = batched.LearnerState(lstate.delivered, lstate.inst, off16(lstate.value))
+    return stack, lstate
+
+
 def check_k1(dev, n: int = 1 << 16, v: int = 16) -> int:
     """K1 against ``batched.fused_round`` at the paper's deployment widths
     and adversarial windows.  Returns the largest difference (must be 0)."""
@@ -220,24 +274,36 @@ def check_k1(dev, n: int = 1 << 16, v: int = 16) -> int:
     cases += [
         dict(a=5, b=128, base=n - 60, crnd=9, alive=[1, 0, 1, 1, 0], limit=n + 20),
         dict(a=5, b=128, base=5 * n + 13, crnd=3, alive=[1, 1, 0, 1, 1], limit=None),
+        # the scalar variant: V = 5, and V = 16 on value tensors 4 bytes off 16
+        dict(a=3, b=128, base=n - 20, crnd=5, alive=[1, 1, 1], limit=None, v=5),
+        dict(a=8, b=128, base=1003, crnd=4, alive=[1, 0, 1, 1, 1, 0, 1, 1], limit=1100, v=5),
+        dict(a=3, b=128, base=n - 20, crnd=5, alive=[1, 0, 1], limit=None, off="values"),
+        dict(a=5, b=128, base=777, crnd=6, alive=[1, 1, 1, 0, 1], limit=800, off="st_val"),
+        dict(a=3, b=8, base=2 * n - 3, crnd=7, alive=[1, 1, 1], limit=None, off="lval"),
     ]
     rng = np.random.default_rng(SEED)
     worst = 0
     for case in cases:
+        vc, off = case.get("v", v), case.get("off")
         state, values, active, alive, limit = round_inputs(
-            rng, case["a"], n, v, case["b"], case["base"], case["crnd"], case["alive"],
+            rng, case["a"], n, vc, case["b"], case["base"], case["crnd"], case["alive"],
             case["limit"], dev,
         )  # fmt: skip
         twin = clone_state(state)
+        state["stack"], state["lstate"] = held(state["stack"], state["lstate"], off)
         ptrs = [t.data_ptr() for t in (*vars(state["stack"]).values(), *vars(state["lstate"]).values())]
-        got = ops.fused_round(**state, values=values, active=active, alive=alive, quorum=case["a"] // 2 + 1, reclaim_limit=limit)  # fmt: skip
+        before = variants()
+        got = ops.fused_round(**state, values=off16(values) if off == "values" else values, active=active, alive=alive, quorum=case["a"] // 2 + 1, reclaim_limit=limit)  # fmt: skip
         want = batched.fused_round(**twin, values=values, active=active, alive=alive, quorum=case["a"] // 2 + 1, reclaim_limit=limit)  # fmt: skip
         torch.cuda.synchronize()
+        variant = variant_since(before)
         st, ls = got[1], got[2]
         if [t.data_ptr() for t in (*vars(st).values(), *vars(ls).values())] != ptrs:
             raise AssertionError("K1 did not update the state in place")
         err = max_abs_err(round_outputs(got), round_outputs(want))
-        print(f"  K1 {case}: max_abs_err={err}")
+        print(f"  K1 {case}: variant={variant} max_abs_err={err}")
+        if variant != ("vector" if vc % 4 == 0 and off is None else "scalar"):
+            raise AssertionError(f"K1 took the {variant} variant at {case}")
         if err:
             raise AssertionError(f"K1 disagrees with its plain version: {case}")
         worst = max(worst, err)
@@ -477,7 +543,9 @@ def cohort_cases(n: int, b: int):
 def check_k1_cohort(dev, n: int = 1 << 16, v: int = 16) -> int:
     """K1 in cohort form (``ops.cohort_fused_round``) against its plain
     version (``batched.cohort_fused_round``) at A=3, N=65,536, V=16, G=8,
-    B in {16, 128}, over ``cohort_cases``, with dead acceptors (one group
+    B in {16, 128}, over ``cohort_cases`` (and every third of them at V=5
+    and with the burst or the learner's values 4 bytes off 16: the scalar
+    variant), with dead acceptors (one group
     below quorum), a frozen group (NO_ROUND), a reclaim limit inside a
     window and one that wrapped past int32 max (negative: it refuses every
     lane but those whose instance wrapped too), the state updated in place;
@@ -489,8 +557,13 @@ def check_k1_cohort(dev, n: int = 1 << 16, v: int = 16) -> int:
     alive[2, 1] = False  # one dead acceptor: still a quorum
     alive[5, [0, 2]] = False  # two dead: below quorum, nothing decides
     worst = 0
-    for b in (16, 128):
-        for case in cohort_cases(n, b) + [dict(gb=8, sel="full width", gsel=None, bases=None)]:
+    # (B, V, the value tensor held 4 bytes off 16): the paths' vector variant,
+    # then the scalar one at V = 5 and on misaligned views, on every third case
+    for b, vc, off in ((16, v, None), (128, v, None), (128, 5, None), (128, v, "values"),
+                       (128, v, "lval")):  # fmt: skip
+        full_width = [dict(gb=8, sel="full width", gsel=None, bases=None)]
+        cases = cohort_cases(n, b)
+        for case in (cases if vc == v and off is None else cases[::3]) + full_width:
             full = case["gsel"] is None
             bases = case["bases"] or [4096 + 128 * (gi % 2) for gi in range(g)]
             enabled = case.get("enabled") or [1, 1, 0, 1, 1, 1, 1, 1]
@@ -500,28 +573,32 @@ def check_k1_cohort(dev, n: int = 1 << 16, v: int = 16) -> int:
             marks[3] = 2**31 - 100  # its limit wraps to a negative number
             limit = np.asarray(marks, np.int32) + n  # the reference's expression
             limit[1] = np.int32(bases[1] + b // 2)  # refuses the upper half
-            stack, lstate = mg_state(rng, g, a, n, v, b, bases, crnds, dev)
+            stack, lstate = mg_state(rng, g, a, n, vc, b, bases, crnds, dev)
             twin = clone_slabs(stack, lstate)
+            stack, lstate = held(stack, lstate, off)
             ptrs = [x.data_ptr() for x in (*vars(stack).values(), *vars(lstate).values())]
 
             def t(x, dt=torch.int32):
                 return torch.from_numpy(np.asarray(x)).to(dev, dt)
 
             ni, cr, al, en = t(bases), t(crnds), t(alive, torch.bool), t(enabled)
+            before = variants()
             if full:
-                values = t(rng.integers(-(2**31), 2**31, (g, b, v), dtype=np.int32))
+                values = t(rng.integers(-(2**31), 2**31, (g, b, vc), dtype=np.int32))
                 cstate = CoordinatorState(ni, cr)
                 act = torch.ones((g, b), dtype=torch.bool, device=dev)
-                got = ops.multigroup_fused_round(cstate, stack, lstate, values, act, al, q, en,
-                                                 limit, group_block=8)  # fmt: skip
+                got = ops.multigroup_fused_round(cstate, stack, lstate,
+                                                 off16(values) if off == "values" else values,
+                                                 act, al, q, en, limit, group_block=8)  # fmt: skip
                 want = batched.multigroup_fused_round(cstate, *twin, values, act, al, q, en, limit)
                 outs = [got[0].next_inst, got[0].crnd, *got[3:]]
                 ref = [want[0].next_inst, want[0].crnd, *want[3:]]
             else:
                 gb, gsel = case["gb"], case["gsel"]
-                values = t(rng.integers(-(2**31), 2**31, (len(gsel) * gb, b, v), dtype=np.int32))
-                got = ops.cohort_fused_round(stack, lstate, gsel, ni, cr, al, q, values, en, limit,
-                                             group_block=gb)  # fmt: skip
+                values = t(rng.integers(-(2**31), 2**31, (len(gsel) * gb, b, vc), dtype=np.int32))
+                got = ops.cohort_fused_round(stack, lstate, gsel, ni, cr, al, q,
+                                             off16(values) if off == "values" else values, en,
+                                             limit, group_block=gb)  # fmt: skip
                 want = batched.cohort_fused_round(*twin, gsel, ni, cr, al, q, values, en, limit,
                                                   group_block=gb)  # fmt: skip
                 outs, ref = list(got[2:]), list(want[2:])
@@ -533,6 +610,7 @@ def check_k1_cohort(dev, n: int = 1 << 16, v: int = 16) -> int:
                     if inert and (bool(got[4][r].any()) or bool((got[3][r] != -1).any())):
                         raise AssertionError(f"inert group {gi}: win not NO_ROUND or value not 0")
             sync(dev)
+            variant = variant_since(before)
             now = [x.data_ptr() for x in (*vars(stack).values(), *vars(lstate).values())]
             if now != ptrs:
                 raise AssertionError("K1 (cohort form) did not update the state in place")
@@ -540,10 +618,13 @@ def check_k1_cohort(dev, n: int = 1 << 16, v: int = 16) -> int:
             plain = [*vars(twin[0]).values(), *vars(twin[1]).values()]
             err = max_abs_err([*state, *(x.to(torch.int32) for x in outs)],
                               [*plain, *(x.to(torch.int32) for x in ref)])  # fmt: skip
-            print(f"  K1-cohort b={b} gb={case['gb']} {case['sel']} gsel={case['gsel']} "
-                  f"enabled={enabled}: max_abs_err={err}")  # fmt: skip
+            print(f"  K1-cohort b={b} v={vc} off16={off} gb={case['gb']} {case['sel']} "
+                  f"gsel={case['gsel']} enabled={enabled}: variant={variant} "
+                  f"max_abs_err={err}")  # fmt: skip
             if err:
                 raise AssertionError(f"K1 (cohort form) disagrees with its plain version: {case}")
+            if variant != ("vector" if vc % 4 == 0 and off is None else "scalar"):
+                raise AssertionError(f"K1 (cohort form) took the {variant} variant at {case}")
             worst = max(worst, err)
     return worst
 
@@ -568,8 +649,9 @@ def check_k5(dev, n: int = 1 << 16, v: int = 16) -> int:
     frozen from round 2 on (``wen`` 0); dead acceptors (one group below
     quorum) and a frozen round (NO_ROUND); a limit inside the wave and one
     that wrapped past int32 max; ``block_b`` 128 and 32; the state updated
-    in place.  Then one wave against K sequential K1-cohort launches over
-    the same descriptor.  Returns the largest difference."""
+    in place; one wave at V=5.  Then one wave against K sequential
+    K1-cohort launches over the same descriptor: K5's one-thread body
+    against K1's team body.  Returns the largest difference."""
     rng = np.random.default_rng(SEED + 16)
     g, a, q = 8, 3, 2
     alive = np.ones((g, a), bool)
@@ -583,9 +665,11 @@ def check_k5(dev, n: int = 1 << 16, v: int = 16) -> int:
              for i, case in enumerate(cohort_cases(n, b))]  # fmt: skip
     cases.append(dict(gb=8, sel="all, K*B = N", gsel=[0], bases=[4096] * g, enabled=[1] * g,
                       b=128, k=n // 128))  # fmt: skip
+    cases.append(dict(cohort_cases(n, 128)[4], b=128, k=8, v=5))  # GB=2, a subset, V=5
     worst = 0
     for case in cases:
         b, k, gb, gsel, bases = case["b"], case["k"], case["gb"], case["gsel"], case["bases"]
+        vc = case.get("v", v)
         rows = [blk * gb + j for blk in gsel for j in range(gb)]
         wen = np.zeros((k, g), np.int32)
         for gi in rows:
@@ -599,10 +683,10 @@ def check_k5(dev, n: int = 1 << 16, v: int = 16) -> int:
         marks[3] = 2**31 - 100  # its limit wraps to a negative number
         limit = np.asarray(marks, np.int32) + n  # the reference's expression
         limit[1] = np.int32(bases[1] + k * b // 2)  # bites inside the wave
-        stack, lstate = mg_state(rng, g, a, n, v, k * b, bases, crnds, dev)
+        stack, lstate = mg_state(rng, g, a, n, vc, k * b, bases, crnds, dev)
         twin = clone_slabs(stack, lstate)
         cr, al = t(crnds), t(alive, torch.bool)
-        values = t(rng.integers(-(2**31), 2**31, (k, len(rows), b, v), dtype=np.int32))
+        values = t(rng.integers(-(2**31), 2**31, (k, len(rows), b, vc), dtype=np.int32))
         want = batched.persistent_cohort_rounds(*twin, gsel, wni, wen, cr, al, q, values, limit,
                                                 group_block=gb)  # fmt: skip
         plain = [*vars(want[0]).values(), *vars(want[1]).values(), want[2].to(torch.int32),
@@ -621,7 +705,8 @@ def check_k5(dev, n: int = 1 << 16, v: int = 16) -> int:
             inert = torch.from_numpy(wen[:, rows] == 0).to(dev)  # (K, C)
             if bool(got[2][inert].any() or (got[3][inert] != -1).any() or got[4][inert].any()):
                 raise AssertionError(f"K5: an inert round of {case} decided or voted")
-        print(f"  K5 b={b} k={k} gb={gb} {case['sel']} gsel={gsel} frozen={frozen} from round 2: "
+        print(f"  K5 b={b} k={k} v={vc} gb={gb} {case['sel']} gsel={gsel} frozen={frozen} "
+              f"from round 2: "
               f"max_abs_err={max(errs)} (block_b 128: {errs[0]}, 32: {errs[1]})")  # fmt: skip
         if max(errs):
             raise AssertionError(f"K5 disagrees with its plain version: {case}")
@@ -687,13 +772,24 @@ def packed_cases(n: int, b: int):
                                                    (0, 0, 0)]),  # fmt: skip
             dict(gl=gl, name="C=2, one pad", lanes=[(gl - 2, 77, 1), (gl - 2, 0, 0)]),
         ]
+    # the scalar variant: V = 5, and V = 16 on value tensors 4 bytes off 16
+    out += [
+        dict(gl=8, name="C=4, ragged, V=5", lanes=[(2, 2 * n - 7, 1), (2, 0, 0), (1, 128, 1),
+                                                   (5, n - 20, 1)], v=5),  # fmt: skip
+        dict(gl=8, name="C=2, burst off 16", lanes=[(4, n - 20, 1), (0, 1003, 1)], off="values"),
+        dict(gl=4, name="C=4, st_val off 16", lanes=[(3, 640, 1), (0, 2**31 - b // 2, 1),
+                                                    (2, 9, 1), (1, 0, 0)], off="st_val"),  # fmt: skip
+        dict(gl=4, name="C=1, lval off 16", lanes=[(1, 5 * n + 13, 1)], off="lval"),
+    ]
     return out
 
 
 def check_k6(dev, n: int = 1 << 16, v: int = 16) -> int:
     """K6 (``ops.packed_shard_round``) against its plain version
-    (``batched.packed_multigroup_round``) at A=3, N=65,536, V=16, B=128,
-    over ``packed_cases``, each at ``block_b`` 128 and 32: a dead acceptor
+    (``batched.packed_multigroup_round``) at A=3, N=65,536, V=16 (and V=5
+    and value tensors 4 bytes off 16: the scalar variant), B=128, over
+    ``packed_cases``, each at 128 threads a block (``block_b`` 128) and at
+    64 (``block_b`` 32): a dead acceptor
     on lane 0, two dead (below quorum) on the last lane, a limit that
     refuses the upper half of lane 1's window, the state in place, pads
     inert (fresh 0, win -1, value 0) and rows no enabled lane names
@@ -708,6 +804,7 @@ def check_k6(dev, n: int = 1 << 16, v: int = 16) -> int:
 
     for case in packed_cases(n, b):
         gl, lanes = case["gl"], case["lanes"]
+        vc, off = case.get("v", v), case.get("off")
         c = len(lanes)
         seg, ni, en = (t([lane[i] for lane in lanes]) for i in range(3))
         crnds = [int(x) for x in rng.integers(1, 7, c)]
@@ -722,20 +819,24 @@ def check_k6(dev, n: int = 1 << 16, v: int = 16) -> int:
         for row, base, e in lanes:
             if e:
                 bases[row] = base
-        stack, lstate = mg_state(rng, gl, a, n, v, b, bases, [max(crnds)] * gl, dev)
-        values = t(rng.integers(-(2**31), 2**31, (c, b, v), dtype=np.int32))
+        stack, lstate = mg_state(rng, gl, a, n, vc, b, bases, [max(crnds)] * gl, dev)
+        values = t(rng.integers(-(2**31), 2**31, (c, b, vc), dtype=np.int32))
         cr, al, lim = t(crnds), t(alive), t(limit.astype(np.int32))
         twin = clone_slabs(stack, lstate)
         want = batched.packed_multigroup_round(*twin, seg, ni, cr, al, q, values, en, lim)
         plain = [*vars(want[0]).values(), *vars(want[1]).values(), want[2].to(torch.int32),
                  *want[3:]]  # fmt: skip
-        errs = []
-        for block_b in (128, 32):
-            mine = clone_slabs(stack, lstate)
+        errs, ran = [], []
+        for block_b, threads in ((128, 128), (32, 64)):
+            mine = held(*clone_slabs(stack, lstate), off)
             ptrs = [x.data_ptr() for x in (*vars(mine[0]).values(), *vars(mine[1]).values())]
-            got = ops.packed_shard_round(*mine, seg, ni, cr, al, q, values, en, lim,
-                                         block_b=block_b)  # fmt: skip
+            before = variants()
+            with lane_threads(threads):
+                got = ops.packed_shard_round(*mine, seg, ni, cr, al, q,
+                                             off16(values) if off == "values" else values, en,
+                                             lim, block_b=block_b)  # fmt: skip
             sync(dev)
+            ran.append(variant_since(before))
             state = [*vars(got[0]).values(), *vars(got[1]).values()]
             if [x.data_ptr() for x in state] != ptrs:
                 raise AssertionError("K6 did not update the state in place")
@@ -747,10 +848,13 @@ def check_k6(dev, n: int = 1 << 16, v: int = 16) -> int:
             for x, y in zip(state, [*vars(stack).values(), *vars(lstate).values()], strict=True):
                 if not torch.equal(x[untouched], y[untouched]):
                     raise AssertionError(f"K6 wrote a row no enabled lane names: {case}")
-        print(f"  K6 gl={gl} {case['name']} lanes={lanes}: max_abs_err={max(errs)} "
-              f"(block_b 128: {errs[0]}, 32: {errs[1]})")  # fmt: skip
+        print(f"  K6 gl={gl} {case['name']} lanes={lanes}: variant={ran[0]} "
+              f"max_abs_err={max(errs)} (128 threads, block_b 128: {errs[0]}; 64 threads, "
+              f"block_b 32: {errs[1]})")  # fmt: skip
         if max(errs):
             raise AssertionError(f"K6 disagrees with its plain version: {case}")
+        if set(ran) != {"vector" if vc % 4 == 0 and off is None else "scalar"}:
+            raise AssertionError(f"K6 took the {ran} variants at {case}")
         worst = max(worst, *errs)
     return max(worst, check_k6_against_k1_shard(dev, n, v))
 
@@ -815,49 +919,58 @@ def check_k1_shard(dev, n: int = 1 << 16, v: int = 16) -> int:
     offsets 0 and Gl=4, GB in {1, 4}, B=128: windows aligned, across the
     ring end and across 2^31, a frozen group below quorum, a disabled group,
     a dead acceptor, a limit inside a window and one wrapped past int32 max;
-    the other shard's rows untouched.  Returns the largest difference."""
+    the other shard's rows untouched; then V=5, V=1 and value slabs 4 bytes
+    off 16 (the scalar variant).  Returns the largest difference."""
     rng = np.random.default_rng(SEED + 22)
     g, gl, a, q, b = 8, 4, 3, 2, 128
     bases = [4096, 3 * n - b // 2, 2**31 - b // 2, 640, 1003, 9, 5 * n + 13, 4096]
     worst = 0
-    for off in (0, gl):
-        for gb in (1, 4):
-            crnds = [int(c) for c in rng.integers(1, 7, g)]
-            crnds[off + 1] = -1  # a frozen group
-            stack, lstate = mg_state(rng, g, a, n, v, b, bases, crnds, dev)
-            twin = clone_slabs(stack, lstate)
-            i32 = dict(dtype=torch.int32, device=dev)
-            alive = torch.ones((g, a), dtype=torch.bool, device=dev)
-            alive[off, 1] = False
-            alive[off + 1, [0, 2]] = False
-            en = torch.tensor([1, 1, 1, 0, 1, 1, 1, 0], **i32)
-            marks = np.zeros(g, np.int32)
-            marks[off + 2] = 2**31 - 100  # its limit wraps to a negative number
-            limit = marks + n
-            limit[off] = np.int32(bases[off] + b // 2)
-            lim = torch.from_numpy(limit).to(dev)
-            values = torch.from_numpy(
-                rng.integers(-(2**31), 2**31, (gl, b, v), dtype=np.int32)
-            ).to(dev)
-            ni, cr = torch.tensor(bases, **i32), torch.tensor(crnds, **i32)
+    # (offset, GB, V, the value slab held 4 bytes off 16): the vector variant,
+    # then the scalar one
+    for off, gb, vc, mis in ((0, 1, v, None), (0, 4, v, None), (gl, 1, v, None), (gl, 4, v, None),
+                             (0, 1, 5, None), (gl, 4, v, "st_val"), (gl, 1, 1, "lval")):  # fmt: skip
+        crnds = [int(c) for c in rng.integers(1, 7, g)]
+        crnds[off + 1] = -1  # a frozen group
+        stack, lstate = mg_state(rng, g, a, n, vc, b, bases, crnds, dev)
+        twin = clone_slabs(stack, lstate)
+        stack, lstate = held(stack, lstate, mis)
+        i32 = dict(dtype=torch.int32, device=dev)
+        alive = torch.ones((g, a), dtype=torch.bool, device=dev)
+        alive[off, 1] = False
+        alive[off + 1, [0, 2]] = False
+        en = torch.tensor([1, 1, 1, 0, 1, 1, 1, 0], **i32)
+        marks = np.zeros(g, np.int32)
+        marks[off + 2] = 2**31 - 100  # its limit wraps to a negative number
+        limit = marks + n
+        limit[off] = np.int32(bases[off] + b // 2)
+        lim = torch.from_numpy(limit).to(dev)
+        values = torch.from_numpy(
+            rng.integers(-(2**31), 2**31, (gl, b, vc), dtype=np.int32)
+        ).to(dev)
+        ni, cr = torch.tensor(bases, **i32), torch.tensor(crnds, **i32)
 
-            def rows(st, off=off):
-                return type(st)(*(x[off : off + gl] for x in vars(st).values()))
+        def rows(st, off=off):
+            return type(st)(*(x[off : off + gl] for x in vars(st).values()))
 
-            got = ops.shard_slab_round(off, ni, cr, alive, q, rows(stack), rows(lstate), values,
-                                       en, lim, group_block=gb)  # fmt: skip
-            want = batched.shard_slab_round(off, ni, cr, alive, q, rows(twin[0]), rows(twin[1]),
-                                            values, en, lim)  # fmt: skip
-            sync(dev)
-            err = max_abs_err(
-                [*vars(stack).values(), *vars(lstate).values(), got[2].to(torch.int32), *got[3:]],
-                [*vars(twin[0]).values(), *vars(twin[1]).values(), want[2].to(torch.int32),
-                 *want[3:]],
-            )  # fmt: skip
-            print(f"  K1-shard offset={off} gb={gb}: max_abs_err={err}")
-            if err:
-                raise AssertionError(f"K1's shard slice disagrees with its plain version at {off}")
-            worst = max(worst, err)
+        before = variants()
+        got = ops.shard_slab_round(off, ni, cr, alive, q, rows(stack), rows(lstate), values,
+                                   en, lim, group_block=gb)  # fmt: skip
+        want = batched.shard_slab_round(off, ni, cr, alive, q, rows(twin[0]), rows(twin[1]),
+                                        values, en, lim)  # fmt: skip
+        sync(dev)
+        variant = variant_since(before)
+        err = max_abs_err(
+            [*vars(stack).values(), *vars(lstate).values(), got[2].to(torch.int32), *got[3:]],
+            [*vars(twin[0]).values(), *vars(twin[1]).values(), want[2].to(torch.int32),
+             *want[3:]],
+        )  # fmt: skip
+        print(f"  K1-shard offset={off} gb={gb} v={vc} off16={mis}: variant={variant} "
+              f"max_abs_err={err}")  # fmt: skip
+        if err:
+            raise AssertionError(f"K1's shard slice disagrees with its plain version at {off}")
+        if variant != ("vector" if vc % 4 == 0 and mis is None else "scalar"):
+            raise AssertionError(f"K1's shard slice took the {variant} variant at {off}")
+        worst = max(worst, err)
     return worst
 
 
@@ -998,6 +1111,8 @@ LAUNCHES = {  # kernel name -> (module, attribute) of its wrapper's count
     "K6": (k_wirepath, "packed_launches"),
     "K1-shard": (k_wirepath, "shard_launches"),
     "K9": (k_flash, "launches"),
+    "K1/K6 vector": (k_wirepath, "vector_launches"),
+    "K1/K6 scalar": (k_wirepath, "scalar_launches"),
 }
 
 
@@ -1872,6 +1987,18 @@ def time_k1(dev) -> dict:
         cstate = CoordinatorState(bases[k], crnd_t)
         batched.fused_round(cstate, stack, lstate, bursts[k], active, alive, q, limit)
 
+    # the one-thread-a-lane body of the first K1, still K5's: K5 at K=1 on
+    # the (1, ...) views of the same state
+    one = [x[None] for x in (*vars(stack).values(), *vars(lstate).values())]
+    i32 = dict(dtype=torch.int32, device=dev)
+    gsel0, ones = torch.zeros(1, **i32), torch.ones((1, 1), **i32)
+    limit1 = torch.full((1,), limit, **i32)
+
+    def old_body(k):
+        k_wirepath._persistent_launch(gsel0, 1, bases[k].view(1, 1), ones, crnd_t.view(1), q,
+                                      alive.view(1, a), *one, bursts[k].view(1, 1, b, v), limit1,
+                                      b)  # fmt: skip
+
     accept = (crnd >= host["rnd"]) & (inst < limit)[None]
     fresh = (accept.sum(0) >= q) & ~((host["ldel"] != 0) & (host["linst"] == inst))
     if not (accept.all() and fresh.all()):
@@ -1887,9 +2014,41 @@ def time_k1(dev) -> dict:
         eager_ms=time_walk(kernel, walk, False, restore),
         plain_eager_ms=time_walk(plain, walk, False, restore),
         bound_ms=bms, bound_by=by, bytes_per_launch=nbytes,
+        **team_times(kernel, old_body, walk, restore, v, b, 1, dev),
     )  # fmt: skip
     restore()
     return out
+
+
+def time_launch_floor(geo, walk: int, dev) -> float:
+    """``csrc/wirepath.cu``'s empty kernel on ``geo``'s grid and block,
+    ``walk`` launches in one CUDA graph, as ``time_walk`` times each kernel:
+    the floor under a launch of that shape."""
+    fn = _build.library("wirepath").launch_floor
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(k):
+        _build.check(fn(*geo.grid, geo.block, torch.cuda.current_stream(dev).cuda_stream),
+                     "launch_floor")  # fmt: skip
+
+    return time_walk(launch, walk, True)
+
+
+def team_times(kernel, old_body, walk: int, restore, v: int, b: int, rows: int, dev) -> dict:
+    """Beside a K1 or K6 time at the default block: its launch floor, its
+    times at 64, 128 and 256 threads a block, and the old one-thread-a-lane
+    body (K5 at K=1) on the same windows, all in this call."""
+    geo = k_wirepath.lane_geometry(v, b, rows, True)
+    by_threads = {}
+    for threads in (64, 128, 256):
+        with lane_threads(threads):
+            by_threads[threads] = time_walk(kernel, walk, True, restore)
+    return dict(
+        threads=geo.block, team=geo.team, grid=list(geo.grid),
+        floor_ms=time_launch_floor(geo, walk, dev), ms_by_threads=by_threads,
+        old_body_ms=time_walk(old_body, walk, True, restore),
+    )  # fmt: skip
 
 
 def time_k4(dev, n_leaf: int) -> dict:
@@ -2098,6 +2257,7 @@ def time_k1_cohort(dev) -> dict:
     limit = torch.full((g,), 2 * n, **i32)  # the reclaim mark one lap back
     alive = torch.ones((g, a), dtype=torch.bool, device=dev)
     enabled = torch.ones((g,), **i32)
+    wen1 = torch.ones((1, g), **i32)
 
     def restore():
         for k, x in init.items():
@@ -2113,6 +2273,11 @@ def time_k1_cohort(dev) -> dict:
                                       *vars(stack).values(), *vars(lstate).values(),
                                       bursts[k, rows], enabled, limit)  # fmt: skip
 
+        def old_body(k, gsel_t=gsel_t, gb=gb, rows=rows):
+            k_wirepath._persistent_launch(gsel_t, gb, bases[k][None], wen1, crnd_t, q, alive,
+                                          *vars(stack).values(), *vars(lstate).values(),
+                                          bursts[k, rows][None], limit, b)  # fmt: skip
+
         def plain(k, gsel_t=gsel_t, gb=gb, rows=rows):
             batched.cohort_fused_round(stack, lstate, gsel_t, bases[k], crnd_t, alive, q,
                                        bursts[k, rows], enabled, limit, group_block=gb)  # fmt: skip
@@ -2124,6 +2289,7 @@ def time_k1_cohort(dev) -> dict:
             plain_ms=time_walk(plain, walk, True, restore),
             eager_ms=time_walk(kernel, walk, False, restore),
             bound_ms=bms, bound_by=by, bytes_per_launch=nbytes, groups=c,
+            **team_times(kernel, old_body, walk, restore, v, b, c, dev),
         )  # fmt: skip
     restore()
     return dict(out["gb8"], gb1=out["gb1"])
@@ -2228,6 +2394,11 @@ def time_k6(dev) -> dict:
         for k, x in init.items():
             live[k].copy_(x)
 
+    # K5 at K=1 on the same rows and windows (every lane's base is the same)
+    bases1 = torch.arange(n, 2 * n, b, **i32)[:, None].expand(walk, gl).contiguous()
+    wen1 = torch.ones((1, gl), **i32)
+    crnd_g, limit_g = torch.full((gl,), crnd, **i32), torch.full((gl,), 2 * n, **i32)
+    alive_g = torch.ones((gl, a), dtype=torch.bool, device=dev)
     out = {}
     for name, rows in (("c1", [3]), ("c4", [0, 2, 5, 7])):
         c = len(rows)
@@ -2241,7 +2412,12 @@ def time_k6(dev) -> dict:
 
         def kernel(k, seg=seg, bases=bases, bursts=bursts, cr=cr, en=en, lim=lim, al=al):
             k_wirepath._packed_launch(seg, bases[k], cr, lim, al, en, q, *vars(stack).values(),
-                                      *vars(lstate).values(), bursts[k], 128)  # fmt: skip
+                                      *vars(lstate).values(), bursts[k])  # fmt: skip
+
+        def old_body(k, rows_t=torch.tensor(rows, **i32), bursts=bursts):
+            k_wirepath._persistent_launch(rows_t, 1, bases1[k][None], wen1, crnd_g, q, alive_g,
+                                          *vars(stack).values(), *vars(lstate).values(),
+                                          bursts[k][None], limit_g, b)  # fmt: skip
 
         def plain(k, seg=seg, bases=bases, bursts=bursts, cr=cr, en=en, lim=lim, al=al):
             batched.packed_multigroup_round(stack, lstate, seg, bases[k], cr, al, q, bursts[k],
@@ -2254,6 +2430,7 @@ def time_k6(dev) -> dict:
             plain_ms=time_walk(plain, walk, True, restore),
             eager_ms=time_walk(kernel, walk, False, restore),
             bound_ms=bms, bound_by=by, bytes_per_launch=nbytes, lanes=c,
+            **team_times(kernel, old_body, walk, restore, v, b, c, dev),
         )  # fmt: skip
     restore()
     return dict(out["c1"], c4=out["c4"])
@@ -2292,6 +2469,12 @@ def time_k1_shard(dev) -> dict:
                                   *vars(stack).values(), *vars(lstate).values(), bursts[k],
                                   en[rows], lim[rows])  # fmt: skip
 
+    def old_body(k):
+        k_wirepath._persistent_launch(gsel, gl, bases[k, rows][None], en[rows][None], cr[rows],
+                                      q, alive[rows], *vars(stack).values(),
+                                      *vars(lstate).values(), bursts[k][None], lim[rows],
+                                      b)  # fmt: skip
+
     def plain(k):
         batched.shard_slab_round(off, bases[k], cr, alive, q, stack, lstate, bursts[k], en, lim)
 
@@ -2302,9 +2485,57 @@ def time_k1_shard(dev) -> dict:
         plain_ms=time_walk(plain, walk, True, restore),
         eager_ms=time_walk(kernel, walk, False, restore),
         bound_ms=bms, bound_by=by, bytes_per_launch=nbytes, groups=gl,
+        **team_times(kernel, old_body, walk, restore, v, b, gl, dev),
     )  # fmt: skip
     restore()
     return out
+
+
+def kernel_name(mangled: str) -> str:
+    """``_Z21wirepath_round_kernelI4int4Ev...`` -> ``wirepath_round_kernel<int4>``."""
+    digits = len(mangled[2:]) - len(mangled[2:].lstrip("0123456789"))
+    size = int(mangled[2 : 2 + digits])
+    name, rest = mangled[2 + digits : 2 + digits + size], mangled[2 + digits + size :]
+    for code, word in (("I4int4E", "<int4>"), ("IiE", "<int>")):
+        if rest.startswith(code):
+            return name + word
+    return name
+
+
+def wirepath_build_facts() -> dict:
+    """Each kernel of ``csrc/wirepath.cu``: its registers, spills and stack
+    (``-Xptxas -v``) and its 128-bit global loads and stores in the SASS of
+    the built library (``cuobjdump --dump-sass``).  Fails if a team kernel
+    of K1 or K6 spills, if a vector variant has no 128-bit store, or if G=1
+    at the paths' shape runs on one block."""
+    facts, name = {}, None
+    for line in _build.build_log("wirepath").splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_name(line.split("'")[1])
+            facts[name] = {}
+        elif name and "spill stores" in line:
+            facts[name].update(stack_bytes=int(line.split()[0]),
+                               spill_store_bytes=int(line.split(",")[1].split()[0]),
+                               spill_load_bytes=int(line.split(",")[2].split()[0]))  # fmt: skip
+        elif name and "Used" in line and "registers" in line:
+            facts[name]["registers"] = int(line.split("Used")[1].split()[0])
+    for chunk in _build.sass("wirepath").split("Function : ")[1:]:
+        fn = facts.setdefault(kernel_name(chunk.split()[0]), {})
+        fn["ldg128"] = len(re.findall(r"\bLDG(?:\.\w+)*?\.128\b", chunk))
+        fn["stg128"] = len(re.findall(r"\bSTG(?:\.\w+)*?\.128\b", chunk))
+    for entry in ("wirepath_round_kernel", "cohort_wirepath_round_kernel",
+                  "packed_shard_round_kernel"):  # fmt: skip
+        for word in ("<int4>", "<int>"):
+            fn = facts.get(entry + word, {})
+            if fn.get("spill_store_bytes", 1) or fn.get("spill_load_bytes", 1):
+                raise AssertionError(f"{entry}{word} spills or was not built: {fn}")
+        if not facts[entry + "<int4>"].get("stg128"):
+            raise AssertionError(f"{entry}<int4> has no 128-bit global store: {facts}")
+    geo = k_wirepath.lane_geometry(16, PaxosConfig().batch, 1, True)
+    if geo.grid[0] < 2:
+        raise AssertionError(f"K1 at G=1 runs on one block: {geo}")
+    facts["G=1 geometry"] = dataclasses.asdict(geo)
+    return facts
 
 
 def k9_build_facts() -> dict:
@@ -2415,6 +2646,14 @@ def require_launched(path: str, launches: dict[str, int], names: list[str]) -> N
         raise AssertionError(f"the {path} did not run through {missing}: {launches}")
 
 
+def require_variant(path: str, launches: dict[str, int], names: list[str]) -> None:
+    """Every K1 and K6 launch of a path (V = 16, slabs on 16 bytes) took the
+    vector variant."""
+    if launches["K1/K6 vector"] != sum(launches[n] for n in names) or launches["K1/K6 scalar"]:
+        raise AssertionError(f"the {path}'s K1/K6 launches did not all take the vector variant: "
+                             f"{launches}")  # fmt: skip
+
+
 def main() -> None:
     global CARD
     if not torch.cuda.is_available():
@@ -2457,6 +2696,7 @@ def run(dev: torch.device) -> None:
     errs["K1-shard"] = check_k1_shard(dev)
     errs["K9"] = check_k9(dev)
     check_lm_small(dev)
+    print(f"  wirepath build: {json.dumps(wirepath_build_facts())}")
     # timed here, before the paths, and printed after them
     times = {"wirepath_round": time_k1(dev), "digest": time_k4(dev, PaxosConfig().n_instances // 4)}
     times.update(time_staged(dev))
@@ -2476,6 +2716,7 @@ def run(dev: torch.device) -> None:
     require_launched("main path", launches, ["wirepath_round", "digest", "acceptor_vote_all"])
     if launches["wirepath_round"] != kern["rounds"] or plain_votes.calls:
         raise AssertionError(f"the main path did not vote through the kernels: {launches}")
+    require_variant("main path", launches, ["wirepath_round"])
     print("  the same schedule on the plain engine (use_kernels=False) on the card")
     plain = run_main_path(False, dev)
     for key in ("delivered_log", "full_log", "seals"):
@@ -2542,6 +2783,7 @@ def run(dev: torch.device) -> None:
     require_launched("multi-group path", mg_launches, ["K1-cohort", "digest", "acceptor_vote_all"])
     if mg_launches["K1-cohort"] != dispatches or plain_votes.calls or plain_rounds.calls:
         raise AssertionError(f"the multi-group path did not run through the kernels: {mg_launches}")
+    require_variant("multi-group path", mg_launches, ["K1-cohort"])
     print("  the same schedule on the plain engine (use_kernels=False) on the card")
     with PlainCalls("_rows_round") as plain_rounds:
         mg_plain = run_multigroup_path(False, dev)
@@ -2584,6 +2826,7 @@ def run(dev: torch.device) -> None:
         raise AssertionError(f"the default path did not run through K5 and K1: {dflt_launches}")
     if 8 not in depths or not any(1 < k < 8 for k in depths):
         raise AssertionError(f"the default path's waves lack K=8 or a 1 < K < 8: {depths}")
+    require_variant("default multi-group path", dflt_launches, ["K1-cohort"])
     print("  the same schedule on the plain engine (use_kernels=False) on the card")
     with PlainCalls("_rows_round") as plain_rounds:
         dflt_plain = run_multigroup_path(False, dev, default_multigroup_config())
@@ -2627,6 +2870,7 @@ def run(dev: torch.device) -> None:
     ):
         raise AssertionError(f"the sharded path did not run through K6 and K1's shard slice: "
                              f"{sh_launches}")  # fmt: skip
+    require_variant("sharded multi-group path", sh_launches, ["K6", "K1-shard"])
     if set(shd["depths"]) != {1} or shd["report"]["persistent_waves"]:
         raise AssertionError(f"the sharded context planned persistent waves: {shd['depths']}")
     # a sharded context plans no waves (the reference's clamp), so before

@@ -168,8 +168,8 @@ def make_packed_sharded_round(
     with shard ``s``'s lane ``j`` at packed row ``s*C + j``, the state
     updated in place as the full-width dispatch would (pads and absent rows
     untouched), ``inst`` host int32 and the rest device tensors.
-    ``block_b`` is a kernel-path launch knob only (None: the kernel's
-    default)."""
+    ``block_b`` is the reference kernel's batch block, checked on the kernel
+    path only (None: 128); it changes no result."""
     n_sh = _check_axis(mesh, axis)
     q = quorum
 

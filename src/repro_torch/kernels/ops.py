@@ -319,9 +319,9 @@ def packed_shard_round(
     enabled lanes on distinct rows) are checked on the host on both routes;
     ``lanes_host`` gives host copies of ``segids`` and ``enabled`` for that
     check where the caller has them.  ``block_b`` (default: the reference's
-    128) is the kernel's launch shape and changes no result.  Returns
-    ``(stack, lstate, fresh[C, B], win[C, B], value[C, B, V])`` in lane
-    order."""
+    128) is the reference kernel's batch block, checked as the reference
+    checks it; it changes no result.  Returns ``(stack, lstate, fresh[C,
+    B], win[C, B], value[C, B, V])`` in lane order."""
     block_b = _wirepath.DEFAULT_BLOCK_B if block_b is None else block_b
     gl, n = stack.rnd.shape[0], stack.rnd.shape[2]
     c, b = values.shape[:2]

@@ -15,11 +15,17 @@ versions are ``batched.cohort_fused_round`` and
 ``batched.multigroup_fused_round``.  ``kernels.ops`` chooses between kernel
 and plain version by the device of the tensors.
 
-K1 takes any window base: one thread serves one lane and computes its own
-ring slot, so there is no block-alignment precondition, and ``group_block``
-(the TPU kernel's group fold) changes no result.  It requires ``B <= N``
-(distinct slots, so in-place writes never race), ``A <= 8`` and, in cohort
-form, distinct selected blocks (checked here).
+K1 and K6 run one lane body: a team of threads per lane that loads first,
+stores 16 bytes a thread where it can and spreads over the SMs
+(``csrc/wirepath.cu``'s header).  ``lane_geometry`` chooses on the host the
+variant (``vector``: int4 words, where V % 4 == 0 and the value tensors
+start on 16 bytes; ``scalar`` otherwise), the team size, the block and the
+grid; ``vector_launches`` and ``scalar_launches`` count the launches of
+each.  K1 takes any window base: each lane computes its own ring slot, so
+there is no block-alignment precondition, and ``group_block`` (the TPU
+kernel's group fold) changes no result.  It requires ``B <= N`` (distinct
+slots, so in-place writes never race), ``A <= 8`` and, in cohort form,
+distinct selected blocks (checked here).
 
 ``persistent_wirepath_round`` launches the K5 entry of the same source,
 which replaces the TPU kernel ``repro.kernels.wirepath.persistent_wirepath_round``:
@@ -57,6 +63,7 @@ pairwise distinct (so ``B <= N``, which is checked).
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -67,15 +74,20 @@ from .acceptor import vote_io
 
 MAX_A = 8
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+# threads per block of K1's and K6's team kernels (whole teams), chosen on
+# the card (PERF.md section 6, PR 21); read at each launch
+LANE_THREADS = 128
 
 # launches of K1 (single group, cohort form, shard slice), K6, K5 and K2 in
-# this process; reset by whoever reads them
+# this process, and of K1's and K6's two variants; reset by whoever reads them
 launches = 0
 cohort_launches = 0
 shard_launches = 0
 packed_launches = 0
 persistent_launches = 0
 vote_all_launches = 0
+vector_launches = 0
+scalar_launches = 0
 
 _fn = None
 _cohort_fn = None
@@ -84,12 +96,56 @@ _persistent_fn = None
 _vote_fn = None
 
 
+@dataclass(frozen=True)
+class LaneGeometry:
+    """How K1 or K6 launches: the variant, threads per lane (``team``),
+    threads per block and the ``(x, y)`` grid."""
+
+    variant: str  # "vector" (int4 words) or "scalar" (int32 words)
+    team: int
+    block: int
+    grid: tuple[int, int]
+
+
+def lane_geometry(v: int, b: int, rows: int, aligned: bool) -> LaneGeometry:
+    """The launch of a round of ``rows`` rows of ``b`` lanes of ``v`` value
+    words: the vector variant where ``v % 4 == 0`` and the value tensors are
+    ``aligned`` on 16 bytes, else the scalar one; a team of the power of two
+    at or above the lane's words (int4 or int32), at most 32, so it divides
+    a warp; blocks of ``LANE_THREADS`` (a multiple of 32), ``LANE_THREADS //
+    team`` lanes each."""
+    threads = LANE_THREADS
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"K1 and K6 take blocks of whole warps up to 1024, got {threads}")
+    vector = aligned and v % 4 == 0
+    words = v // 4 if vector else v
+    team = min(32, 1 << (words - 1).bit_length())
+    lanes = threads // team
+    return LaneGeometry("vector" if vector else "scalar", team, threads, (-(-b // lanes), rows))
+
+
+def _lanes(v: int, b: int, rows: int, *tensors: torch.Tensor) -> LaneGeometry:
+    """``lane_geometry`` for these value tensors: st_val, lval, the burst and
+    the value output."""
+    return lane_geometry(v, b, rows, all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _launched(geo: LaneGeometry, rc: int, what: str) -> None:
+    """Raise on a refused launch, else count it under its variant."""
+    global vector_launches, scalar_launches
+    _build.check(rc, what)
+    if geo.variant == "vector":
+        vector_launches += 1
+    else:
+        scalar_launches += 1
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = _build.library("wirepath").wirepath_round
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p]
+        fn.argtypes = [p, p, p, *[i] * 6, *[p] * 12, i, i, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -146,6 +202,7 @@ def wirepath_round(
     win = torch.empty((b,), dtype=i32, device=dev)
     value = torch.empty((b, v), dtype=i32, device=dev)
     fn = _kernel()
+    geo = _lanes(v, b, 1, st_val, lval, values, value)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
@@ -155,9 +212,9 @@ def wirepath_round(
             ldel.data_ptr(), linst.data_ptr(), lval.data_ptr(),
             values.data_ptr(), next_out.data_ptr(), inst.data_ptr(),
             fresh.data_ptr(), win.data_ptr(), value.data_ptr(),
-            stream,
+            geo.variant == "vector", geo.team, geo.block, stream,
         )  # fmt: skip
-    _build.check(rc, "wirepath_round launch")
+    _launched(geo, rc, "wirepath_round launch")
     launches += 1
     return st_rnd, st_vrnd, st_val, ldel, linst, lval, next_out, inst, fresh, win, value
 
@@ -167,7 +224,7 @@ def _cohort_kernel():
     if _cohort_fn is None:
         fn = _build.library("wirepath").cohort_wirepath_round
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, p, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p]
+        fn.argtypes = [p, i, i, *[p] * 5, *[i] * 6, *[p] * 10, i, i, i, p]
         fn.restype = ctypes.c_int
         _cohort_fn = fn
     return _cohort_fn
@@ -283,6 +340,7 @@ def _cohort_launch(
     win = torch.empty((c, b), dtype=torch.int32, device=dev)
     value = torch.empty((c, b, v), dtype=torch.int32, device=dev)
     fn = _cohort_kernel()
+    geo = _lanes(v, b, c, st_val, lval, values, value)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
@@ -293,9 +351,9 @@ def _cohort_launch(
             st_rnd.data_ptr(), st_vrnd.data_ptr(), st_val.data_ptr(),
             ldel.data_ptr(), linst.data_ptr(), lval.data_ptr(),
             values.data_ptr(), fresh.data_ptr(), win.data_ptr(), value.data_ptr(),
-            stream,
+            geo.variant == "vector", geo.team, geo.block, stream,
         )  # fmt: skip
-    _build.check(rc, "cohort_wirepath_round launch")
+    _launched(geo, rc, "cohort_wirepath_round launch")
     return st_rnd, st_vrnd, st_val, ldel, linst, lval, fresh, win, value
 
 
@@ -374,7 +432,7 @@ def _packed_kernel():
     if _packed_fn is None:
         fn = _build.library("wirepath").packed_shard_round
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [*[p] * 6, *[i] * 8, *[p] * 10, p]
+        fn.argtypes = [*[p] * 6, *[i] * 7, *[p] * 10, i, i, i, p]
         fn.restype = ctypes.c_int
         _packed_fn = fn
     return _packed_fn
@@ -435,11 +493,12 @@ def packed_shard_round(
     gives fresh 0, win NO_ROUND, value 0.  The per-lane tables are device
     tensors; the host checks of ``check_packed_lanes`` read ``lanes_host``
     (host copies of ``segids`` and ``enabled``) where the caller has them,
-    else copy the two tables back.  ``block_b`` is the launch's threads per
-    block, capped at B: it changes no result.  Returns ``(st_rnd, st_vrnd,
-    st_val, ldel, linst, lval, fresh[C, B], win_vrnd[C, B], value[C, B,
-    V])``: the six state tensors are the inputs, updated in place; ``fresh``
-    is a bool mask."""
+    else copy the two tables back.  ``block_b`` is the reference kernel's
+    batch block, checked as the reference checks it: it changes no result
+    and shapes no launch here.  Returns
+    ``(st_rnd, st_vrnd, st_val, ldel, linst, lval, fresh[C, B], win_vrnd[C,
+    B], value[C, B, V])``: the six state tensors are the inputs, updated in
+    place; ``fresh`` is a bool mask."""
     what = "packed_shard_round"
     dev = values.device
     _build.on_card(what, dev)
@@ -473,7 +532,7 @@ def packed_shard_round(
     global packed_launches
     out = _packed_launch(
         segids, next_inst, crnd, limit, alive, enabled, quorum,
-        st_rnd, st_vrnd, st_val, ldel, linst, lval, values, min(block_b, b),
+        st_rnd, st_vrnd, st_val, ldel, linst, lval, values,
     )  # fmt: skip
     packed_launches += 1
     return out
@@ -482,7 +541,6 @@ def packed_shard_round(
 def _packed_launch(
     segids, next_inst, crnd, limit, alive, enabled, quorum,
     st_rnd, st_vrnd, st_val, ldel, linst, lval, values,
-    block_b: int,
 ) -> tuple[torch.Tensor, ...]:
     """Launch K6 on checked inputs (CUDA-graph capturable: no host copy).
     ``packed_shard_round`` is the checked wrapper and counts the launch."""
@@ -493,18 +551,19 @@ def _packed_launch(
     win = torch.empty((c, b), dtype=torch.int32, device=dev)
     value = torch.empty((c, b, v), dtype=torch.int32, device=dev)
     fn = _packed_kernel()
+    geo = _lanes(v, b, c, st_val, lval, values, value)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             segids.data_ptr(), next_inst.data_ptr(), crnd.data_ptr(), limit.data_ptr(),
             alive.data_ptr(), enabled.data_ptr(),
-            int(quorum), c, gl, a, n, v, b, block_b,
+            int(quorum), c, gl, a, n, v, b,
             st_rnd.data_ptr(), st_vrnd.data_ptr(), st_val.data_ptr(),
             ldel.data_ptr(), linst.data_ptr(), lval.data_ptr(),
             values.data_ptr(), fresh.data_ptr(), win.data_ptr(), value.data_ptr(),
-            stream,
+            geo.variant == "vector", geo.team, geo.block, stream,
         )  # fmt: skip
-    _build.check(rc, "packed_shard_round launch")
+    _launched(geo, rc, "packed_shard_round launch")
     return st_rnd, st_vrnd, st_val, ldel, linst, lval, fresh, win, value
 
 

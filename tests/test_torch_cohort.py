@@ -38,7 +38,7 @@ I32 = 2**31
 CROSS = I32 - 128  # a 256-lane window from here crosses 2**31
 
 
-def _slabs(rng, g, b, bases, top):
+def _slabs(rng, g, b, bases, top, v=V):
     """Protocol-valid random ``(G, ...)`` slabs as numpy: promises straddle
     the rounds, and part of each learner ring holds its window (dups)."""
     linst = rng.integers(-1, 1 << 20, (g, N), dtype=np.int32)
@@ -49,10 +49,10 @@ def _slabs(rng, g, b, bases, top):
     return [
         rng.integers(0, top, (g, A, N), dtype=np.int32),
         rng.integers(-1, top, (g, A, N), dtype=np.int32),
-        rng.integers(-I32, I32, (g, A, N, V), dtype=np.int32),
+        rng.integers(-I32, I32, (g, A, N, v), dtype=np.int32),
         rng.integers(0, 2, (g, N), dtype=np.int32),
         linst,
-        rng.integers(-I32, I32, (g, N, V), dtype=np.int32),
+        rng.integers(-I32, I32, (g, N, v), dtype=np.int32),
     ]
 
 
@@ -84,6 +84,16 @@ CASES = {
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_cohort_round_matches_tpu_kernel(name):
+    _cohort_matches_tpu_kernel(name, V)
+
+
+@pytest.mark.parametrize("name", ["gb1-all", "gb2-inert-member", "gbG-all"])
+def test_cohort_round_matches_tpu_kernel_at_v5(name):
+    """The same at V = 5, where the card's kernel takes its scalar variant."""
+    _cohort_matches_tpu_kernel(name, 5)
+
+
+def _cohort_matches_tpu_kernel(name, v):
     gb, gsel, bases, enabled = CASES[name]
     b = 256  # two 128-lane blocks of the reference kernel
     rng = np.random.default_rng(sorted(CASES).index(name))
@@ -96,8 +106,8 @@ def test_cohort_round_matches_tpu_kernel(name):
     limit = marks + N  # group 1's limit wraps negative, as the reference computes it
     limit[2] = np.int32(bases[2] + 100)  # refuses the window's upper lanes
     assert limit[1] < 0
-    slabs = _slabs(rng, G, b, bases, int(crnd.max()) + 3)
-    values = rng.integers(-I32, I32, (len(gsel) * gb, b, V), dtype=np.int32)
+    slabs = _slabs(rng, G, b, bases, int(crnd.max()) + 3, v)
+    values = rng.integers(-I32, I32, (len(gsel) * gb, b, v), dtype=np.int32)
     want = rwp.cohort_wirepath_round(
         jnp.asarray(gsel, jnp.int32), jnp.asarray(np.asarray(bases, np.int64).astype(np.int32)),
         jnp.asarray(crnd), jnp.int32(2), jnp.asarray(alive, jnp.int32),

@@ -817,6 +817,248 @@ def test_sharded_context_on_the_card_matches_the_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# K1 and K6: the team lane body, both variants
+# ---------------------------------------------------------------------------
+def _off16(x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary: the kernels must take their scalar variant on it."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 == 4 and y.is_contiguous()
+    return y
+
+
+def _variants():
+    return k_wirepath.vector_launches, k_wirepath.scalar_launches
+
+
+def _ran(before) -> str:
+    """The variant of the one launch made since ``before = _variants()``."""
+    vec, sca = (now - was for now, was in zip(_variants(), before, strict=True))
+    assert (vec, sca) in ((1, 0), (0, 1))
+    return "vector" if vec else "scalar"
+
+
+def _held(stack, lstate, off):
+    """``stack`` and ``lstate`` with the value slab named ``off`` moved 4
+    bytes off 16 (the same values)."""
+    if off == "st_val":
+        stack = AcceptorState(stack.rnd, stack.vrnd, _off16(stack.value))
+    if off == "lval":
+        lstate = batched.LearnerState(lstate.delivered, lstate.inst, _off16(lstate.value))
+    return stack, lstate
+
+
+def _states(stack, lstate):
+    return [*vars(stack).values(), *vars(lstate).values()]
+
+
+@pytest.mark.parametrize(
+    "a,v,off,base,lim,threads,variant",
+    [
+        (3, 16, None, 4096, None, 128, "vector"),
+        (3, 16, None, 4096 - 20, None, 64, "vector"),  # the window wraps inside a block
+        (3, 5, None, 1001, 77, 128, "scalar"),
+        (3, 1, None, 4096 - 9, None, 64, "scalar"),
+        (3, 16, "values", 77, None, 128, "scalar"),
+        (3, 16, "st_val", 4096 - 3, 40, 64, "scalar"),
+        (3, 16, "lval", 2 * 4096 - 5, None, 128, "scalar"),
+        (5, 16, None, 999, 100, 64, "vector"),  # more acceptors than the team of 4
+        (8, 16, None, 4096 - 30, None, 128, "vector"),
+        (8, 5, None, 300, None, 64, "scalar"),
+        (3, 130, None, 640, 90, 64, "scalar"),  # 5 words a thread: value stores in 3 passes
+    ],
+)
+def test_team_round_kernel_matches_plain(
+    cuda, monkeypatch, a, v, off, base, lim, threads, variant
+):
+    """K1 at G=1 against ``batched.fused_round`` in both variants: V in {16,
+    5, 1}, each value tensor 4 bytes off 16, windows across the ring end
+    inside a block, A up to 8 (more acceptors than the team), a reclaim
+    limit, blocks of 64 and 128 threads; the variant asserted by its
+    counter, the state in place.  (No window across 2**31 here: without a
+    limit the kernel refuses instance 2**31 - 1, as the reference's kernel
+    does, and its plain version does not.)"""
+    n, b, q = 4096, 128, a // 2 + 1
+    rng = np.random.default_rng([a, v, base % 997, threads])
+    s = _state(rng, a, n, v, base, 5, cuda)
+    twin = _clone(s)
+    stack, lstate = _held(s["stack"], s["lstate"], off)
+    ptrs = [x.data_ptr() for x in _states(stack, lstate)]
+    values = torch.from_numpy(
+        rng.integers(I32_MIN, I32_MAX, (b, v), dtype=np.int32, endpoint=True)
+    ).to(cuda)
+    alive = torch.ones(a, dtype=torch.bool, device=cuda)
+    alive[1] = a > 1 and a != 3
+    limit = None if lim is None else base + lim
+    monkeypatch.setattr(k_wirepath, "LANE_THREADS", threads)
+    before, count = _variants(), k_wirepath.launches
+    got = k_wirepath.wirepath_round(s["cstate"].next_inst, s["cstate"].crnd, q, alive,
+                                    *_states(stack, lstate), values if off != "values"
+                                    else _off16(values), limit)  # fmt: skip
+    want = batched.fused_round(**twin, values=values, active=torch.ones(b, dtype=torch.bool,
+                               device=cuda), alive=alive, quorum=q, reclaim_limit=limit)  # fmt: skip
+    assert _ran(before) == variant and k_wirepath.launches == count + 1
+    c, st, ls, fresh, inst, win, value = want
+    for x, y in zip(got, [*_states(st, ls), c.next_inst, inst, fresh, win, value], strict=True):
+        assert torch.equal(x, y)
+    assert [x.data_ptr() for x in got[:6]] == ptrs
+
+
+@pytest.mark.parametrize(
+    "a,v,off,gb,threads,variant",
+    [
+        (3, 16, None, 1, 128, "vector"),
+        (3, 5, None, 2, 64, "scalar"),
+        (3, 1, None, 8, 128, "scalar"),
+        (3, 16, "values", 1, 64, "scalar"),
+        (5, 16, None, 2, 128, "vector"),
+        (8, 16, "lval", 1, 64, "scalar"),
+        (8, 16, None, 8, 64, "vector"),
+    ],
+)
+def test_team_cohort_kernel_matches_plain(cuda, monkeypatch, a, v, off, gb, threads, variant):
+    """K1 in cohort form against ``batched.cohort_fused_round`` in both
+    variants at G=8: a subset and all blocks, an inert member, windows
+    across the ring end inside a block and across 2**31, dead acceptors, a
+    wrapped limit, blocks of 64 and 128 threads; the variant asserted by
+    its counter."""
+    g, n, b, q = 8, 4096, 128, a // 2 + 1
+    rng = np.random.default_rng([a, v, gb, threads])
+    gsel = {1: [0, 3, 6], 2: [1, 2], 8: [0]}[gb]
+    block_base = [n - 20, I32_MAX - 63, 640, 9, 3 * n - 60, 77, 1003, 4096]
+    bases = [block_base[gi // gb] for gi in range(g)]
+    enabled = [1] * g
+    enabled[gsel[-1] * gb + gb - 1] = 0  # an inert member
+    bases[gsel[-1] * gb + gb - 1] = 7 * n + 5  # at a divergent base
+    stack, lstate = _slabs(rng, g, a, n, v, 8, cuda)
+    twin = (AcceptorState(*(x.clone() for x in vars(stack).values())),
+            batched.LearnerState(*(x.clone() for x in vars(lstate).values())))  # fmt: skip
+    stack, lstate = _held(stack, lstate, off)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    ni, en = torch.tensor(bases, **i32), torch.tensor(enabled, **i32)
+    crnd = torch.from_numpy(rng.integers(1, 6, g, dtype=np.int32)).to(cuda)
+    alive = torch.ones((g, a), dtype=torch.bool, device=cuda)
+    alive[0, 0] = False
+    alive[3, 1:] = False  # below quorum
+    limit = torch.from_numpy(np.asarray([0] * 6 + [2**31 - 100, 0], np.int32) + n).to(cuda)
+    values = torch.from_numpy(
+        rng.integers(I32_MIN, I32_MAX, (len(gsel) * gb, b, v), dtype=np.int32, endpoint=True)
+    ).to(cuda)
+    monkeypatch.setattr(k_wirepath, "LANE_THREADS", threads)
+    before, count = _variants(), k_wirepath.cohort_launches
+    got = k_wirepath.cohort_wirepath_round(
+        gsel, ni, crnd, q, alive, *_states(stack, lstate),
+        _off16(values) if off == "values" else values, en, limit, group_block=gb,
+    )  # fmt: skip
+    want = batched.cohort_fused_round(*twin, gsel, ni, crnd, alive, q, values, en, limit,
+                                      group_block=gb)  # fmt: skip
+    assert _ran(before) == variant and k_wirepath.cohort_launches == count + 1
+    for x, y in zip(got, [*_states(*want[:2]), *want[2:]], strict=True):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize(
+    "offset,a,v,off,threads,variant",
+    [
+        (0, 3, 16, None, 128, "vector"),
+        (4, 3, 5, None, 64, "scalar"),
+        (0, 5, 16, "st_val", 64, "scalar"),
+        (4, 8, 1, None, 128, "scalar"),
+        (4, 8, 16, None, 64, "vector"),
+    ],
+)
+def test_team_shard_kernel_matches_plain(cuda, monkeypatch, offset, a, v, off, threads, variant):
+    """K1's shard slice against ``batched.shard_slab_round`` in both
+    variants on a shard's row views of a G=8 slab; the other shard's rows
+    untouched; the variant asserted by its counter."""
+    g, gl, n, b, q = 8, 4, 4096, 128, a // 2 + 1
+    rng = np.random.default_rng([offset, a, v, threads])
+    stack, lstate = _slabs(rng, g, a, n, v, 8, cuda)
+    twin = (AcceptorState(*(x.clone() for x in vars(stack).values())),
+            batched.LearnerState(*(x.clone() for x in vars(lstate).values())))  # fmt: skip
+    stack, lstate = _held(stack, lstate, off)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    ni = torch.tensor([n - 20, 9, I32_MAX - 63, 4096 - 60, n - 7, 5, 77, 4096], **i32)
+    crnd = torch.from_numpy(rng.integers(1, 6, g, dtype=np.int32)).to(cuda)
+    alive = torch.ones((g, a), dtype=torch.bool, device=cuda)
+    alive[offset + 2, 0] = False
+    en = torch.tensor([1, 1, 1, 0, 1, 1, 1, 0], **i32)
+    limit = torch.tensor(np.asarray([0] * 7 + [2**31 - 100], np.int32) + n).to(cuda)
+    values = torch.from_numpy(
+        rng.integers(I32_MIN, I32_MAX, (gl, b, v), dtype=np.int32, endpoint=True)
+    ).to(cuda)
+
+    def rows(st):
+        return type(st)(*(x[offset : offset + gl] for x in vars(st).values()))
+
+    monkeypatch.setattr(k_wirepath, "LANE_THREADS", threads)
+    before, count = _variants(), k_wirepath.shard_launches
+    got = k_wirepath.shard_slab_round(offset, ni, crnd, q, alive, *_states(rows(stack),
+                                      rows(lstate)), values, en, limit)  # fmt: skip
+    want = batched.shard_slab_round(offset, ni, crnd, alive, q, rows(twin[0]), rows(twin[1]),
+                                    values, en, limit)  # fmt: skip
+    assert _ran(before) == variant and k_wirepath.shard_launches == count + 1
+    for x, y in zip(got[6:], want[2:], strict=True):
+        assert torch.equal(x, y)
+    for x, y in zip(_states(stack, lstate), _states(*twin), strict=True):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize(
+    "a,v,off,lanes,threads,variant",
+    [
+        (3, 16, None, [(5, 4096 - 20, 1)], 128, "vector"),  # C=1, the window wraps
+        (3, 16, None, [(3, 3 * 4096 - 60, 1), (1, 640, 1), (3, 0, 0), (0, 0, 0)], 64, "vector"),
+        (3, 5, None, [(2, 0, 1), (0, 128, 1), (1, 4096 - 64, 1), (3, 77, 1)], 128, "scalar"),
+        (5, 16, "values", [(0, 9, 1), (7, I32_MAX - 63, 1)], 64, "scalar"),
+        (8, 1, None, [(1, 300, 1), (1, 0, 0)], 128, "scalar"),
+        (8, 16, "st_val", [(2, 1003, 1), (6, 5, 1), (4, 0, 0), (0, 4096 - 1, 1)], 64, "scalar"),
+        (8, 16, None, [(2, 1003, 1), (6, 5, 1), (0, 0, 0)], 64, "vector"),
+    ],
+)
+def test_team_packed_kernel_matches_plain(
+    cuda, monkeypatch, a, v, off, lanes, threads, variant
+):
+    """K6 against ``batched.packed_multigroup_round`` in both variants at
+    Gl=8: C in {1, 2, 3, 4}, pads (one naming an enabled lane's row), windows
+    across the ring end and across 2**31, A up to 8, a limit inside a
+    window, blocks of 64 and 128 threads; pads inert; the variant asserted
+    by its counter."""
+    gl, n, b, q = 8, 4096, 128, a // 2 + 1
+    c = len(lanes)
+    rng = np.random.default_rng([a, v, c, threads])
+    stack, lstate = _slabs(rng, gl, a, n, v, 8, cuda)
+    twin = (AcceptorState(*(x.clone() for x in vars(stack).values())),
+            batched.LearnerState(*(x.clone() for x in vars(lstate).values())))  # fmt: skip
+    stack, lstate = _held(stack, lstate, off)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    seg, ni, en = (torch.tensor([lane[i] for lane in lanes], **i32) for i in range(3))
+    crnd = torch.from_numpy(rng.integers(1, 6, c, dtype=np.int32)).to(cuda)
+    alive = torch.ones((c, a), **i32)
+    alive[0, 0] = 0
+    limit = torch.full((c,), I32_MAX, **i32)
+    limit[-1] = ni[-1] + b // 2
+    values = torch.from_numpy(
+        rng.integers(I32_MIN, I32_MAX, (c, b, v), dtype=np.int32, endpoint=True)
+    ).to(cuda)
+    monkeypatch.setattr(k_wirepath, "LANE_THREADS", threads)
+    before, count = _variants(), k_wirepath.packed_launches
+    got = k_wirepath.packed_shard_round(
+        seg, ni, crnd, q, alive, *_states(stack, lstate),
+        _off16(values) if off == "values" else values, en, limit,
+    )  # fmt: skip
+    want = batched.packed_multigroup_round(*twin, seg, ni, crnd, alive, q, values, en, limit)
+    assert _ran(before) == variant and k_wirepath.packed_launches == count + 1
+    for x, y in zip(got, [*_states(*want[:2]), *want[2:]], strict=True):
+        assert torch.equal(x, y)
+    pads = en == 0
+    assert not got[6][pads].any() and not got[8][pads].any()
+    assert bool((got[7][pads] == -1).all())
+
+
+# ---------------------------------------------------------------------------
 # K9: attention
 # ---------------------------------------------------------------------------
 def _qkv(rng, b, h, kvh, sq, sk, d, dtype, dev):

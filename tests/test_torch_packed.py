@@ -6,11 +6,13 @@ route is that plain version) are held against the reference's jnp oracle
 ``batched.packed_multigroup_round`` and its Pallas kernel
 ``kernels.wirepath.packed_shard_round`` in interpret mode, on plain
 (unsharded) arrays of one shard's slab: Gl in {2, 4}, A=3, N in {128, 256},
-V in {2, 4}, B=16 (and one B=32 window across the ring's end, at the
+V in {2, 4, 5}, B=16 (and one B=32 window across the ring's end, at the
 kernel's block of 16), C in {1, 2, Gl}, ragged tables with pad lanes, a dead
 acceptor, laps of the ring and a limit that refuses part of a window.
 ``ops.shard_slab_round`` is held against the reference's
-``shard_slab_round`` at offsets 0 and Gl of a G = 2 Gl vector.  Tolerance:
+``shard_slab_round`` at offsets 0 and Gl of a G = 2 Gl vector, at V in
+{2, 5}.  V = 5 is no multiple of 4, where the card's kernels take their
+scalar variant.  Tolerance:
 none, every int32 equal.  Inputs come from a numpy seed.
 """
 
@@ -75,12 +77,21 @@ CASES = {
     "pad-gl2": (2, 128, 2, 16, 16, [(0, 64, 1), (0, 0, 0)]),
     "ring-end-gl4": (4, 128, 2, 32, 16, [(1, 128 - 16, 1), (2, 2 * 128 - 16, 1)]),
 }
+# the same at V = 5, where the card's kernel takes its scalar variant
+V5_CASES = {
+    "c2-gl2-v5": (2, 128, 5, 16, 16, [(1, 3 * 128 + 32, 1), (0, 128 - 16, 1)]),
+    "ragged-gl4-v5": (4, 256, 5, 16, 16, [(3, 96, 1), (1, 1024 + 48, 1), (3, 0, 0), (0, 0, 0)]),
+}
 
 
 def _case(name):
-    gl, n, v, b, block_b, lanes = CASES[name]
+    if name in CASES:
+        gl, n, v, b, block_b, lanes = CASES[name]
+        rng = np.random.default_rng(sorted(CASES).index(name))
+    else:
+        gl, n, v, b, block_b, lanes = V5_CASES[name]
+        rng = np.random.default_rng(100 + sorted(V5_CASES).index(name))
     c = len(lanes)
-    rng = np.random.default_rng(sorted(CASES).index(name))
     seg = np.array([r for r, _, _ in lanes], np.int32)
     ni = np.array([x for _, x, _ in lanes], np.int32)
     en = np.array([e for _, _, e in lanes], np.int32)
@@ -97,6 +108,15 @@ def _case(name):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_packed_round_matches_tpu_kernel_and_oracle(name):
+    _packed_matches_tpu_kernel_and_oracle(name)
+
+
+@pytest.mark.parametrize("name", sorted(V5_CASES))
+def test_packed_round_matches_tpu_kernel_and_oracle_at_v5(name):
+    _packed_matches_tpu_kernel_and_oracle(name)
+
+
+def _packed_matches_tpu_kernel_and_oracle(name):
     k = _case(name)
     rs = [jnp.asarray(x) for x in k["slabs"]]
     args = [jnp.asarray(k[x]) for x in ("seg", "ni", "crnd")]
@@ -139,7 +159,16 @@ def test_packed_round_touches_only_enabled_rows():
 
 @pytest.mark.parametrize("offset_shard", [0, 1])
 def test_shard_slab_round_matches_tpu_kernel(offset_shard):
-    gl, n, v, b = 2, 128, 2, 16
+    _shard_slab_matches_tpu_kernel(offset_shard, 2)
+
+
+@pytest.mark.parametrize("offset_shard", [0, 1])
+def test_shard_slab_round_matches_tpu_kernel_at_v5(offset_shard):
+    _shard_slab_matches_tpu_kernel(offset_shard, 5)
+
+
+def _shard_slab_matches_tpu_kernel(offset_shard, v):
+    gl, n, b = 2, 128, 16
     g = 2 * gl
     off = offset_shard * gl
     rng = np.random.default_rng(40 + offset_shard)

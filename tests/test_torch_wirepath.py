@@ -5,7 +5,10 @@ On CPU tensors ``ops.fused_round`` runs the kernel's plain version; here it
 is held against ``repro.kernels.wirepath.wirepath_round(..., interpret=True)``
 over several consecutive rounds, and all nine outputs (six state tensors,
 fresh, win, value) must match bit for bit.  The state must be updated in
-place: the tensors keep their storage across rounds.
+place: the tensors keep their storage across rounds.  The same cases run at
+V = 5 (no multiple of 4: the card's kernel takes its scalar variant there),
+so the plain version the card is held against is proved at such a V too.
+``lane_geometry``, the host's choice of K1's and K6's launch, is pinned here.
 """
 
 from __future__ import annotations
@@ -43,15 +46,24 @@ CASES = [
 
 @pytest.mark.parametrize("alive,base,crnd,lim,b", CASES)
 def test_fused_round_matches_tpu_kernel_interpret(alive, base, crnd, lim, b):
+    _rounds_match_tpu_kernel(alive, base, crnd, lim, b, V)
+
+
+@pytest.mark.parametrize("alive,base,crnd,lim,b", CASES[1::2])
+def test_fused_round_matches_tpu_kernel_interpret_at_v5(alive, base, crnd, lim, b):
+    _rounds_match_tpu_kernel(alive, base, crnd, lim, b, 5)
+
+
+def _rounds_match_tpu_kernel(alive, base, crnd, lim, b, v):
     a = len(alive)
     rng = np.random.default_rng([a, base, crnd + 1, b, 7])
     s = dict(
         rnd=rng.integers(0, 10, (a, N), dtype=np.int32),
         vrnd=rng.integers(-1, 10, (a, N), dtype=np.int32),
-        val=rng.integers(I32_MIN, I32_MAX, (a, N, V), dtype=np.int32, endpoint=True),
+        val=rng.integers(I32_MIN, I32_MAX, (a, N, v), dtype=np.int32, endpoint=True),
         ldel=rng.integers(0, 2, (N,), dtype=np.int32),
         linst=rng.integers(-1, 8 * N, (N,), dtype=np.int32),
-        lval=rng.integers(I32_MIN, I32_MAX, (N, V), dtype=np.int32, endpoint=True),
+        lval=rng.integers(I32_MIN, I32_MAX, (N, v), dtype=np.int32, endpoint=True),
     )
     rounds = 3
     inst = base + np.arange(rounds * b)
@@ -64,7 +76,7 @@ def test_fused_round_matches_tpu_kernel_interpret(alive, base, crnd, lim, b):
     ptrs = [t.data_ptr() for t in (*vars(stack).values(), *vars(lstate).values())]
     limit = None if lim is None else base + lim
     for r in range(rounds):
-        vals = rng.integers(I32_MIN, I32_MAX, (b, V), dtype=np.int32, endpoint=True)
+        vals = rng.integers(I32_MIN, I32_MAX, (b, v), dtype=np.int32, endpoint=True)
         want = rwire.wirepath_round(
             jnp.int32(base + r * b),
             jnp.int32(crnd),
@@ -106,3 +118,48 @@ def test_kernel_wrapper_refuses_cpu_tensors():
             z((3, 16, 4), dtype=torch.int32), z(16, dtype=torch.int32),
             z(16, dtype=torch.int32), z((16, 4), dtype=torch.int32), z((8, 4), dtype=torch.int32),
         )  # fmt: skip
+
+
+# (V, B, rows, aligned, LANE_THREADS) -> (variant, team, grid): a team is the
+# power of two at or above the lane's words (int4 where aligned and V % 4 ==
+# 0, else int32), at most 32; a block holds threads // team lanes
+GEOMETRY = [
+    ((16, 128, 1, True, 128), ("vector", 4, (4, 1))),  # the paths' V: G=1 on 4 SMs
+    ((16, 128, 1, True, 64), ("vector", 4, (8, 1))),
+    ((16, 128, 8, True, 128), ("vector", 4, (4, 8))),  # cohort G=8, K6 C=8
+    ((16, 128, 1, False, 128), ("scalar", 16, (16, 1))),  # a view 4 bytes off 16
+    ((5, 128, 1, True, 128), ("scalar", 8, (8, 1))),
+    ((1, 128, 4, True, 64), ("scalar", 1, (2, 4))),
+    ((4, 300, 2, True, 128), ("vector", 1, (3, 2))),
+    ((12, 16, 1, True, 64), ("vector", 4, (1, 1))),
+    ((64, 128, 1, True, 128), ("vector", 16, (16, 1))),
+    ((64, 128, 1, False, 128), ("scalar", 32, (32, 1))),
+    ((301, 8, 3, True, 96), ("scalar", 32, (3, 3))),
+    ((300, 8, 3, True, 96), ("vector", 32, (3, 3))),
+]
+
+
+@pytest.mark.parametrize("args,want", GEOMETRY)
+def test_lane_geometry_chooses_variant_team_block_and_grid(monkeypatch, args, want):
+    monkeypatch.setattr(twire, "LANE_THREADS", args[4])
+    geo = twire.lane_geometry(*args[:4])
+    assert (geo.variant, geo.team, geo.grid) == want
+    assert geo.block == args[4] and geo.block % geo.team == 0 and 32 % geo.team == 0
+
+
+def test_lane_geometry_reads_alignment_from_the_tensors(monkeypatch):
+    """The wrapper's choice from ``data_ptr() % 16``: every value tensor on
+    16 bytes gives the vector variant, one contiguous view 4 bytes off
+    gives the scalar one; blocks that are not whole warps are refused."""
+    b, v = 128, 16
+    whole = torch.zeros((b * v + 4,), dtype=torch.int32)
+    aligned = whole[: b * v].view(b, v)
+    off = whole[1 : b * v + 1].view(b, v)
+    assert aligned.data_ptr() % 16 == 0 and off.data_ptr() % 16 == 4 and off.is_contiguous()
+    assert twire._lanes(v, b, 1, aligned, aligned).variant == "vector"
+    assert twire._lanes(v, b, 1, aligned, off).variant == "scalar"
+    assert twire._lanes(5, b, 1, aligned).variant == "scalar"
+    for threads in (48, 16, 2048):
+        monkeypatch.setattr(twire, "LANE_THREADS", threads)
+        with pytest.raises(ValueError, match="whole warps"):
+            twire.lane_geometry(v, b, 1, True)
