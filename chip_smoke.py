@@ -11,12 +11,15 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
 3. the kernel phase: each kernel against its plain PyTorch version on the
    card, at its path's shapes and at adversarial windows, bit for bit; the
    round kernel K1 at one group and in its cohort and multi-group forms, and
-   its persistent form K5, also against K sequential K1 launches (K5's
-   one-thread lane body against K1's team body), and the packed shard round
-   K6 and K1's shard slice, K6 also against K1's shard slice on one cohort;
-   K1 and K6 in both variants of their team body (vector at V = 16 on
-   16-byte aligned tensors, scalar at V = 5 and on views 4 bytes off 16),
-   each case printing the variant it took;
+   its persistent form K5 (K1's team body, the rounds spread over the grid),
+   also against K sequential K1 launches and at K = 65,535 and 65,536 (the
+   grid's z edge), and the packed shard round K6 and K1's shard slice, K6
+   also against K1's shard slice on one cohort; the staged vote K2 (a team
+   of threads per (acceptor, lane)) also against K7's one-thread body on
+   each alive acceptor's own file; K1, K5, K6 and K2 in both variants of
+   their team body (vector at V = 16 on 16-byte aligned tensors, scalar at
+   V = 5 and on views 4 bytes off 16), each case printing the variant it
+   took;
 4. the main path: ``PaxosContext(PaxosConfig(), fused=True, use_kernels=True,
    snapshots=True)`` on the card under a seeded lossy ``SimNet``, with ring
    wrap under reclamation, snapshots, an acceptor kill and revive, a crash
@@ -74,12 +77,12 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    prompt tokens and 16 new ones at batch 4, twice alike, and two of them
    alone as in the batch;
 12. times: each kernel by CUDA events at its path's shapes beside its bound
-   and its plain version (K1 and K6 also beside the launch floor of their
-   grid, an empty kernel, their times at 64, 128 and 256 threads a block
-   and the one-thread-a-lane body on the same windows, with the
-   registers, spills and 128-bit load and store counts of
-   ``csrc/wirepath.cu``'s kernels, which must show no spill in K1's and
-   K6's and 128-bit stores in their vector variants; K9 also beside PyTorch's
+   and its plain version (K1, K5, K6 and K2 also beside the launch floor of
+   their grid, an empty kernel, and their times at 64, 128 and 256 threads
+   a block, with the registers, spills and 128-bit load and store counts of
+   ``csrc/wirepath.cu``'s and ``csrc/vote.cu``'s kernels, which must show no
+   spill in a team kernel and 128-bit stores in its vector variant; K9 also
+   beside PyTorch's
    ``scaled_dot_product_attention``, with its registers and spills and its
    library's HGMMA and UTMALDG counts, which must not be 0), each consensus
    path's decided values/s
@@ -88,7 +91,8 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run, and
-so does a K1 or K6 launch of a path that did not take the vector variant.
+so does a launch of a team kernel (K1, K5, K6, K2) of a path that did not
+take the vector variant.
 
 Any failure raises, so the script exits non-zero and prints no result.
 """
@@ -218,7 +222,7 @@ def sync(dev) -> None:
 
 def off16(x: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
-    boundary: K1 and K6 must take their scalar variant on it."""
+    boundary: a team kernel must take its scalar variant on it."""
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
     y = buf[1:].view(x.shape)
     y.copy_(x)
@@ -228,19 +232,20 @@ def off16(x: torch.Tensor) -> torch.Tensor:
 
 
 def variants() -> tuple[int, int]:
+    """The launch counts of the team kernels' (K1, K5, K6, K2) two variants."""
     return k_wirepath.vector_launches, k_wirepath.scalar_launches
 
 
 def variant_since(before: tuple[int, int]) -> str:
-    """Which of K1's and K6's variants the launches since ``before`` took."""
+    """Which variants the team kernels' launches since ``before`` took."""
     vec, sca = (now - was for now, was in zip(variants(), before, strict=True))
     return "/".join(name for name, n in (("vector", vec), ("scalar", sca)) if n) or "none"
 
 
 @contextlib.contextmanager
 def lane_threads(threads: int):
-    """K1's and K6's threads per block (``k_wirepath.LANE_THREADS``) while
-    entered."""
+    """The team kernels' threads per block (``k_wirepath.LANE_THREADS``)
+    while entered."""
     was, k_wirepath.LANE_THREADS = k_wirepath.LANE_THREADS, threads
     try:
         yield
@@ -392,8 +397,11 @@ def check_votes(dev, n: int = 1 << 16, v: int = 16) -> tuple[int, int, list]:
     ``batched.acceptor_phase2``), at A in {3, 5} and B in {8, 128}: aligned,
     misaligned and ring-end windows, a dead acceptor, a stale round (every
     lane rejected), NOP fillers, a recovery window at an arbitrary instance,
-    the state updated in place.  Returns the largest differences of K2 and
-    K7 and the vote batches K2 made, for K8's check."""
+    the state updated in place; K2 in its vector variant there, then in its
+    scalar one at V = 5 and with the burst a view 4 bytes off 16 into a
+    larger one or ``st_val`` 4 bytes off 16 (``check_k2_variants``).
+    Returns the largest differences of K2 and K7 and the vote batches K2
+    made, for K8's check."""
     rng = np.random.default_rng(SEED + 6)
     worst2 = worst7 = 0
     made = []
@@ -422,6 +430,7 @@ def check_votes(dev, n: int = 1 << 16, v: int = 16) -> tuple[int, int, list]:
                     rng, rng.permutation(n)[:b] + rng.integers(0, 9, b) * n, crnd + 2, v, dev)),
             ]  # fmt: skip
             for name, msgs in cases:
+                before = variants()
                 st, got = ops.acceptor_phase2_all(state, msgs, alv)
                 _, want = batched.acceptor_phase2_all(twin, msgs, alv)
                 err2 = max_abs_err([*got.tensors(), *vars(state).values()],
@@ -440,13 +449,115 @@ def check_votes(dev, n: int = 1 << 16, v: int = 16) -> tuple[int, int, list]:
                     raise AssertionError("K2 or K7 did not update the state in place")
                 if name == "stale round" and bool((got.msgtype == 4).any()):
                     raise AssertionError("a stale round was accepted")
-                print(f"  K2/K7 a={a} alive={alive} b={b} {name}: "
+                variant = variant_since(before)
+                print(f"  K2/K7 a={a} alive={alive} b={b} {name}: K2 variant={variant} "
                       f"max_abs_err K2={err2} K7={err7}")  # fmt: skip
                 if err2 or err7:
                     raise AssertionError(f"K2 or K7 disagrees with the plain engine: {name}")
+                if variant != "vector":
+                    raise AssertionError(f"K2 took the {variant} variant at V={v}, aligned")
                 worst2, worst7 = max(worst2, err2), max(worst7, err7)
                 made.append((got, a))
+    worst2 = max(worst2, check_k2_variants(dev, n), check_k2_against_k7(dev, n, v))
     return worst2, worst7, made
+
+
+def vote_case(rng, a, n, v, crnd, dev):
+    """Random acceptor rings whose promises straddle ``crnd``, and a plain
+    twin."""
+    state = AcceptorState(
+        torch.from_numpy(rng.integers(0, crnd + 2, (a, n), dtype=np.int32)).to(dev),
+        torch.from_numpy(rng.integers(-1, crnd + 2, (a, n), dtype=np.int32)).to(dev),
+        torch.from_numpy(rng.integers(-(2**31), 2**31, (a, n, v), dtype=np.int32)).to(dev),
+    )
+    return state, AcceptorState(*(x.clone() for x in vars(state).values()))
+
+
+def check_k2_variants(dev, n: int) -> int:
+    """K2's scalar variant against the plain engine: V = 5; V = 16 with the
+    burst a view 4 bytes off 16 into a larger burst (as a caller's slice
+    of one); V = 16 with ``st_val`` 4 bytes off 16; and V = 1 at A = 8.
+    Each case asserts and prints the variant it took.  Returns the largest
+    difference."""
+    rng = np.random.default_rng(SEED + 25)
+    worst, b, crnd = 0, 128, 6
+    variant_cases = (
+        (3, 5, None, [1, 0, 1], 1003),
+        (3, 16, "burst", [1, 1, 1], n - 60),
+        (5, 16, "st_val", [1, 1, 0, 1, 1], 4096),
+        (8, 1, None, [1, 0, 1, 1, 1, 0, 1, 1], 3 * n + 9),
+    )
+    for a, vc, off, alive, base in variant_cases:
+        state, twin = vote_case(rng, a, n, vc, crnd, dev)
+        if off == "st_val":
+            state = AcceptorState(state.rnd, state.vrnd, off16(state.value))
+        msgs = phase2_batch(rng, base + np.arange(b), crnd, vc, dev)
+        if off == "burst":  # rows 1..B of a (B + 1)-row burst, 4 bytes off 16 at V = 16
+            whole = torch.cat([msgs.value[:1], msgs.value]).reshape(-1)
+            view = off16(whole)[vc:].view(b, vc)
+            if not view.is_contiguous() or view.data_ptr() % 16 != 4:
+                raise AssertionError("check_k2_variants: the burst view is not 4 bytes off 16")
+            msgs = msgs.replace(value=view)
+        alv = torch.tensor(alive, dtype=torch.bool, device=dev)
+        before = variants()
+        _, got = ops.acceptor_phase2_all(state, msgs, alv)
+        _, want = batched.acceptor_phase2_all(twin, msgs, alv)
+        sync(dev)
+        variant = variant_since(before)
+        err = max_abs_err([*got.tensors(), *vars(state).values()],
+                          [*want.tensors(), *vars(twin).values()])  # fmt: skip
+        print(f"  K2 a={a} v={vc} off16={off}: variant={variant} max_abs_err={err}")
+        if err:
+            raise AssertionError(f"K2 disagrees with the plain engine at a={a} v={vc} off16={off}")
+        if variant != "scalar":
+            raise AssertionError(f"K2 took the {variant} variant at v={vc} off16={off}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_k2_against_k7(dev, n: int, v: int) -> int:
+    """K2's team body against K7's one-thread ``vote_lane``: at A=3, B=128,
+    acceptor 1 dead, over an aligned, a ring-end and a scattered window, in
+    both variants (V = 16 and V = 5), each alive acceptor's vote row and
+    registers from K2 must equal K7's on a clone of that acceptor's file; the
+    dead acceptor's row and registers equal the plain engine's.  Returns the
+    largest difference."""
+    rng = np.random.default_rng(SEED + 26)
+    a, b, crnd, alive = 3, 128, 6, [1, 0, 1]
+    alv = torch.tensor(alive, dtype=torch.bool, device=dev)
+    worst = 0
+    for vc in (v, 5):
+        state, twin = vote_case(rng, a, n, vc, crnd, dev)
+        files = {i: AcceptorState(*(x[i].clone() for x in vars(state).values()))
+                 for i in range(a) if alive[i]}  # fmt: skip
+        windows = (
+            ("aligned", 4096 + np.arange(b)),
+            ("ring end", 3 * n - b // 2 + np.arange(b)),
+            ("scattered", rng.permutation(n)[:b] + rng.integers(0, 9, b) * n),
+        )
+        for name, inst in windows:
+            msgs = phase2_batch(rng, inst, crnd + rng.integers(-1, 2), vc, dev)
+            before = variants()
+            _, got = ops.acceptor_phase2_all(state, msgs, alv)
+            _, plain = batched.acceptor_phase2_all(twin, msgs, alv)
+            variant = variant_since(before)
+            mine, theirs = [], []
+            for i in range(a):
+                row = [x[i] for x in got.tensors()] + [x[i] for x in vars(state).values()]
+                if alive[i]:
+                    _, k7 = ops.acceptor_phase2(files[i], msgs, i)
+                    other = [*k7.tensors(), *vars(files[i]).values()]
+                else:
+                    other = [x[i] for x in plain.tensors()] + [x[i] for x in vars(twin).values()]
+                mine += row
+                theirs += other
+            sync(dev)
+            err = max_abs_err(mine, theirs)
+            print(f"  K2 against K7 v={vc} {name}: K2 variant={variant} max_abs_err={err}")
+            if err:
+                raise AssertionError(f"K2 disagrees with K7 on an alive acceptor: v={vc} {name}")
+            worst = max(worst, err)
+    return worst
 
 
 def check_k8(dev, made: list, v: int = 16) -> int:
@@ -648,10 +759,13 @@ def check_k5(dev, n: int = 1 << 16, v: int = 16) -> int:
     windows across the ring end and across 2^31); one member of each wave
     frozen from round 2 on (``wen`` 0); dead acceptors (one group below
     quorum) and a frozen round (NO_ROUND); a limit inside the wave and one
-    that wrapped past int32 max; ``block_b`` 128 and 32; the state updated
-    in place; one wave at V=5.  Then one wave against K sequential
-    K1-cohort launches over the same descriptor: K5's one-thread body
-    against K1's team body.  Returns the largest difference."""
+    that wrapped past int32 max; blocks of 128, 64 and 256 threads (with
+    ``block_b`` 128, 32 and 128, which changes nothing); the state updated
+    in place; the vector variant, then the scalar one on a wave at V=5 and
+    on waves whose burst, ``st_val`` or ``lval`` is 4 bytes off 16, each
+    case printing its variant.  Then one wave against K sequential K1-cohort
+    launches over the same descriptor, and waves at the grid's z edge.
+    Returns the largest difference."""
     rng = np.random.default_rng(SEED + 16)
     g, a, q = 8, 3, 2
     alive = np.ones((g, a), bool)
@@ -666,10 +780,12 @@ def check_k5(dev, n: int = 1 << 16, v: int = 16) -> int:
     cases.append(dict(gb=8, sel="all, K*B = N", gsel=[0], bases=[4096] * g, enabled=[1] * g,
                       b=128, k=n // 128))  # fmt: skip
     cases.append(dict(cohort_cases(n, 128)[4], b=128, k=8, v=5))  # GB=2, a subset, V=5
+    for i, off in ((1, "values"), (3, "st_val"), (6, "lval")):  # the scalar variant, V=16
+        cases.append(dict(cohort_cases(n, 128)[i], b=128, k=8, off=off))
     worst = 0
     for case in cases:
         b, k, gb, gsel, bases = case["b"], case["k"], case["gb"], case["gsel"], case["bases"]
-        vc = case.get("v", v)
+        vc, off = case.get("v", v), case.get("off")
         rows = [blk * gb + j for blk in gsel for j in range(gb)]
         wen = np.zeros((k, g), np.int32)
         for gi in rows:
@@ -691,13 +807,18 @@ def check_k5(dev, n: int = 1 << 16, v: int = 16) -> int:
                                                 group_block=gb)  # fmt: skip
         plain = [*vars(want[0]).values(), *vars(want[1]).values(), want[2].to(torch.int32),
                  *want[3:]]  # fmt: skip
-        errs = []
-        for block_b in (128, 32):
-            mine = clone_slabs(stack, lstate)
+        errs, ran = [], []
+        for block_b, threads in ((128, 128), (32, 64), (128, 256)):
+            mine = held(*clone_slabs(stack, lstate), off)
             ptrs = [x.data_ptr() for x in (*vars(mine[0]).values(), *vars(mine[1]).values())]
-            got = ops.persistent_cohort_rounds(*mine, gsel, wni, wen, cr, al, q, values, limit,
-                                               group_block=gb, block_b=block_b)  # fmt: skip
+            before = variants()
+            with lane_threads(threads):
+                got = ops.persistent_cohort_rounds(
+                    *mine, gsel, wni, wen, cr, al, q, off16(values) if off == "values" else values,
+                    limit, group_block=gb, block_b=block_b,
+                )  # fmt: skip
             sync(dev)
+            ran.append(variant_since(before))
             state = [*vars(got[0]).values(), *vars(got[1]).values()]
             if [x.data_ptr() for x in state] != ptrs:
                 raise AssertionError("K5 did not update the state in place")
@@ -705,19 +826,68 @@ def check_k5(dev, n: int = 1 << 16, v: int = 16) -> int:
             inert = torch.from_numpy(wen[:, rows] == 0).to(dev)  # (K, C)
             if bool(got[2][inert].any() or (got[3][inert] != -1).any() or got[4][inert].any()):
                 raise AssertionError(f"K5: an inert round of {case} decided or voted")
-        print(f"  K5 b={b} k={k} v={vc} gb={gb} {case['sel']} gsel={gsel} frozen={frozen} "
-              f"from round 2: "
-              f"max_abs_err={max(errs)} (block_b 128: {errs[0]}, 32: {errs[1]})")  # fmt: skip
+        print(f"  K5 b={b} k={k} v={vc} off16={off} gb={gb} {case['sel']} gsel={gsel} "
+              f"frozen={frozen} from round 2: variant={ran[0]} max_abs_err={max(errs)} "
+              f"(128, 64, 256 threads: {errs})")  # fmt: skip
         if max(errs):
             raise AssertionError(f"K5 disagrees with its plain version: {case}")
+        if set(ran) != {"vector" if vc % 4 == 0 and off is None else "scalar"}:
+            raise AssertionError(f"K5 took the {ran} variants at {case}")
         worst = max(worst, *errs)
-    worst = max(worst, check_k5_against_k1(dev, n, v))
+    worst = max(worst, check_k5_against_k1(dev, n, v), check_k5_z_edge(dev))
+    return worst
+
+
+def check_k5_z_edge(dev) -> int:
+    """K5 where the rounds outgrow the grid's z extent (65,535): at B = 1,
+    K * B <= N admits K up to N, so waves of K = 65,535 (one round a z
+    block) and K = 65,536 and 140,000 (blocks serve rounds z, z + 65,535,
+    ...), G=2 with group 1 selected, windows across the ring end, a dead
+    acceptor, both variants.  A wave of K rounds of one lane at B = 1 with
+    every round enabled is one K-lane window: it is held against one
+    ``batched.cohort_fused_round`` of B = K (outputs transposed), the state
+    compared whole.  Returns the largest difference."""
+    rng = np.random.default_rng(SEED + 27)
+    g, a, q, worst = 2, 3, 2, 0
+    for k, n, vc in ((65_535, 1 << 16, 16), (1 << 16, 1 << 16, 16), (140_000, 1 << 18, 5)):
+        base = n - 7
+        stack, lstate = mg_state(rng, g, a, n, vc, k, [base] * g, [5] * g, dev)
+        twin = clone_slabs(stack, lstate)
+        wen = np.ones((k, g), np.int32)
+        wni = wave_walk([base] * g, wen, 1)
+        i32 = dict(dtype=torch.int32, device=dev)
+        cr = torch.full((g,), 5, **i32)
+        alive = torch.ones((g, a), dtype=torch.bool, device=dev)
+        alive[1, 2] = False
+        values = torch.from_numpy(
+            rng.integers(-(2**31), 2**31, (k, 1, 1, vc), dtype=np.int32)).to(dev)  # fmt: skip
+        before = variants()
+        got = ops.persistent_cohort_rounds(stack, lstate, [1], wni, wen, cr, alive, q, values)
+        want = batched.cohort_fused_round(*twin, [1], torch.tensor(wni[0], **i32), cr, alive, q,
+                                          values.reshape(1, k, vc), [1] * g)  # fmt: skip
+        sync(dev)
+        variant = variant_since(before)
+        err = max_abs_err(
+            [*vars(stack).values(), *vars(lstate).values(), got[2].reshape(1, k).to(torch.int32),
+             got[3].reshape(1, k), got[4].reshape(1, k, vc)],
+            [*vars(twin[0]).values(), *vars(twin[1]).values(), want[2].to(torch.int32),
+             want[3], want[4]],
+        )  # fmt: skip
+        print(f"  K5 z edge: k={k} b=1 n={n} v={vc}: grid z "
+              f"{k_wirepath.wave_geometry(vc, 1, 1, k, n, True).grid[2]}, variant={variant} "
+              f"max_abs_err={err}")  # fmt: skip
+        if err:
+            raise AssertionError(f"K5 disagrees with one K-lane round at K={k}")
+        if variant != ("vector" if vc % 4 == 0 else "scalar"):
+            raise AssertionError(f"K5 took the {variant} variant at K={k}, V={vc}")
+        worst = max(worst, err)
     return worst
 
 
 def check_k5_against_k1(dev, n: int, v: int) -> int:
-    """One K5 wave against K sequential K1-cohort launches over the same
-    descriptor, as the reference's chaos parity test: G=8, B=128, K=8,
+    """One K5 wave (K1's team body, the rounds spread over the grid) against
+    K sequential K1-cohort launches over the same descriptor, as the
+    reference's chaos parity test: G=8, B=128, K=8,
     GB=2, every block selected, blocks across 2^31, across the ring end and
     aligned, group 5 frozen from round 3 on (its watermark stops walking),
     a dead acceptor and a wrapped limit.  Returns the largest difference."""
@@ -1111,8 +1281,8 @@ LAUNCHES = {  # kernel name -> (module, attribute) of its wrapper's count
     "K6": (k_wirepath, "packed_launches"),
     "K1-shard": (k_wirepath, "shard_launches"),
     "K9": (k_flash, "launches"),
-    "K1/K6 vector": (k_wirepath, "vector_launches"),
-    "K1/K6 scalar": (k_wirepath, "scalar_launches"),
+    "team vector": (k_wirepath, "vector_launches"),  # K1, K5, K6 and K2
+    "team scalar": (k_wirepath, "scalar_launches"),
 }
 
 
@@ -1987,18 +2157,6 @@ def time_k1(dev) -> dict:
         cstate = CoordinatorState(bases[k], crnd_t)
         batched.fused_round(cstate, stack, lstate, bursts[k], active, alive, q, limit)
 
-    # the one-thread-a-lane body of the first K1, still K5's: K5 at K=1 on
-    # the (1, ...) views of the same state
-    one = [x[None] for x in (*vars(stack).values(), *vars(lstate).values())]
-    i32 = dict(dtype=torch.int32, device=dev)
-    gsel0, ones = torch.zeros(1, **i32), torch.ones((1, 1), **i32)
-    limit1 = torch.full((1,), limit, **i32)
-
-    def old_body(k):
-        k_wirepath._persistent_launch(gsel0, 1, bases[k].view(1, 1), ones, crnd_t.view(1), q,
-                                      alive.view(1, a), *one, bursts[k].view(1, 1, b, v), limit1,
-                                      b)  # fmt: skip
-
     accept = (crnd >= host["rnd"]) & (inst < limit)[None]
     fresh = (accept.sum(0) >= q) & ~((host["ldel"] != 0) & (host["linst"] == inst))
     if not (accept.all() and fresh.all()):
@@ -2014,7 +2172,7 @@ def time_k1(dev) -> dict:
         eager_ms=time_walk(kernel, walk, False, restore),
         plain_eager_ms=time_walk(plain, walk, False, restore),
         bound_ms=bms, bound_by=by, bytes_per_launch=nbytes,
-        **team_times(kernel, old_body, walk, restore, v, b, 1, dev),
+        **team_times(kernel, walk, restore, k_wirepath.lane_geometry(v, b, 1, True), dev),
     )  # fmt: skip
     restore()
     return out
@@ -2025,21 +2183,21 @@ def time_launch_floor(geo, walk: int, dev) -> float:
     ``walk`` launches in one CUDA graph, as ``time_walk`` times each kernel:
     the floor under a launch of that shape."""
     fn = _build.library("wirepath").launch_floor
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    gx, gy, gz = (*geo.grid, 1)[:3]
 
     def launch(k):
-        _build.check(fn(*geo.grid, geo.block, torch.cuda.current_stream(dev).cuda_stream),
+        _build.check(fn(gx, gy, gz, geo.block, torch.cuda.current_stream(dev).cuda_stream),
                      "launch_floor")  # fmt: skip
 
     return time_walk(launch, walk, True)
 
 
-def team_times(kernel, old_body, walk: int, restore, v: int, b: int, rows: int, dev) -> dict:
-    """Beside a K1 or K6 time at the default block: its launch floor, its
-    times at 64, 128 and 256 threads a block, and the old one-thread-a-lane
-    body (K5 at K=1) on the same windows, all in this call."""
-    geo = k_wirepath.lane_geometry(v, b, rows, True)
+def team_times(kernel, walk: int, restore, geo, dev) -> dict:
+    """Beside a team kernel's time at the default block: the launch floor of
+    its grid ``geo`` (2-D, or K5's 3-D) and its times at 64, 128 and 256
+    threads a block, all in this call."""
     by_threads = {}
     for threads in (64, 128, 256):
         with lane_threads(threads):
@@ -2047,7 +2205,6 @@ def team_times(kernel, old_body, walk: int, restore, v: int, b: int, rows: int, 
     return dict(
         threads=geo.block, team=geo.team, grid=list(geo.grid),
         floor_ms=time_launch_floor(geo, walk, dev), ms_by_threads=by_threads,
-        old_body_ms=time_walk(old_body, walk, True, restore),
     )  # fmt: skip
 
 
@@ -2193,6 +2350,10 @@ def time_staged(dev) -> dict:
             eager_ms=time_walk(kernel, walk, False, restore),
             bound_ms=bms, bound_by=by, bytes_per_launch=nbytes,
         )  # fmt: skip
+    # K2, a team kernel on a (lane blocks, A) grid: its floor and block sizes
+    geo = k_wirepath.lane_geometry(v, b, a, True)
+    out["acceptor_vote_all"].update(team_times(runs["acceptor_vote_all"][0], walk, restore, geo,
+                                               dev))  # fmt: skip
     restore()
     return out
 
@@ -2257,7 +2418,6 @@ def time_k1_cohort(dev) -> dict:
     limit = torch.full((g,), 2 * n, **i32)  # the reclaim mark one lap back
     alive = torch.ones((g, a), dtype=torch.bool, device=dev)
     enabled = torch.ones((g,), **i32)
-    wen1 = torch.ones((1, g), **i32)
 
     def restore():
         for k, x in init.items():
@@ -2273,11 +2433,6 @@ def time_k1_cohort(dev) -> dict:
                                       *vars(stack).values(), *vars(lstate).values(),
                                       bursts[k, rows], enabled, limit)  # fmt: skip
 
-        def old_body(k, gsel_t=gsel_t, gb=gb, rows=rows):
-            k_wirepath._persistent_launch(gsel_t, gb, bases[k][None], wen1, crnd_t, q, alive,
-                                          *vars(stack).values(), *vars(lstate).values(),
-                                          bursts[k, rows][None], limit, b)  # fmt: skip
-
         def plain(k, gsel_t=gsel_t, gb=gb, rows=rows):
             batched.cohort_fused_round(stack, lstate, gsel_t, bases[k], crnd_t, alive, q,
                                        bursts[k, rows], enabled, limit, group_block=gb)  # fmt: skip
@@ -2289,7 +2444,7 @@ def time_k1_cohort(dev) -> dict:
             plain_ms=time_walk(plain, walk, True, restore),
             eager_ms=time_walk(kernel, walk, False, restore),
             bound_ms=bms, bound_by=by, bytes_per_launch=nbytes, groups=c,
-            **team_times(kernel, old_body, walk, restore, v, b, c, dev),
+            **team_times(kernel, walk, restore, k_wirepath.lane_geometry(v, b, c, True), dev),
         )  # fmt: skip
     restore()
     return dict(out["gb8"], gb1=out["gb1"])
@@ -2344,7 +2499,7 @@ def time_k5(dev) -> dict:
         def kernel(w, gsel_t=gsel_t, gb=gb, vals=vals):
             k_wirepath._persistent_launch(gsel_t, gb, wni[w], wen, crnd_t, q, alive,
                                           *vars(stack).values(), *vars(lstate).values(),
-                                          vals[w], limit, b)  # fmt: skip
+                                          vals[w], limit)  # fmt: skip
 
         def plain(w, gsel_t=gsel_t, gb=gb, vals=vals):
             batched.persistent_cohort_rounds(stack, lstate, gsel_t, wni[w], wen, crnd_t, alive, q,
@@ -2353,11 +2508,13 @@ def time_k5(dev) -> dict:
         nbytes = k5_bytes(a, b, v, c, len(gsel), k, g)
         bms, by = bound_ms(nbytes, k * c * b * (4 * a + 2 * a + 8 + v))
         ms = time_walk(kernel, walk, True, restore)
+        geo = k_wirepath.wave_geometry(v, b, c, k, n, True)
         out[name] = dict(
             ms=ms, per_round_ms=ms / k,
             plain_ms=time_walk(plain, walk, True, restore),
             eager_ms=time_walk(kernel, walk, False, restore),
             bound_ms=bms, bound_by=by, bytes_per_launch=nbytes, groups=c, rounds=k,
+            **team_times(kernel, walk, restore, geo, dev),
         )  # fmt: skip
     restore()
     return dict(out["gb8"], gb1=out["gb1"])
@@ -2394,11 +2551,6 @@ def time_k6(dev) -> dict:
         for k, x in init.items():
             live[k].copy_(x)
 
-    # K5 at K=1 on the same rows and windows (every lane's base is the same)
-    bases1 = torch.arange(n, 2 * n, b, **i32)[:, None].expand(walk, gl).contiguous()
-    wen1 = torch.ones((1, gl), **i32)
-    crnd_g, limit_g = torch.full((gl,), crnd, **i32), torch.full((gl,), 2 * n, **i32)
-    alive_g = torch.ones((gl, a), dtype=torch.bool, device=dev)
     out = {}
     for name, rows in (("c1", [3]), ("c4", [0, 2, 5, 7])):
         c = len(rows)
@@ -2414,11 +2566,6 @@ def time_k6(dev) -> dict:
             k_wirepath._packed_launch(seg, bases[k], cr, lim, al, en, q, *vars(stack).values(),
                                       *vars(lstate).values(), bursts[k])  # fmt: skip
 
-        def old_body(k, rows_t=torch.tensor(rows, **i32), bursts=bursts):
-            k_wirepath._persistent_launch(rows_t, 1, bases1[k][None], wen1, crnd_g, q, alive_g,
-                                          *vars(stack).values(), *vars(lstate).values(),
-                                          bursts[k][None], limit_g, b)  # fmt: skip
-
         def plain(k, seg=seg, bases=bases, bursts=bursts, cr=cr, en=en, lim=lim, al=al):
             batched.packed_multigroup_round(stack, lstate, seg, bases[k], cr, al, q, bursts[k],
                                             en, lim)  # fmt: skip
@@ -2430,7 +2577,7 @@ def time_k6(dev) -> dict:
             plain_ms=time_walk(plain, walk, True, restore),
             eager_ms=time_walk(kernel, walk, False, restore),
             bound_ms=bms, bound_by=by, bytes_per_launch=nbytes, lanes=c,
-            **team_times(kernel, old_body, walk, restore, v, b, c, dev),
+            **team_times(kernel, walk, restore, k_wirepath.lane_geometry(v, b, c, True), dev),
         )  # fmt: skip
     restore()
     return dict(out["c1"], c4=out["c4"])
@@ -2469,12 +2616,6 @@ def time_k1_shard(dev) -> dict:
                                   *vars(stack).values(), *vars(lstate).values(), bursts[k],
                                   en[rows], lim[rows])  # fmt: skip
 
-    def old_body(k):
-        k_wirepath._persistent_launch(gsel, gl, bases[k, rows][None], en[rows][None], cr[rows],
-                                      q, alive[rows], *vars(stack).values(),
-                                      *vars(lstate).values(), bursts[k][None], lim[rows],
-                                      b)  # fmt: skip
-
     def plain(k):
         batched.shard_slab_round(off, bases[k], cr, alive, q, stack, lstate, bursts[k], en, lim)
 
@@ -2485,7 +2626,7 @@ def time_k1_shard(dev) -> dict:
         plain_ms=time_walk(plain, walk, True, restore),
         eager_ms=time_walk(kernel, walk, False, restore),
         bound_ms=bms, bound_by=by, bytes_per_launch=nbytes, groups=gl,
-        **team_times(kernel, old_body, walk, restore, v, b, gl, dev),
+        **team_times(kernel, walk, restore, k_wirepath.lane_geometry(v, b, gl, True), dev),
     )  # fmt: skip
     restore()
     return out
@@ -2502,35 +2643,44 @@ def kernel_name(mangled: str) -> str:
     return name
 
 
-def wirepath_build_facts() -> dict:
-    """Each kernel of ``csrc/wirepath.cu``: its registers, spills and stack
-    (``-Xptxas -v``) and its 128-bit global loads and stores in the SASS of
-    the built library (``cuobjdump --dump-sass``).  Fails if a team kernel
-    of K1 or K6 spills, if a vector variant has no 128-bit store, or if G=1
-    at the paths' shape runs on one block."""
-    facts, name = {}, None
-    for line in _build.build_log("wirepath").splitlines():
-        if "Compiling entry function" in line:
-            name = kernel_name(line.split("'")[1])
-            facts[name] = {}
-        elif name and "spill stores" in line:
-            facts[name].update(stack_bytes=int(line.split()[0]),
-                               spill_store_bytes=int(line.split(",")[1].split()[0]),
-                               spill_load_bytes=int(line.split(",")[2].split()[0]))  # fmt: skip
-        elif name and "Used" in line and "registers" in line:
-            facts[name]["registers"] = int(line.split("Used")[1].split()[0])
-    for chunk in _build.sass("wirepath").split("Function : ")[1:]:
-        fn = facts.setdefault(kernel_name(chunk.split()[0]), {})
-        fn["ldg128"] = len(re.findall(r"\bLDG(?:\.\w+)*?\.128\b", chunk))
-        fn["stg128"] = len(re.findall(r"\bSTG(?:\.\w+)*?\.128\b", chunk))
-    for entry in ("wirepath_round_kernel", "cohort_wirepath_round_kernel",
-                  "packed_shard_round_kernel"):  # fmt: skip
-        for word in ("<int4>", "<int>"):
-            fn = facts.get(entry + word, {})
-            if fn.get("spill_store_bytes", 1) or fn.get("spill_load_bytes", 1):
-                raise AssertionError(f"{entry}{word} spills or was not built: {fn}")
-        if not facts[entry + "<int4>"].get("stg128"):
-            raise AssertionError(f"{entry}<int4> has no 128-bit global store: {facts}")
+TEAM_KERNELS = {  # source -> its team kernels, each built as <int4> and <int>
+    "wirepath": ("wirepath_round_kernel", "cohort_wirepath_round_kernel",
+                 "persistent_wirepath_round_kernel", "packed_shard_round_kernel"),
+    "vote": ("acceptor_vote_all_kernel",),
+}  # fmt: skip
+
+
+def team_build_facts() -> dict:
+    """Each kernel of ``csrc/wirepath.cu`` and ``csrc/vote.cu``: its
+    registers, spills and stack (``-Xptxas -v``) and its 128-bit global
+    loads and stores in the SASS of the built library (``cuobjdump
+    --dump-sass``).  Fails if a team kernel (K1, K5, K6, K2) spills, if a
+    vector variant has no 128-bit store, or if G=1 at the paths' shape runs
+    on one block."""
+    facts = {}
+    for src, entries in TEAM_KERNELS.items():
+        name = None
+        for line in _build.build_log(src).splitlines():
+            if "Compiling entry function" in line:
+                name = kernel_name(line.split("'")[1])
+                facts[name] = {}
+            elif name and "spill stores" in line:
+                facts[name].update(stack_bytes=int(line.split()[0]),
+                                   spill_store_bytes=int(line.split(",")[1].split()[0]),
+                                   spill_load_bytes=int(line.split(",")[2].split()[0]))  # fmt: skip
+            elif name and "Used" in line and "registers" in line:
+                facts[name]["registers"] = int(line.split("Used")[1].split()[0])
+        for chunk in _build.sass(src).split("Function : ")[1:]:
+            fn = facts.setdefault(kernel_name(chunk.split()[0]), {})
+            fn["ldg128"] = len(re.findall(r"\bLDG(?:\.\w+)*?\.128\b", chunk))
+            fn["stg128"] = len(re.findall(r"\bSTG(?:\.\w+)*?\.128\b", chunk))
+        for entry in entries:
+            for word in ("<int4>", "<int>"):
+                fn = facts.get(entry + word, {})
+                if fn.get("spill_store_bytes", 1) or fn.get("spill_load_bytes", 1):
+                    raise AssertionError(f"{entry}{word} spills or was not built: {fn}")
+            if not facts[entry + "<int4>"].get("stg128"):
+                raise AssertionError(f"{entry}<int4> has no 128-bit global store: {facts}")
     geo = k_wirepath.lane_geometry(16, PaxosConfig().batch, 1, True)
     if geo.grid[0] < 2:
         raise AssertionError(f"K1 at G=1 runs on one block: {geo}")
@@ -2647,11 +2797,12 @@ def require_launched(path: str, launches: dict[str, int], names: list[str]) -> N
 
 
 def require_variant(path: str, launches: dict[str, int], names: list[str]) -> None:
-    """Every K1 and K6 launch of a path (V = 16, slabs on 16 bytes) took the
-    vector variant."""
-    if launches["K1/K6 vector"] != sum(launches[n] for n in names) or launches["K1/K6 scalar"]:
-        raise AssertionError(f"the {path}'s K1/K6 launches did not all take the vector variant: "
-                             f"{launches}")  # fmt: skip
+    """Every launch of a path's team kernels ``names`` (V = 16, tensors on
+    16 bytes) took the vector variant."""
+    vec, sca = launches["team vector"], launches["team scalar"]
+    if vec != sum(launches[n] for n in names) or sca:
+        raise AssertionError(f"the {path}'s team kernel launches did not all take the vector "
+                             f"variant: {launches}")  # fmt: skip
 
 
 def main() -> None:
@@ -2696,7 +2847,7 @@ def run(dev: torch.device) -> None:
     errs["K1-shard"] = check_k1_shard(dev)
     errs["K9"] = check_k9(dev)
     check_lm_small(dev)
-    print(f"  wirepath build: {json.dumps(wirepath_build_facts())}")
+    print(f"  team kernels' build: {json.dumps(team_build_facts())}")
     # timed here, before the paths, and printed after them
     times = {"wirepath_round": time_k1(dev), "digest": time_k4(dev, PaxosConfig().n_instances // 4)}
     times.update(time_staged(dev))
@@ -2716,7 +2867,7 @@ def run(dev: torch.device) -> None:
     require_launched("main path", launches, ["wirepath_round", "digest", "acceptor_vote_all"])
     if launches["wirepath_round"] != kern["rounds"] or plain_votes.calls:
         raise AssertionError(f"the main path did not vote through the kernels: {launches}")
-    require_variant("main path", launches, ["wirepath_round"])
+    require_variant("main path", launches, ["wirepath_round", "acceptor_vote_all"])
     print("  the same schedule on the plain engine (use_kernels=False) on the card")
     plain = run_main_path(False, dev)
     for key in ("delivered_log", "full_log", "seals"):
@@ -2744,6 +2895,7 @@ def run(dev: torch.device) -> None:
         or staged["plain_votes"]
     ):
         raise AssertionError("the staged path did not sequence and vote through K3 and K2")
+    require_variant("staged path", staged_launches, ["acceptor_vote_all"])
     print("  the same schedule on the plain engine (use_kernels=False) on the card")
     staged_plain = run_staged_path(False, dev)
     if not staged_plain["plain_votes"]:
@@ -2769,6 +2921,7 @@ def run(dev: torch.device) -> None:
     require_launched("per-role path", role_launches, list(want))
     if any(role_launches[k] != n for k, n in want.items()):
         raise AssertionError(f"the per-role path's launches are not {want}")
+    require_variant("per-role path", role_launches, ["acceptor_vote_all"])
     errs["learner_quorum"] = max(errs["learner_quorum"], roles["max_abs_err"])
 
     print("multi-group path: PaxosContext(PaxosConfig(n_groups=8, persistent_rounds=1, "
@@ -2783,7 +2936,7 @@ def run(dev: torch.device) -> None:
     require_launched("multi-group path", mg_launches, ["K1-cohort", "digest", "acceptor_vote_all"])
     if mg_launches["K1-cohort"] != dispatches or plain_votes.calls or plain_rounds.calls:
         raise AssertionError(f"the multi-group path did not run through the kernels: {mg_launches}")
-    require_variant("multi-group path", mg_launches, ["K1-cohort"])
+    require_variant("multi-group path", mg_launches, ["K1-cohort", "acceptor_vote_all"])
     print("  the same schedule on the plain engine (use_kernels=False) on the card")
     with PlainCalls("_rows_round") as plain_rounds:
         mg_plain = run_multigroup_path(False, dev)
@@ -2826,7 +2979,8 @@ def run(dev: torch.device) -> None:
         raise AssertionError(f"the default path did not run through K5 and K1: {dflt_launches}")
     if 8 not in depths or not any(1 < k < 8 for k in depths):
         raise AssertionError(f"the default path's waves lack K=8 or a 1 < K < 8: {depths}")
-    require_variant("default multi-group path", dflt_launches, ["K1-cohort"])
+    require_variant("default multi-group path", dflt_launches,
+                    ["K1-cohort", "K5", "acceptor_vote_all"])  # fmt: skip
     print("  the same schedule on the plain engine (use_kernels=False) on the card")
     with PlainCalls("_rows_round") as plain_rounds:
         dflt_plain = run_multigroup_path(False, dev, default_multigroup_config())
@@ -2870,7 +3024,8 @@ def run(dev: torch.device) -> None:
     ):
         raise AssertionError(f"the sharded path did not run through K6 and K1's shard slice: "
                              f"{sh_launches}")  # fmt: skip
-    require_variant("sharded multi-group path", sh_launches, ["K6", "K1-shard"])
+    require_variant("sharded multi-group path", sh_launches,
+                    ["K6", "K1-shard", "acceptor_vote_all"])  # fmt: skip
     if set(shd["depths"]) != {1} or shd["report"]["persistent_waves"]:
         raise AssertionError(f"the sharded context planned persistent waves: {shd['depths']}")
     # a sharded context plans no waves (the reference's clamp), so before

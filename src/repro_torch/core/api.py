@@ -570,8 +570,8 @@ class MultiGroupDataplane(RingReclamationMixin):
         """Batch block of a persistent wave, the reference's choice: one
         block per round (``be``) when the ring and every member's base are
         ``be``-aligned (each round then advances by ``be``), else the wire
-        block.  K5 takes it as its threads per block; no result depends on
-        it."""
+        block.  K5's wrapper checks it as the reference does; no result and
+        no launch depends on it."""
         if self.cfg.n_instances % be == 0 and all(base % be == 0 for base in bases):
             return be
         return plan_mod.wire_block(be)

@@ -599,8 +599,8 @@ def persistent_cohort_rounds(
     """The plain version of the persistent wave kernel, with its compact-row
     contract: the rows of the group blocks ``gsel`` names run K rounds, row
     ``g`` of round ``k`` at ``wni[k, g]`` and inert where ``wen[k, g] ==
-    0``, the rings updated in place.  ``block_b`` is the kernel's launch
-    shape and changes nothing here.  Returns ``(stack, lstate, fresh[K, C,
+    0``, the rings updated in place.  ``block_b`` is the reference kernel's
+    batch block and changes nothing here.  Returns ``(stack, lstate, fresh[K, C,
     B], win[K, C, B], value[K, C, B, V])`` with ``C = NB * group_block``."""
     del block_b
     g, n = stack.rnd.shape[0], stack.rnd.shape[2]

@@ -2,13 +2,14 @@
 // for Hopper (sm_90a).
 //
 // K2 (`acceptor_vote_all`) replaces the TPU kernel `acceptor_vote_all_window`
-// of src/repro/kernels/wirepath.py (body `_vote_all_kernel`): the staged
-// vote of all A acceptors on one batch of Phase-2 headers, the stacked rings
-// updated in place, one (A, B) vote batch per field.  K7
+// of src/repro/kernels/wirepath.py:1034 (body `_vote_all_kernel`): the
+// staged vote of all A acceptors on one batch of Phase-2 headers, the
+// stacked rings updated in place, one (A, B) vote batch per field.  K7
 // (`acceptor_phase2`) replaces `acceptor_phase2_window` of
-// src/repro/kernels/acceptor.py: the same vote by one acceptor on its own
-// register file, with swid = aid and no alive mask.  Both run one lane body,
-// `vote_lane`.
+// src/repro/kernels/acceptor.py:92: the same vote by one acceptor on its own
+// register file, with swid = aid and no alive mask.  K2's kernel runs a
+// team of threads per (acceptor, lane); K7 keeps the first design's one
+// thread per lane, `vote_lane`, which K2's team body is held against.
 //
 // Semantics (bit for bit the TPU kernels' and the plain engine's): acceptor
 // a accepts lane j iff alive[a] && msgtype[j] in {P2A, NOP} && rnd[j] >=
@@ -17,19 +18,44 @@
 // accepted and (REJECT, inst, st_rnd, st_vrnd, swid, 0) where not, so a
 // dead acceptor's row is exactly a rejecter's.  st_val is never read.
 //
-// Design.  One thread per (acceptor, lane); blockIdx.y is the acceptor.
-// The TPU kernels walk BB-aligned ring blocks from one window base, so the
-// reference sends them only sequenced, aligned batches.  Here lane j reads
-// its own inst[j] and addresses slot inst[j] mod N (the floored modulo of
-// jnp's and torch's `%`), so one kernel serves every Phase-2 batch the
-// dataplane votes: sequenced bursts, the software coordinator's batches,
-// the recovery window and the takeover scan, at any window base.
+// Slots.  The TPU kernels walk BB-aligned ring blocks from one window base,
+// so the reference sends them only sequenced, aligned batches.  Here lane j
+// reads its own inst[j] and addresses slot inst[j] mod N (the floored
+// modulo of jnp's and torch's `%`), so one kernel serves every Phase-2
+// batch the dataplane votes: sequenced bursts, the software coordinator's
+// batches, the recovery window and the takeover scan, at any window base.
 // Precondition, as the plain engine's: the batch's slots inst[j] mod N are
-// pairwise distinct (so B <= N), so no two threads of one acceptor write the
+// pairwise distinct (so B <= N), so no two teams of one acceptor write the
 // same registers.  The wrapper checks B <= N; distinctness is the caller's.
 //
-// Bound.  Only the bytes the kernel reads and writes count, at the state
-// where every lane is accepted by every acceptor (st_vrnd is then not read):
+// K2's design.  The first K2 was one thread per (acceptor, lane) on blocks
+// of 128 threads, 3 blocks at A=3, B=128; each thread stored its V value
+// words one int32 at a time into st_val and into the vote value,
+// neighbouring threads 4*V bytes apart, and loaded st_vrnd only after those
+// stores: the three faults K1's first form had (csrc/wirepath.cu's header).
+// Now a team of T threads serves one (acceptor, lane), the team and its
+// chunk loads and stores those of csrc/team.cuh, in three steps:
+//   Load.  Every load first: the lane's burst words the thread owns (their
+//     address depends on j alone), msgtype, inst and rnd of the lane and
+//     alive[a] (read-only, through the non-coherent path), then
+//     st_rnd[a, slot] and st_vrnd[a, slot].
+//   Decide.  accept = alive && msgtype in {P2A, NOP} && rnd >= st_rnd, the
+//     same in every thread of the team; a `__syncwarp` over the team then
+//     separates its reads of st_rnd from thread 0's write.
+//   Store.  From registers: each thread its chunks of st_val[a, slot] (where
+//     accepted) and of the vote value row (the value, or zeros on reject);
+//     thread 0 the five scalar vote fields and st_rnd, st_vrnd.
+// Two variants of the body, as K1's: vector (V % 4 == 0 and the burst,
+// st_val and the vote values all start on 16 bytes: int4 chunks, T the
+// power of two at or above V/4, 4 at V = 16) and scalar (int32 chunks, T at
+// or above V), T at most 32.  The grid is (lane blocks, A), blocks of
+// `threads` (whole teams); at A=3, B=128, V=16 and 128 threads, 12 blocks.
+// The wrapper chooses variant, team and block on the host
+// (`kernels.wirepath.lane_geometry`); the entry checks them again.
+//
+// Bound.  Only the bytes the kernel must read and write count, at the state
+// where every lane is accepted by every acceptor (st_vrnd is then not
+// needed):
 //   K2 reads:  msgtype, inst, rnd 3*B*4 + value B*V*4 + alive A
 //              + st_rnd A*B*4
 //   K2 writes: st_rnd, st_vrnd 2*A*B*4 + st_val A*B*V*4
@@ -37,17 +63,21 @@
 // At A=3, B=128, V=16: 11,267 B read + 59,904 B written = 71,171 B, 21.2 ns
 // at the card's 3.35 TB/s.  K7 is the same at A=1 without alive: 10,240 B
 // read + 19,968 B written = 30,208 B, 9.0 ns.  Far below a launch's
-// latency, so launches of these sizes are bound by launch latency.
+// latency, so launches of these sizes are bound by launch latency and the
+// chain of dependent loads (inst, then the registers at its slot).
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "team.cuh"
 
 #define MSG_NOP 0
 #define MSG_P2A 3
 #define MSG_P2B 4
 #define MSG_REJECT 7
 
-// One acceptor's vote on lane j.  The register pointers are that acceptor's
-// (N,), (N,), (N, V) file; the vote pointers its (B,), (B, V) row.
+// K7's lane body: one acceptor's vote on lane j by one thread.  The
+// register pointers are that acceptor's (N,), (N,), (N, V) file; the vote
+// pointers its (B,), (B, V) row.
 __device__ __forceinline__ void vote_lane(
     bool alive, int swid, int j, int N, int V,
     const int* __restrict__ msgtype, const int* __restrict__ minst,
@@ -86,9 +116,12 @@ __device__ __forceinline__ void vote_lane(
     }
 }
 
+// K2's body: acceptor a's vote on lane j, served by a team (the header's
+// three steps).  blockIdx.y is the acceptor.
+template <typename Word>
 __global__ void acceptor_vote_all_kernel(
     const unsigned char* __restrict__ alive,  // bool[A]
-    int N, int V, int B,
+    int N, int V, int B, int team,
     const int* __restrict__ msgtype,  // int32[B]
     const int* __restrict__ minst,    // int32[B]
     const int* __restrict__ mrnd,     // int32[B]
@@ -100,14 +133,56 @@ __global__ void acceptor_vote_all_kernel(
     int* __restrict__ vv, int* __restrict__ vs,  // int32[A, B] out
     int* __restrict__ vval)                      // int32[A, B, V] out
 {
-    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    constexpr int W = sizeof(Word) / sizeof(int);
+    const Team tm = team_of(team);
+    const int j = team_lane_index(team);
     const int a = blockIdx.y;
-    if (j >= B) return;
-    const size_t row = (size_t)a * B;
-    vote_lane(alive[a] != 0, a, j, N, V, msgtype, minst, mrnd, mval,
-              st_rnd + (size_t)a * N, st_vrnd + (size_t)a * N, st_val + (size_t)a * N * V,
-              vt + row, vi + row, vr + row, vv + row, vs + row, vval + row * V);
+    if (j >= B) return;  // the whole team
+    const int chunks = V / W;
+
+    // load
+    const Word* src = reinterpret_cast<const Word*>(mval + (size_t)j * V);
+    Word val[PASS];
+    load_pass(val, src, tm, chunks, 0);
+    const int inst = __ldg(minst + j), mt = __ldg(msgtype + j), r = __ldg(mrnd + j);
+    const bool live = __ldg(alive + a) != 0;
+    int slot = inst % N;
+    if (slot < 0) slot += N;  // the non-negative modulo of jnp's `%`
+    const size_t reg = (size_t)a * N + slot;
+    const int cur_rnd = st_rnd[reg], cur_vrnd = st_vrnd[reg];
+
+    // decide
+    const bool accept = live && (mt == MSG_P2A || mt == MSG_NOP) && r >= cur_rnd;
+    __syncwarp(tm.mask);  // every read of the team before any write
+
+    // store
+    const size_t row = (size_t)a * B + j;
+    if (tm.t == 0) {
+        vt[row] = accept ? MSG_P2B : MSG_REJECT;
+        vi[row] = inst;
+        vr[row] = accept ? r : cur_rnd;
+        vv[row] = accept ? r : cur_vrnd;
+        vs[row] = a;
+        if (accept) {
+            st_rnd[reg] = r;
+            st_vrnd[reg] = r;
+        }
+    }
+    Word* const sdst = reinterpret_cast<Word*>(st_val + reg * V);
+    Word* const vdst = reinterpret_cast<Word*>(vval + row * V);
+    for (int p0 = 0;;) {
+        if (accept) store_pass(val, sdst, tm, chunks, p0);
+        Word out[PASS];
+#pragma unroll
+        for (int i = 0; i < PASS; ++i) out[i] = accept ? val[i] : zero_word<Word>();
+        store_pass(out, vdst, tm, chunks, p0);
+        p0 += PASS * tm.size;
+        if (p0 >= chunks) break;
+        load_pass(val, src, tm, chunks, p0);
+    }
 }
+
+static const int K7_THREADS = 128;  // K7: one thread a lane
 
 __global__ void acceptor_phase2_kernel(
     int aid, int N, int V, int B,
@@ -126,22 +201,26 @@ __global__ void acceptor_phase2_kernel(
               st_rnd, st_vrnd, st_val, vt, vi, vr, vv, vs, vval);
 }
 
-static const int THREADS = 128;
-
 extern "C" int acceptor_vote_all(
     const void* alive, int A, int N, int V, int B,
     const void* msgtype, const void* inst, const void* rnd, const void* value,
     void* st_rnd, void* st_vrnd, void* st_val,
     void* vt, void* vi, void* vr, void* vv, void* vs, void* vval,
-    void* stream)
+    int vec, int team, int threads, void* stream)
 {
-    if (A < 1 || A > 65535 || B < 1 || B > N || V < 1) return (int)cudaErrorInvalidValue;
-    const dim3 grid((B + THREADS - 1) / THREADS, A);
-    acceptor_vote_all_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const unsigned char*)alive, N, V, B,
-        (const int*)msgtype, (const int*)inst, (const int*)rnd, (const int*)value,
-        (int*)st_rnd, (int*)st_vrnd, (int*)st_val,
-        (int*)vt, (int*)vi, (int*)vr, (int*)vv, (int*)vs, (int*)vval);
+    if (A < 1 || A > 65535 || B < 1 || B > N || V < 1
+        || !team_shape_ok(vec, team, threads, V, {value, st_val, vval}))
+        return (int)cudaErrorInvalidValue;
+    const int lanes = threads / team;
+    const dim3 grid((B + lanes - 1) / lanes, A);
+    auto go = [&](auto word) {
+        acceptor_vote_all_kernel<decltype(word)><<<grid, threads, 0, (cudaStream_t)stream>>>(
+            (const unsigned char*)alive, N, V, B, team,
+            (const int*)msgtype, (const int*)inst, (const int*)rnd, (const int*)value,
+            (int*)st_rnd, (int*)st_vrnd, (int*)st_val,
+            (int*)vt, (int*)vi, (int*)vr, (int*)vv, (int*)vs, (int*)vval);
+    };
+    if (vec) go(int4{}); else go(int{});
     return (int)cudaGetLastError();
 }
 
@@ -153,8 +232,8 @@ extern "C" int acceptor_phase2(
     void* stream)
 {
     if (B < 1 || B > N || V < 1) return (int)cudaErrorInvalidValue;
-    const int blocks = (B + THREADS - 1) / THREADS;
-    acceptor_phase2_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+    const int blocks = (B + K7_THREADS - 1) / K7_THREADS;
+    acceptor_phase2_kernel<<<blocks, K7_THREADS, 0, (cudaStream_t)stream>>>(
         aid, N, V, B,
         (const int*)msgtype, (const int*)inst, (const int*)rnd, (const int*)value,
         (int*)st_rnd, (int*)st_vrnd, (int*)st_val,

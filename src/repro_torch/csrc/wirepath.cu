@@ -13,10 +13,11 @@
 //                          runs it on one shard's (Gl, ...) slab view).
 // K6, `packed_shard_round`, replaces the TPU kernel of that name (:780):
 // one round over a shard's packed lane table.  K5,
-// `persistent_wirepath_round`, replaces the TPU kernel of that name (:524);
-// it keeps the one-thread-per-lane body `phase2_lane` until its own
-// redesign (its section below).  `launch_floor` launches an empty kernel on
-// a given grid: the floor under which no launch of that grid can go.
+// `persistent_wirepath_round`, replaces the TPU kernel of that name (:524):
+// K rounds of the cohort form in one launch, on the same team body with the
+// rounds spread over the grid (its section below).  `launch_floor` launches
+// an empty kernel on a given grid: the floor under which no launch of that
+// grid can go.
 //
 // What the TPU kernel's block shape does not carry over.  `_phase2_block`
 // votes whole (GB, A, BB) ring blocks already in VMEM.  Here a round moves
@@ -63,11 +64,13 @@
 // loads follow earlier stores (no store touches the burst).
 // Blocks hold whole teams (`threads`, a multiple of 32; the wrapper's
 // default is chosen on the card), so G=1's 128 lanes at V = 16 span
-// 128*4/threads blocks, and the cohort form and K6 as many per row.  The
+// 128*4/threads blocks, and the cohort form, K5 and K6 as many per row.  The
 // wrapper chooses variant, team and block on the host; the entry checks
-// them again and refuses what the kernel cannot take.
+// them again and refuses what the kernel cannot take.  The team, its chunk
+// loads and stores and the shape check are in csrc/team.cuh, shared with
+// K2 (csrc/vote.cu).
 //
-// Semantics, as `_phase2_block` and `phase2_lane`: lane j of group g takes
+// Semantics, as `_phase2_block`'s: lane j of group g takes
 // instance next_inst[g] + j in int32 wraparound and ring slot (that) mod
 // N, the non-negative modulo, so any window base is served and there is no
 // alignment precondition and no fallback; permit = inst < limit (the
@@ -105,226 +108,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "team.cuh"
+
 #define MAX_A 8
-#define PASS 2  // value chunks a team thread holds in registers at once
-
-// K5's lane body, until K5's own redesign: one thread per lane, as the
-// first form of K1 was.  One lane of one group's window: the vote of the A
-// acceptors, the quorum and the ring dedup (K1 and K6 run `team_lane`,
-// below).  The pointers are the group's own rings and the
-// lane's own burst words and outputs.
-__device__ __forceinline__ void phase2_lane(
-    int inst, int crnd, const unsigned char* __restrict__ alive,
-    int quorum, int limit, int A, int N, int V,
-    int* __restrict__ st_rnd,    // int32[A, N]      in place
-    int* __restrict__ st_vrnd,   // int32[A, N]      in place
-    int* __restrict__ st_val,    // int32[A, N, V]   in place
-    int* __restrict__ ldel,      // int32[N]         in place
-    int* __restrict__ linst,     // int32[N]         in place
-    int* __restrict__ lval,      // int32[N, V]      in place
-    const int* __restrict__ mval,  // int32[V]  the lane's burst value
-    bool* __restrict__ fresh,      // the lane's outputs
-    int* __restrict__ win_out,
-    int* __restrict__ vout)        // int32[V]
-{
-    int slot = inst % N;
-    if (slot < 0) slot += N;  // the non-negative modulo of jnp's `%`
-    const bool permit = inst < limit;
-
-    bool accept[MAX_A];
-    int win = -1;  // max over acceptors of (accept ? crnd : NO_ROUND)
-    for (int a = 0; a < A; ++a) {
-        accept[a] = alive[a] != 0 && crnd >= st_rnd[(size_t)a * N + slot] && permit;
-        const int vote = accept[a] ? crnd : -1;
-        win = vote > win ? vote : win;
-    }
-    int count = 0;
-    bool any_agree = false;
-    for (int a = 0; a < A; ++a) {
-        const bool agree = accept[a] && crnd == win;
-        count += agree;
-        any_agree |= agree;
-    }
-    const bool deliver = count >= quorum;
-
-    for (int a = 0; a < A; ++a) {
-        if (!accept[a]) continue;
-        const size_t r = (size_t)a * N + slot;
-        st_rnd[r] = crnd;
-        st_vrnd[r] = crnd;
-        int* dst = st_val + r * V;
-        for (int k = 0; k < V; ++k) dst[k] = mval[k];
-    }
-
-    // the decided value is the first agreeing acceptor's vote: the burst
-    // value if any acceptor agrees, else 0 -- also where deliver is false
-    for (int k = 0; k < V; ++k) vout[k] = any_agree ? mval[k] : 0;
-    *win_out = win;
-
-    const bool dup = ldel[slot] != 0 && linst[slot] == inst;
-    const bool is_fresh = deliver && !dup;
-    *fresh = is_fresh;
-    ldel[slot] |= (int)deliver;
-    if (is_fresh) {
-        linst[slot] = inst;
-        int* ldst = lval + (size_t)slot * V;
-        for (int k = 0; k < V; ++k) ldst[k] = vout[k];
-    }
-}
-
-// K5: K Phase-2 rounds of the cohort form in one launch.
-//
-// Replaces the TPU kernel `persistent_wirepath_round` of
-// src/repro/kernels/wirepath.py (body `_persistent_wirepath_kernel`).  A
-// wave descriptor drives it: wni[k, g] is group g's window base in round k
-// and wen[k, g] whether g takes part in round k.  Row r of the compact
-// layout serves group gsel[r / GB] * GB + r % GB, as in the cohort entry.
-//
-// Mapping.  One thread owns one (compact row, lane) for the whole wave and
-// loops over k = 0 .. K-1 in order.  Its instance in round k is
-// wni[k, g] + lane (int32 wrap), its slot the non-negative modulo, as in
-// `phase2_lane`; each group is served at its own wni[k, g], so a folded
-// block needs no substituted base.  Where wen[k, g] == 0 (a round the group
-// sits out, or an inert member of a folded block, whose wen is 0 in every
-// round) the round runs at NO_ROUND: the lane reads and stores no state
-// and writes fresh 0, win -1, value 0 for that round.
-//
-// Why no grid-wide sync is needed (the reference's argument at
-// wirepath.py:571-575, carried from grid steps to threads):
-//   * a group's enabled windows advance by B from round to round
-//     (wni[k+1] = wni[k] + B * wen[k]; the wrapper checks this walk on the
-//     host for every group of the selected blocks before it launches);
-//   * K * B <= N, so the instances wni[k] + lane of one group's enabled
-//     rounds are K * B consecutive numbers at most, and no two (lane,
-//     round) pairs of one group that touch state meet on a slot;
-//   * inert rounds touch no state.
-// So no two threads touch one slot, distinct rows are distinct groups
-// (gsel distinct, checked by the wrapper), and each thread sees its own
-// earlier rounds in program order.
-//
-// Bound.  K times the cohort entry's bytes per selected group (the
-// acceptor and learner writes at their most: every lane accepted by all A
-// acceptors and fresh), plus the (K, G) descriptor words wni and wen.  At
-// A=3, B=128, V=16, K=8, G=8: 8 * 8 * 56,467 B + 512 B = 3.6 MB, about
-// 1.1 us at 3.35 TB/s.  `block_b` is the launch's threads per block and
-// changes no result.
-__global__ void persistent_wirepath_round_kernel(
-    const int* __restrict__ gsel,       // int32[NB]  selected group blocks
-    int gb,                             // groups per block (GB)
-    const int* __restrict__ wni,        // int32[K, G]  window bases per round
-    const int* __restrict__ wen,        // int32[K, G]  0 = the round is inert
-    const int* __restrict__ crnd,       // int32[G]
-    const int* __restrict__ limit,      // int32[G]  first refused instance
-    const unsigned char* __restrict__ alive,  // bool[G, A]
-    int quorum, int K, int G, int A, int N, int V, int B,
-    int* __restrict__ st_rnd,    // int32[G, A, N]      in place
-    int* __restrict__ st_vrnd,   // int32[G, A, N]      in place
-    int* __restrict__ st_val,    // int32[G, A, N, V]   in place
-    int* __restrict__ ldel,      // int32[G, N]         in place
-    int* __restrict__ linst,     // int32[G, N]         in place
-    int* __restrict__ lval,      // int32[G, N, V]      in place
-    const int* __restrict__ values,  // int32[K, C, B, V]  compact wave
-    bool* __restrict__ fresh,    // bool[K, C, B]   out, compact
-    int* __restrict__ win_out,   // int32[K, C, B]  out, compact
-    int* __restrict__ value_out) // int32[K, C, B, V]  out, compact
-{
-    const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    const int r = blockIdx.y;  // compact row
-    if (j >= B) return;
-    const int c = gridDim.y;
-    const int g = gsel[r / gb] * gb + r % gb;
-    const size_t an = (size_t)A * N;
-    for (int k = 0; k < K; ++k) {
-        const size_t lane = ((size_t)k * c + r) * B + j;
-        int* vout = value_out + lane * V;
-        const size_t kg = (size_t)k * G + g;
-        if (!wen[kg]) {
-            fresh[lane] = false;
-            win_out[lane] = -1;
-            for (int w = 0; w < V; ++w) vout[w] = 0;
-            continue;
-        }
-        const int inst = (int)((unsigned)wni[kg] + (unsigned)j);  // int32 wrap
-        phase2_lane(inst, crnd[g], alive + (size_t)g * A, quorum, limit[g], A, N, V,
-                    st_rnd + g * an, st_vrnd + g * an, st_val + g * an * V,
-                    ldel + (size_t)g * N, linst + (size_t)g * N, lval + (size_t)g * N * V,
-                    values + lane * V, fresh + lane, win_out + lane, vout);
-    }
-}
-
-extern "C" int persistent_wirepath_round(
-    const void* gsel, int nb, int gb,
-    const void* wni, const void* wen, const void* crnd, const void* limit,
-    const void* alive,
-    int quorum, int K, int G, int A, int N, int V, int B, int block_b,
-    void* st_rnd, void* st_vrnd, void* st_val,
-    void* ldel, void* linst, void* lval,
-    const void* values, void* fresh, void* win, void* value,
-    void* stream)
-{
-    if (A < 1 || A > MAX_A || B < 1 || V < 1 || K < 1 || (long long)K * B > N
-        || gb < 1 || nb < 1 || G % gb != 0 || nb * gb > G
-        || block_b < 1 || block_b > 1024)
-        return (int)cudaErrorInvalidValue;
-    const dim3 grid((B + block_b - 1) / block_b, nb * gb);
-    persistent_wirepath_round_kernel<<<grid, block_b, 0, (cudaStream_t)stream>>>(
-        (const int*)gsel, gb, (const int*)wni, (const int*)wen, (const int*)crnd,
-        (const int*)limit, (const unsigned char*)alive, quorum, K, G, A, N, V, B,
-        (int*)st_rnd, (int*)st_vrnd, (int*)st_val,
-        (int*)ldel, (int*)linst, (int*)lval,
-        (const int*)values, (bool*)fresh, (int*)win, (int*)value);
-    return (int)cudaGetLastError();
-}
-
+#define MAX_GRID_YZ 65535  // gridDim.y and gridDim.z at most
 
 // ---------------------------------------------------------------------------
-// The team lane body of K1 and K6
+// The team lane body of K1, K5 and K6
 // ---------------------------------------------------------------------------
-struct Team {
-    int t;          // this thread's rank in its team
-    int size;       // T, a power of two dividing 32
-    unsigned mask;  // the team's threads in the warp
-};
-
-__device__ __forceinline__ Team team_of(int size) {
-    const int lane = threadIdx.x & 31;
-    Team tm;
-    tm.t = lane & (size - 1);
-    tm.size = size;
-    tm.mask = size == 32 ? 0xffffffffu : ((1u << size) - 1u) << (lane & ~(size - 1));
-    return tm;
-}
-
-// The lane j this thread's team serves: blocks hold blockDim.x / T teams.
-__device__ __forceinline__ int team_lane_index(int size) {
-    return blockIdx.x * (blockDim.x / size) + threadIdx.x / size;
-}
-
-template <typename Word> __device__ __forceinline__ Word zero_word();
-template <> __device__ __forceinline__ int zero_word<int>() { return 0; }
-template <> __device__ __forceinline__ int4 zero_word<int4>() { return make_int4(0, 0, 0, 0); }
-
-// The burst chunks p0 + t + i*T (i < PASS) this thread owns.
-template <typename Word>
-__device__ __forceinline__ void load_pass(Word (&w)[PASS], const Word* __restrict__ src,
-                                          const Team& tm, int chunks, int p0) {
-#pragma unroll
-    for (int i = 0; i < PASS; ++i) {
-        const int c = p0 + tm.t + i * tm.size;
-        w[i] = c < chunks ? __ldg(src + c) : zero_word<Word>();
-    }
-}
-
-template <typename Word>
-__device__ __forceinline__ void store_pass(const Word (&w)[PASS], Word* __restrict__ dst,
-                                           const Team& tm, int chunks, int p0) {
-#pragma unroll
-    for (int i = 0; i < PASS; ++i) {
-        const int c = p0 + tm.t + i * tm.size;
-        if (c < chunks) dst[c] = w[i];
-    }
-}
-
 // An inert lane: fresh 0, win NO_ROUND, value 0, no state.
 template <typename Word>
 __device__ __forceinline__ void inert_lane(const Team& tm, int V, bool* __restrict__ fresh,
@@ -506,19 +297,6 @@ __global__ void cohort_wirepath_round_kernel(
               fresh + lane, win_out + lane, vout);
 }
 
-static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
-// The launch shape the wrapper chose: T a power of two dividing 32, blocks
-// of whole warps; the vector variant only where its words are aligned.
-static bool team_shape_ok(int vec, int team, int threads, int V, const void* st_val,
-                          const void* lval, const void* values, const void* value) {
-    if (team < 1 || team > 32 || (team & (team - 1)) || threads < 32 || threads > 1024
-        || threads % 32)
-        return false;
-    return !vec || (V % 4 == 0 && aligned16(st_val) && aligned16(lval) && aligned16(values)
-                    && aligned16(value));
-}
-
 extern "C" int wirepath_round(
     const void* next_inst, const void* crnd, const void* alive,
     int quorum, int limit, int A, int N, int V, int B,
@@ -528,7 +306,7 @@ extern "C" int wirepath_round(
     int vec, int team, int threads, void* stream)
 {
     if (A < 1 || A > MAX_A || B < 1 || B > N || V < 1
-        || !team_shape_ok(vec, team, threads, V, st_val, lval, values, value))
+        || !team_shape_ok(vec, team, threads, V, {st_val, lval, values, value}))
         return (int)cudaErrorInvalidValue;
     const int lanes = threads / team;
     const int blocks = (B + lanes - 1) / lanes;
@@ -557,7 +335,7 @@ extern "C" int cohort_wirepath_round(
 {
     if (A < 1 || A > MAX_A || B < 1 || B > N || V < 1 || gb < 1 || nb < 1
         || G % gb != 0 || nb * gb > G
-        || !team_shape_ok(vec, team, threads, V, st_val, lval, values, value))
+        || !team_shape_ok(vec, team, threads, V, {st_val, lval, values, value}))
         return (int)cudaErrorInvalidValue;
     const int lanes = threads / team;
     const dim3 grid((B + lanes - 1) / lanes, nb * gb);
@@ -568,6 +346,127 @@ extern "C" int cohort_wirepath_round(
             (int*)st_rnd, (int*)st_vrnd, (int*)st_val,
             (int*)ldel, (int*)linst, (int*)lval,
             (const int*)values, (bool*)fresh, (int*)win, (int*)value);
+    };
+    if (vec) go(int4{}); else go(int{});
+    return (int)cudaGetLastError();
+}
+
+// K5: K Phase-2 rounds of the cohort form in one launch.
+//
+// Replaces the TPU kernel `persistent_wirepath_round` of
+// src/repro/kernels/wirepath.py:524 (body `_persistent_wirepath_kernel`).  A
+// wave descriptor drives it: wni[k, g] is group g's window base in round k
+// and wen[k, g] whether g takes part in round k.  Row r of the compact
+// layout serves group gsel[r / GB] * GB + r % GB, as in the cohort entry.
+//
+// Mapping.  The rounds are spread over the grid: one team (K1's `team_lane`)
+// serves one (round k, compact row r, lane j), the grid is (lane blocks,
+// rows, K) and nothing loops over the rounds, so a wave of K rounds costs
+// about one round.  Only where K exceeds gridDim.z's 65,535 (K * B <= N
+// admits K = N at B = 1) does a block serve rounds z, z + gridDim.z, ...
+// in turn.  The team's instance in round k is wni[k, g] + j (int32 wrap),
+// its slot the non-negative modulo; each group is served at its own
+// wni[k, g], so a folded block needs no substituted base.  Where
+// wen[k, g] == 0 (a round the group sits out, or an inert member of a
+// folded block, whose wen is 0 in every round) the team runs `inert_lane`:
+// it reads and stores no state and writes fresh 0, win -1, value 0 for that
+// round.  Loads in K1's order: the burst first (its address depends on
+// (k, r, j) alone), then gsel, then the round's wni, wen and the group's
+// crnd, limit (read-only, through the non-coherent path), then the state.
+//
+// Why the rounds need no order and no grid-wide sync (the reference's
+// argument at wirepath.py:571-575, carried from grid steps to teams):
+//   * a group's enabled windows advance by B from round to round
+//     (wni[k+1] = wni[k] + B * wen[k]; the wrapper checks this walk on the
+//     host for every group of the selected blocks before it launches);
+//   * K * B <= N, so the instances wni[k] + j of one group's enabled
+//     rounds are K * B consecutive numbers at most, and no two (round,
+//     lane) pairs of one group that touch state meet on a slot;
+//   * inert rounds touch no state.
+// So no two teams touch one slot (distinct rows are distinct groups: gsel
+// distinct, checked by the wrapper), no round reads what another writes,
+// and the K rounds in parallel give what K rounds in order give.
+//
+// Bound.  K times the cohort entry's bytes per selected group (the
+// acceptor and learner writes at their most: every lane accepted by all A
+// acceptors and fresh), plus the (K, G) descriptor words wni and wen.  At
+// A=3, B=128, V=16, K=8, G=8: 8 * 8 * 56,467 B + 512 B = 3.6 MB, about
+// 1.1 us at 3.35 TB/s; at one group 452 KB, 0.14 us.  A wave at GB=8 is
+// 4 * 8 * 8 blocks of 128 threads: below a launch of that grid plus one
+// round's chain of dependent loads the kernel cannot go (`launch_floor`).
+template <typename Word>
+__global__ void persistent_wirepath_round_kernel(
+    const int* __restrict__ gsel,       // int32[NB]  selected group blocks
+    int gb,                             // groups per block (GB)
+    const int* __restrict__ wni,        // int32[K, G]  window bases per round
+    const int* __restrict__ wen,        // int32[K, G]  0 = the round is inert
+    const int* __restrict__ crnd,       // int32[G]
+    const int* __restrict__ limit,      // int32[G]  first refused instance
+    const unsigned char* __restrict__ alive,  // bool[G, A]
+    int quorum, int K, int G, int A, int N, int V, int B, int team,
+    int* __restrict__ st_rnd,    // int32[G, A, N]      in place
+    int* __restrict__ st_vrnd,   // int32[G, A, N]      in place
+    int* __restrict__ st_val,    // int32[G, A, N, V]   in place
+    int* __restrict__ ldel,      // int32[G, N]         in place
+    int* __restrict__ linst,     // int32[G, N]         in place
+    int* __restrict__ lval,      // int32[G, N, V]      in place
+    const int* __restrict__ values,  // int32[K, C, B, V]  compact wave
+    bool* __restrict__ fresh,    // bool[K, C, B]   out, compact
+    int* __restrict__ win_out,   // int32[K, C, B]  out, compact
+    int* __restrict__ value_out) // int32[K, C, B, V]  out, compact
+{
+    constexpr int W = sizeof(Word) / sizeof(int);
+    const Team tm = team_of(team);
+    const int j = team_lane_index(team);
+    const int r = blockIdx.y;  // compact row
+    if (j >= B) return;  // the whole team
+    const size_t c = gridDim.y, an = (size_t)A * N;
+    for (int k = blockIdx.z; k < K; k += gridDim.z) {  // one pass unless K > 65,535
+        const size_t lane = ((size_t)k * c + r) * B + j;
+        const Word* src = reinterpret_cast<const Word*>(values + lane * V);
+        Word burst[PASS];
+        load_pass(burst, src, tm, V / W, 0);
+        const int g = __ldg(gsel + r / gb) * gb + r % gb;
+        const size_t kg = (size_t)k * G + g;
+        const int base = __ldg(wni + kg), on = __ldg(wen + kg);
+        const int cr = __ldg(crnd + g), lim = __ldg(limit + g);
+        int* vout = value_out + lane * V;
+        if (!on) {
+            inert_lane<Word>(tm, V, fresh + lane, win_out + lane, vout);
+            continue;
+        }
+        const int inst = (int)((unsigned)base + (unsigned)j);  // int32 wrap
+        team_lane(tm, burst, src, inst, cr, lim, alive + (size_t)g * A, quorum, A, N, V,
+                  st_rnd + g * an, st_vrnd + g * an, st_val + g * an * V,
+                  ldel + (size_t)g * N, linst + (size_t)g * N, lval + (size_t)g * N * V,
+                  fresh + lane, win_out + lane, vout);
+    }
+}
+
+extern "C" int persistent_wirepath_round(
+    const void* gsel, int nb, int gb,
+    const void* wni, const void* wen, const void* crnd, const void* limit,
+    const void* alive,
+    int quorum, int K, int G, int A, int N, int V, int B,
+    void* st_rnd, void* st_vrnd, void* st_val,
+    void* ldel, void* linst, void* lval,
+    const void* values, void* fresh, void* win, void* value,
+    int vec, int team, int threads, void* stream)
+{
+    if (A < 1 || A > MAX_A || B < 1 || V < 1 || K < 1 || (long long)K * B > N
+        || gb < 1 || nb < 1 || G % gb != 0 || nb * gb > G || nb * gb > MAX_GRID_YZ
+        || !team_shape_ok(vec, team, threads, V, {st_val, lval, values, value}))
+        return (int)cudaErrorInvalidValue;
+    const int lanes = threads / team;
+    const dim3 grid((B + lanes - 1) / lanes, nb * gb, K < MAX_GRID_YZ ? K : MAX_GRID_YZ);
+    auto go = [&](auto word) {
+        persistent_wirepath_round_kernel<decltype(word)>
+            <<<grid, threads, 0, (cudaStream_t)stream>>>(
+                (const int*)gsel, gb, (const int*)wni, (const int*)wen, (const int*)crnd,
+                (const int*)limit, (const unsigned char*)alive, quorum, K, G, A, N, V, B, team,
+                (int*)st_rnd, (int*)st_vrnd, (int*)st_val,
+                (int*)ldel, (int*)linst, (int*)lval,
+                (const int*)values, (bool*)fresh, (int*)win, (int*)value);
     };
     if (vec) go(int4{}); else go(int{});
     return (int)cudaGetLastError();
@@ -654,7 +553,7 @@ extern "C" int packed_shard_round(
     int vec, int team, int threads, void* stream)
 {
     if (A < 1 || A > MAX_A || B < 1 || B > N || V < 1 || C < 1 || C > Gl
-        || !team_shape_ok(vec, team, threads, V, st_val, lval, values, value))
+        || !team_shape_ok(vec, team, threads, V, {st_val, lval, values, value}))
         return (int)cudaErrorInvalidValue;
     const int lanes = threads / team;
     const dim3 grid((B + lanes - 1) / lanes, C);
@@ -670,13 +569,16 @@ extern "C" int packed_shard_round(
     return (int)cudaGetLastError();
 }
 
-// The launch floor: an empty kernel on a (gx, gy) grid of `threads`-thread
-// blocks, what a launch of that shape costs before it does any work.
+// The launch floor: an empty kernel on a (gx, gy, gz) grid of
+// `threads`-thread blocks, what a launch of that shape costs before it does
+// any work.
 __global__ void empty_kernel() {}
 
-extern "C" int launch_floor(int gx, int gy, int threads, void* stream)
+extern "C" int launch_floor(int gx, int gy, int gz, int threads, void* stream)
 {
-    if (gx < 1 || gy < 1 || threads < 1 || threads > 1024) return (int)cudaErrorInvalidValue;
-    empty_kernel<<<dim3(gx, gy), threads, 0, (cudaStream_t)stream>>>();
+    if (gx < 1 || gy < 1 || gz < 1 || gy > MAX_GRID_YZ || gz > MAX_GRID_YZ || threads < 1
+        || threads > 1024)
+        return (int)cudaErrorInvalidValue;
+    empty_kernel<<<dim3(gx, gy, gz), threads, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }

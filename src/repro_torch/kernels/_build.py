@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` into its own
 shared library with a plain C interface, under ``_build/`` beside the
 package (listed in ``.gitignore``), and loaded with ``ctypes``.  A library's
-file name carries the hash of its source and flags, so a changed source is
-rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts one
+file name carries the hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source or header is rebuilt and
+an unchanged one is loaded as it is.  ``build_all`` starts one
 ``nvcc`` per source, all at once.
 
 Every C entry point returns a ``cudaError_t`` as an int: ``check`` raises on
@@ -58,6 +59,8 @@ def sources() -> list[str]:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

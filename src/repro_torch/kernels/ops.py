@@ -382,7 +382,8 @@ def persistent_cohort_rounds(
     round; ``values`` and the outputs are compact per round (row ``j*GB +
     k`` is group ``gsel[j]*GB + k``).  Coordinator-stateless: the dataplane
     advances its own watermarks.  ``block_b`` (default: the reference's
-    128) is the kernel's launch shape and changes no result.  Returns
+    128) is the reference kernel's batch block, checked by K5's wrapper; it
+    changes no result.  Returns
     ``(stack, lstate, fresh[K, C, B], win[K, C, B], value[K, C, B, V])``."""
     if not _route(values, "persistent_cohort_rounds"):
         return _batched.persistent_cohort_rounds(

@@ -15,26 +15,28 @@ versions are ``batched.cohort_fused_round`` and
 ``batched.multigroup_fused_round``.  ``kernels.ops`` chooses between kernel
 and plain version by the device of the tensors.
 
-K1 and K6 run one lane body: a team of threads per lane that loads first,
-stores 16 bytes a thread where it can and spreads over the SMs
+K1, K5 and K6 run one lane body: a team of threads per lane that loads
+first, stores 16 bytes a thread where it can and spreads over the SMs
 (``csrc/wirepath.cu``'s header).  ``lane_geometry`` chooses on the host the
 variant (``vector``: int4 words, where V % 4 == 0 and the value tensors
 start on 16 bytes; ``scalar`` otherwise), the team size, the block and the
-grid; ``vector_launches`` and ``scalar_launches`` count the launches of
-each.  K1 takes any window base: each lane computes its own ring slot, so
-there is no block-alignment precondition, and ``group_block`` (the TPU
-kernel's group fold) changes no result.  It requires ``B <= N`` (distinct
-slots, so in-place writes never race), ``A <= 8`` and, in cohort form,
-distinct selected blocks (checked here).
+grid (``wave_geometry`` K5's 3-D grid); ``vector_launches`` and
+``scalar_launches`` count the launches of each variant of every team
+kernel (K1, K5, K6 and K2).  K1 takes any window base: each lane computes
+its own ring slot, so there is no block-alignment precondition, and
+``group_block`` (the TPU kernel's group fold) changes no result.  It
+requires ``B <= N`` (distinct slots, so in-place writes never race),
+``A <= 8`` and, in cohort form, distinct selected blocks (checked here).
 
 ``persistent_wirepath_round`` launches the K5 entry of the same source,
 which replaces the TPU kernel ``repro.kernels.wirepath.persistent_wirepath_round``:
 K rounds of the cohort form in one launch, driven by the wave descriptor
 ``wni``/``wen`` (each group's window base and participation per round).
-Its plain version is ``batched.persistent_cohort_rounds``.  Each thread
-keeps one (row, lane) for the whole wave, which is race-free only when
-``K * B <= N`` and each selected group's bases walk by ``B`` over its
-enabled rounds; both are checked here, on the host, before the launch.
+Its plain version is ``batched.persistent_cohort_rounds``.  One team
+serves one (round, row, lane), the rounds spread over the grid, which is
+race-free only when ``K * B <= N`` and each selected group's bases walk by
+``B`` over its enabled rounds; both are checked here, on the host, before
+the launch.
 
 ``shard_slab_round`` is K1's shard slice, replacing the reference's
 ``shard_slab_round``: the cohort entry over every block of one shard's
@@ -57,7 +59,10 @@ in place, one ``(A, B)`` vote batch per field.  Its plain version is
 ``inst[j] mod N``, so every Phase-2 batch the dataplane votes (sequenced
 bursts, the software coordinator's, recovery and takeover windows) runs on
 it at any base.  Precondition, as the plain engine's: the batch's slots are
-pairwise distinct (so ``B <= N``, which is checked).
+pairwise distinct (so ``B <= N``, which is checked).  A team of threads
+serves one (acceptor, lane), as K1's team serves a lane, on a (lane blocks,
+A) grid; the variant comes from V and the ``data_ptr() % 16`` of the
+burst, ``st_val`` and the vote values.
 """
 
 from __future__ import annotations
@@ -74,12 +79,14 @@ from .acceptor import vote_io
 
 MAX_A = 8
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
-# threads per block of K1's and K6's team kernels (whole teams), chosen on
-# the card (PERF.md section 6, PR 21); read at each launch
+# threads per block of the team kernels K1, K5, K6 and K2 (whole teams),
+# chosen on the card (PERF.md section 6); read at each launch
 LANE_THREADS = 128
+MAX_GRID_YZ = 65_535  # a grid's y and z extents at most
 
 # launches of K1 (single group, cohort form, shard slice), K6, K5 and K2 in
-# this process, and of K1's and K6's two variants; reset by whoever reads them
+# this process, and of the two variants of these team kernels; reset by
+# whoever reads them
 launches = 0
 cohort_launches = 0
 shard_launches = 0
@@ -98,13 +105,13 @@ _vote_fn = None
 
 @dataclass(frozen=True)
 class LaneGeometry:
-    """How K1 or K6 launches: the variant, threads per lane (``team``),
-    threads per block and the ``(x, y)`` grid."""
+    """How a team kernel launches: the variant, threads per lane (``team``),
+    threads per block and the grid, ``(x, y)`` or K5's ``(x, y, z)``."""
 
     variant: str  # "vector" (int4 words) or "scalar" (int32 words)
     team: int
     block: int
-    grid: tuple[int, int]
+    grid: tuple[int, ...]
 
 
 def lane_geometry(v: int, b: int, rows: int, aligned: bool) -> LaneGeometry:
@@ -116,7 +123,7 @@ def lane_geometry(v: int, b: int, rows: int, aligned: bool) -> LaneGeometry:
     team`` lanes each."""
     threads = LANE_THREADS
     if threads % 32 or not 32 <= threads <= 1024:
-        raise ValueError(f"K1 and K6 take blocks of whole warps up to 1024, got {threads}")
+        raise ValueError(f"team kernels take blocks of whole warps up to 1024, got {threads}")
     vector = aligned and v % 4 == 0
     words = v // 4 if vector else v
     team = min(32, 1 << (words - 1).bit_length())
@@ -124,14 +131,35 @@ def lane_geometry(v: int, b: int, rows: int, aligned: bool) -> LaneGeometry:
     return LaneGeometry("vector" if vector else "scalar", team, threads, (-(-b // lanes), rows))
 
 
+def wave_geometry(v: int, b: int, rows: int, k: int, n: int, aligned: bool) -> LaneGeometry:
+    """K5's launch of a wave of ``k`` rounds over ``rows`` rows of ``b``
+    lanes: ``lane_geometry``'s variant, team, block and ``(x, rows)``, and
+    a z extent of one round a block, capped at 65,535; above the cap block
+    z serves rounds z, z + 65,535, ...  Raises where the wave would lap the
+    ``n``-slot ring (``K * B > N``) or the grid cannot hold the rows."""
+    if k < 1 or k * b > n or not 1 <= rows <= MAX_GRID_YZ:
+        raise ValueError(
+            f"persistent_wirepath_round needs 1 <= K, K * B <= N and 1 <= rows <= "
+            f"{MAX_GRID_YZ}, got K={k}, B={b}, N={n}, rows={rows}"
+        )
+    geo = lane_geometry(v, b, rows, aligned)
+    return LaneGeometry(geo.variant, geo.team, geo.block, (*geo.grid, min(k, MAX_GRID_YZ)))
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _lanes(v: int, b: int, rows: int, *tensors: torch.Tensor) -> LaneGeometry:
-    """``lane_geometry`` for these value tensors: st_val, lval, the burst and
-    the value output."""
-    return lane_geometry(v, b, rows, all(t.data_ptr() % 16 == 0 for t in tensors))
+    """``lane_geometry`` for these value tensors: for K1 and K6 st_val, lval,
+    the burst and the value output; for K2 (rows = A) the burst, st_val and
+    the vote values."""
+    return lane_geometry(v, b, rows, _aligned(*tensors))
 
 
 def _launched(geo: LaneGeometry, rc: int, what: str) -> None:
-    """Raise on a refused launch, else count it under its variant."""
+    """Raise on a refused launch of a team kernel, else count it under its
+    variant."""
     global vector_launches, scalar_launches
     _build.check(rc, what)
     if geo.variant == "vector":
@@ -572,7 +600,7 @@ def _persistent_kernel():
     if _persistent_fn is None:
         fn = _build.library("wirepath").persistent_wirepath_round
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, p, p, p, p, p, *[i] * 8, *[p] * 10, p]
+        fn.argtypes = [p, i, i, p, p, p, p, p, *[i] * 7, *[p] * 10, i, i, i, p]
         fn.restype = ctypes.c_int
         _persistent_fn = fn
     return _persistent_fn
@@ -623,8 +651,10 @@ def persistent_wirepath_round(
     launch, on the card.  Row ``j*GB + k`` of ``values[r]`` and of the
     round-``r`` outputs belongs to group ``gsel[j]*GB + k``, served at
     ``wni[r, g]``; a group with ``wen[r, g] == 0`` rides round ``r`` inert.
-    ``block_b`` is the launch's threads per block, capped at B: it changes
-    no result.  Returns ``(st_rnd, st_vrnd, st_val, ldel, linst, lval,
+    ``block_b`` is the reference kernel's batch block: checked (capped at
+    B, it must lie in [1, 1024]), it changes no result and shapes no launch
+    here (blocks are ``LANE_THREADS`` threads of whole teams, as K1's).
+    Returns ``(st_rnd, st_vrnd, st_val, ldel, linst, lval,
     fresh[K, C, B], win_vrnd[K, C, B], value[K, C, B, V])``: the six state
     tensors are the inputs, updated in place; ``fresh`` is a bool mask."""
     what = "persistent_wirepath_round"
@@ -664,7 +694,7 @@ def persistent_wirepath_round(
     gsel_d, wni_d, wen_d = (torch.from_numpy(x).to(dev) for x in (gs, ni, en))
     return _persistent_launch(
         gsel_d, gb, wni_d, wen_d, crnd, quorum, alive,
-        st_rnd, st_vrnd, st_val, ldel, linst, lval, values, limit, bb,
+        st_rnd, st_vrnd, st_val, ldel, linst, lval, values, limit,
     )  # fmt: skip
 
 
@@ -675,7 +705,6 @@ def _persistent_launch(
     wen: torch.Tensor,  # int32[K, G] 0/1 on the card, checked by the caller
     crnd, quorum, alive, st_rnd, st_vrnd, st_val, ldel, linst, lval, values,
     limit: torch.Tensor,
-    block_b: int,
 ) -> tuple[torch.Tensor, ...]:
     """Launch K5 on checked inputs (CUDA-graph capturable: no host copy).
     ``persistent_wirepath_round`` is the checked wrapper."""
@@ -687,18 +716,19 @@ def _persistent_launch(
     win = torch.empty((k, c, b), dtype=torch.int32, device=dev)
     value = torch.empty((k, c, b, v), dtype=torch.int32, device=dev)
     fn = _persistent_kernel()
+    geo = wave_geometry(v, b, c, k, n, _aligned(st_val, lval, values, value))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             gsel.data_ptr(), gsel.numel(), gb,
             wni.data_ptr(), wen.data_ptr(), crnd.data_ptr(), limit.data_ptr(),
-            alive.data_ptr(), int(quorum), k, g, a, n, v, b, block_b,
+            alive.data_ptr(), int(quorum), k, g, a, n, v, b,
             st_rnd.data_ptr(), st_vrnd.data_ptr(), st_val.data_ptr(),
             ldel.data_ptr(), linst.data_ptr(), lval.data_ptr(),
             values.data_ptr(), fresh.data_ptr(), win.data_ptr(), value.data_ptr(),
-            stream,
+            geo.variant == "vector", geo.team, geo.block, stream,
         )  # fmt: skip
-    _build.check(rc, "persistent_wirepath_round launch")
+    _launched(geo, rc, "persistent_wirepath_round launch")
     persistent_launches += 1
     return st_rnd, st_vrnd, st_val, ldel, linst, lval, fresh, win, value
 
@@ -708,7 +738,7 @@ def _vote_kernel():
     if _vote_fn is None:
         fn = _build.library("vote").acceptor_vote_all
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p]
+        fn.argtypes = [p, i, i, i, i, *[p] * 13, i, i, i, p]
         fn.restype = ctypes.c_int
         _vote_fn = fn
     return _vote_fn
@@ -724,10 +754,12 @@ def acceptor_vote_all_window(
     msg_rnd: torch.Tensor,  # int32[B]
     msg_val: torch.Tensor,  # int32[B, V]
 ) -> tuple[torch.Tensor, ...]:
-    """The staged vote of the whole acceptor array on the card.  Returns
-    ``(st_rnd, st_vrnd, st_val, vote_type, vote_inst, vote_rnd, vote_vrnd,
-    vote_swid, vote_value)``: the stacked rings are the inputs, updated in
-    place; the votes are ``(A, B)`` and ``(A, B, V)``."""
+    """The staged vote of the whole acceptor array on the card, a team of
+    threads per (acceptor, lane).  ``msg_val`` may be a view into a larger
+    burst (contiguous rows, any start): the variant follows its alignment.
+    Returns ``(st_rnd, st_vrnd, st_val, vote_type, vote_inst, vote_rnd,
+    vote_vrnd, vote_swid, vote_value)``: the stacked rings are the inputs,
+    updated in place; the votes are ``(A, B)`` and ``(A, B, V)``."""
     global vote_all_launches
     what = "acceptor_vote_all_window"
     a, n = st_rnd.shape
@@ -738,14 +770,16 @@ def acceptor_vote_all_window(
     _build.require(what, "st_vrnd", st_vrnd, torch.int32, (a, n), dev)
     _build.require(what, "st_val", st_val, torch.int32, (a, n, v), dev)
     fn = _vote_kernel()
+    geo = _lanes(v, b, a, msg_val, st_val, votes[5])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             alive.data_ptr(), a, n, v, b,
             msgtype.data_ptr(), inst.data_ptr(), msg_rnd.data_ptr(), msg_val.data_ptr(),
             st_rnd.data_ptr(), st_vrnd.data_ptr(), st_val.data_ptr(),
-            *(t.data_ptr() for t in votes), stream,
+            *(t.data_ptr() for t in votes),
+            geo.variant == "vector", geo.team, geo.block, stream,
         )  # fmt: skip
-    _build.check(rc, f"{what} launch")
+    _launched(geo, rc, f"{what} launch")
     vote_all_launches += 1
     return (st_rnd, st_vrnd, st_val, *votes)

@@ -1059,6 +1059,197 @@ def test_team_packed_kernel_matches_plain(
 
 
 # ---------------------------------------------------------------------------
+# K5: the team body with the rounds over the grid; K2: a team per
+# (acceptor, lane)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize(
+    "a,v,off,gb,k,b,threads,variant",
+    [
+        (3, 16, None, 1, 8, 128, 128, "vector"),
+        (3, 16, None, 2, 8, 16, 64, "vector"),
+        (3, 16, None, 8, 32, 128, 256, "vector"),  # K * B = N
+        (3, 5, None, 2, 4, 128, 128, "scalar"),
+        (3, 16, "values", 1, 8, 128, 64, "scalar"),
+        (5, 16, "st_val", 2, 8, 16, 256, "scalar"),
+        (3, 16, "lval", 8, 4, 128, 128, "scalar"),
+        (8, 1, None, 1, 16, 64, 256, "scalar"),
+        (8, 16, None, 2, 8, 128, 64, "vector"),
+    ],
+)
+def test_team_persistent_kernel_matches_plain(cuda, monkeypatch, a, v, off, gb, k, b, threads,
+                                              variant):  # fmt: skip
+    """K5's team body against ``batched.persistent_cohort_rounds`` in both
+    variants (value tensors at offset 0 and 4 bytes off 16) at 64, 128 and
+    256 threads a block, G=8: a subset and all blocks, a freeze from round 2
+    on and an inert member, windows across 2**31 and across the ring end,
+    dead acceptors (one group below quorum), a limit inside the wave and a
+    wrapped one; the variant asserted by its counter, the state in place."""
+    g, n, q = 8, 4096, a // 2 + 1
+    rng = np.random.default_rng([a, v, gb, k, threads])
+    gsel = {1: [0, 3, 6], 2: [1, 2], 8: [0]}[gb]
+    rows = [blk * gb + j for blk in gsel for j in range(gb)]
+    block_base = [n - 20, I32_MAX - 63, 640, 9, 3 * n - 60, 77, 1003, 4096]
+    bases = [block_base[gi // gb] for gi in range(g)]
+    wen = np.zeros((k, g), np.int32)
+    wen[:, rows] = 1
+    wen[2:, rows[0]] = 0  # frozen from round 2
+    if gb > 1:
+        wen[:, rows[1]] = 0  # an inert member of a folded block
+    wni = _walk(bases, wen, b)
+    crnd = torch.from_numpy(rng.integers(1, 6, g, dtype=np.int32)).to(cuda)
+    alive = torch.ones((g, a), dtype=torch.bool, device=cuda)
+    alive[rows[-1], 0] = False
+    alive[3, 1:] = False  # below quorum
+    limit = np.asarray([0] * 7 + [2**31 - 100], np.int32) + n  # group 7's wraps
+    limit[rows[-1]] = np.int32(bases[rows[-1]] + b + 7)
+    values = torch.from_numpy(
+        rng.integers(I32_MIN, I32_MAX, (k, len(rows), b, v), dtype=np.int32, endpoint=True)
+    ).to(cuda)
+    stack, lstate = _slabs(rng, g, a, n, v, 8, cuda)
+    twin = (AcceptorState(*(x.clone() for x in vars(stack).values())),
+            batched.LearnerState(*(x.clone() for x in vars(lstate).values())))  # fmt: skip
+    stack, lstate = _held(stack, lstate, off)
+    ptrs = [x.data_ptr() for x in _states(stack, lstate)]
+    want = batched.persistent_cohort_rounds(*twin, gsel, wni, wen, crnd, alive, q, values, limit,
+                                            group_block=gb)  # fmt: skip
+    monkeypatch.setattr(k_wirepath, "LANE_THREADS", threads)
+    before, count = _variants(), k_wirepath.persistent_launches
+    got = k_wirepath.persistent_wirepath_round(
+        gsel, wni, wen, crnd, q, alive, *_states(stack, lstate),
+        _off16(values) if off == "values" else values, torch.from_numpy(limit).to(cuda),
+        group_block=gb,
+    )  # fmt: skip
+    assert _ran(before) == variant and k_wirepath.persistent_launches == count + 1
+    for x, y in zip(got, [*_states(*want[:2]), *want[2:]], strict=True):
+        assert torch.equal(x, y)
+    assert [x.data_ptr() for x in got[:6]] == ptrs
+
+
+@pytest.mark.parametrize(
+    "k,n,v,variant",
+    [(65_535, 65_536, 16, "vector"), (65_536, 65_536, 16, "vector"),
+     (140_000, 1 << 18, 5, "scalar")],  # fmt: skip
+)
+def test_persistent_kernel_at_the_grid_z_edge(cuda, k, n, v, variant):
+    """Every K the wrapper admits runs: at B = 1, K * B <= N admits K = N,
+    past the grid's z extent of 65,535, where a block serves rounds z, z +
+    65,535, ...  A wave of K enabled rounds of one lane is one K-lane
+    window, so it is held against one ``batched.cohort_fused_round`` of
+    B = K (outputs transposed), the state compared whole."""
+    g, a, q, base = 2, 3, 2, n - 7  # the wave crosses the ring end
+    rng = np.random.default_rng([k, v])
+    stack, lstate = _slabs(rng, g, a, n, v, 8, cuda)
+    twin = (AcceptorState(*(x.clone() for x in vars(stack).values())),
+            batched.LearnerState(*(x.clone() for x in vars(lstate).values())))  # fmt: skip
+    wen = np.ones((k, g), np.int32)
+    wni = _walk([base] * g, wen, 1)
+    crnd = torch.full((g,), 6, dtype=torch.int32, device=cuda)
+    alive = torch.ones((g, a), dtype=torch.bool, device=cuda)
+    alive[1, 0] = False
+    values = torch.from_numpy(
+        rng.integers(I32_MIN, I32_MAX, (k, 1, 1, v), dtype=np.int32, endpoint=True)
+    ).to(cuda)
+    assert k_wirepath.wave_geometry(v, 1, 1, k, n, True).grid[2] == min(k, 65_535)
+    before = _variants()
+    got = k_wirepath.persistent_wirepath_round([1], wni, wen, crnd, q, alive,
+                                               *_states(stack, lstate), values)  # fmt: skip
+    want = batched.cohort_fused_round(*twin, [1], torch.from_numpy(wni[0]).to(cuda), crnd,
+                                      alive, q, values.reshape(1, k, v), [1] * g)  # fmt: skip
+    assert _ran(before) == variant
+    assert torch.equal(got[6].reshape(1, k), want[2])
+    assert torch.equal(got[7].reshape(1, k), want[3])
+    assert torch.equal(got[8].reshape(1, k, v), want[4])
+    for x, y in zip(got[:6], _states(*want[:2]), strict=True):
+        assert torch.equal(x, y)
+
+
+def _burst_view(value):
+    """``value`` (B, V) as rows 1..B of a (B + 1)-row burst that starts 4
+    bytes off 16: a contiguous view, 4 bytes off 16 where V % 4 == 0."""
+    b, v = value.shape
+    whole = _off16(torch.cat([value[:1], value]).reshape(-1))
+    view = whole[v:].view(b, v)
+    assert view.is_contiguous() and torch.equal(view, value)
+    return view
+
+
+@pytest.mark.parametrize(
+    "a,v,off,alive,threads,variant",
+    [
+        (3, 16, None, [1, 1, 1], 128, "vector"),
+        (3, 16, None, [1, 0, 1], 64, "vector"),
+        (5, 16, None, [0, 1, 1, 0, 1], 256, "vector"),
+        (3, 16, "msg_val", [1, 1, 1], 128, "scalar"),  # a view into a burst, 4 bytes off 16
+        (3, 16, "st_val", [1, 0, 1], 64, "scalar"),
+        (3, 5, None, [1, 1, 0], 256, "scalar"),
+        (8, 1, None, [1, 0, 1, 1, 1, 0, 1, 1], 128, "scalar"),
+        (3, 130, None, [1, 1, 1], 64, "scalar"),  # 5 words a thread: stores in 3 passes
+        (3, 256, None, [1, 1, 0], 128, "vector"),  # 2 int4 a thread at T = 32
+    ],
+)
+def test_team_vote_kernel_matches_plain(cuda, monkeypatch, a, v, off, alive, threads, variant):
+    """K2's team body against ``batched.acceptor_phase2_all`` in both
+    variants, over an aligned, a misaligned, a ring-end and a scattered
+    window (P2As, NOPs and other types, rounds below and above the
+    promises), blocks of 64, 128 and 256 threads; the variant asserted by
+    its counter, the stacked rings in place."""
+    n = 4096
+    rng = np.random.default_rng([a, v, threads, len(alive)])
+    s = _state(rng, a, n, v, 0, 5, cuda)["stack"]
+    twin = AcceptorState(*(x.clone() for x in vars(s).values()))
+    if off == "st_val":
+        s = AcceptorState(s.rnd, s.vrnd, _off16(s.value))
+    ptrs = [x.data_ptr() for x in vars(s).values()]
+    alv = torch.tensor(alive, dtype=torch.bool, device=cuda)
+    monkeypatch.setattr(k_wirepath, "LANE_THREADS", threads)
+    for inst in _windows(rng, n, 128):
+        msgs = _phase2(rng, inst, v, cuda)
+        if off == "msg_val":
+            msgs = msgs.replace(value=_burst_view(msgs.value))
+            assert msgs.value.data_ptr() % 16 == 4
+        before, count = _variants(), k_wirepath.vote_all_launches
+        _, got = ops.acceptor_phase2_all(s, msgs, alv)
+        _, want = batched.acceptor_phase2_all(twin, msgs, alv)
+        assert _ran(before) == variant and k_wirepath.vote_all_launches == count + 1
+        for f in FIELDS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        for x, y in zip(vars(s).values(), vars(twin).values(), strict=True):
+            assert torch.equal(x, y)
+    assert [x.data_ptr() for x in vars(s).values()] == ptrs
+
+
+@pytest.mark.parametrize("v", [16, 5])
+def test_vote_all_equals_k7_per_acceptor(cuda, v):
+    """K2's new team body against K7's old one-thread ``vote_lane``: each
+    alive acceptor's vote row and registers from K2 equal K7's on a clone
+    of that acceptor's own file, window after window; the dead acceptor's
+    row and registers equal the plain version's."""
+    a, n, b, alive = 3, 65536, 128, [1, 0, 1]
+    rng = np.random.default_rng([v, 7])
+    s = _state(rng, a, n, v, 0, 5, cuda)["stack"]
+    twin = AcceptorState(*(x.clone() for x in vars(s).values()))
+    files = {i: AcceptorState(*(x[i].clone() for x in vars(s).values())) for i in (0, 2)}
+    alv = torch.tensor(alive, dtype=torch.bool, device=cuda)
+    for inst in _windows(rng, n, b):
+        msgs = _phase2(rng, inst, v, cuda)
+        _, got = ops.acceptor_phase2_all(s, msgs, alv)
+        _, want = batched.acceptor_phase2_all(twin, msgs, alv)
+        for i, f in files.items():
+            before = k_acceptor.launches
+            _, k7 = ops.acceptor_phase2(f, msgs, i)
+            assert k_acceptor.launches == before + 1
+            for name in FIELDS:
+                assert torch.equal(getattr(got, name)[i], getattr(k7, name)), (i, name)
+        for name in FIELDS:
+            assert torch.equal(getattr(got, name)[1], getattr(want, name)[1]), name
+    for i, f in files.items():
+        for name in ("rnd", "vrnd", "value"):
+            assert torch.equal(getattr(s, name)[i], getattr(f, name)), (i, name)
+    for name in ("rnd", "vrnd", "value"):
+        assert torch.equal(getattr(s, name)[1], getattr(twin, name)[1]), name
+
+
+# ---------------------------------------------------------------------------
 # K9: attention
 # ---------------------------------------------------------------------------
 def _qkv(rng, b, h, kvh, sq, sk, d, dtype, dev):

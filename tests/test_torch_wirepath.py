@@ -163,3 +163,90 @@ def test_lane_geometry_reads_alignment_from_the_tensors(monkeypatch):
         monkeypatch.setattr(twire, "LANE_THREADS", threads)
         with pytest.raises(ValueError, match="whole warps"):
             twire.lane_geometry(v, b, 1, True)
+
+
+# K5: (V, B, rows, K, N, aligned) -> (variant, team, grid).  The rounds are
+# the grid's z extent, capped at 65,535; K * B <= N admits K = N at B = 1
+WAVE_GEOMETRY = [
+    ((16, 128, 8, 8, 65536, True), ("vector", 4, (4, 8, 8))),  # the defaults' wave, GB=8
+    ((16, 128, 1, 8, 65536, True), ("vector", 4, (4, 1, 8))),  # one group
+    ((16, 128, 8, 512, 65536, True), ("vector", 4, (4, 8, 512))),  # K * B = N
+    ((16, 128, 2, 8, 65536, False), ("scalar", 16, (16, 2, 8))),  # a view 4 bytes off 16
+    ((5, 16, 3, 4, 4096, True), ("scalar", 8, (1, 3, 4))),
+    ((16, 1, 1, 65534, 65536, True), ("vector", 4, (1, 1, 65534))),
+    ((16, 1, 1, 65535, 65536, True), ("vector", 4, (1, 1, 65535))),  # the z edge
+    ((16, 1, 1, 65536, 65536, True), ("vector", 4, (1, 1, 65535))),  # one block serves 2
+    ((5, 1, 2, 140_000, 1 << 18, True), ("scalar", 8, (1, 2, 65535))),
+]
+
+
+@pytest.mark.parametrize("args,want", WAVE_GEOMETRY)
+def test_wave_geometry_spreads_rounds_over_a_3d_grid(args, want):
+    geo = twire.wave_geometry(*args)
+    assert (geo.variant, geo.team, geo.grid) == want
+    v, b, rows, k, n, aligned = args
+    flat = twire.lane_geometry(v, b, rows, aligned)
+    assert (geo.variant, geo.team, geo.block, geo.grid[:2]) == (
+        flat.variant, flat.team, flat.block, flat.grid
+    )
+
+
+@pytest.mark.parametrize("k", [1, 8, 65_534, 65_535, 65_536, 140_000, 3 * 65_535 + 1])
+def test_wave_geometry_covers_every_round_once(k):
+    """K5's blocks at z serve rounds z, z + gz, ... (gz the grid's z extent):
+    every round of the wave exactly once, in one pass a block unless K >
+    65,535."""
+    gz = twire.wave_geometry(16, 1, 1, k, max(k, 16), True).grid[2]
+    served = [r for z in range(gz) for r in range(z, k, gz)]
+    assert len(served) == k and set(served) == set(range(k))
+    assert max(len(range(z, k, gz)) for z in range(gz)) == -(-k // 65_535)
+
+
+@pytest.mark.parametrize(
+    "v,b,rows,k,n",
+    [
+        (16, 128, 8, 513, 65536),  # K * B > N: the wave would lap the ring
+        (16, 1, 1, 65537, 65536),
+        (16, 128, 8, 0, 65536),  # no round
+        (16, 128, 0, 8, 65536),  # no row
+        (16, 128, 65_536, 8, 65536),  # more rows than the grid's y extent
+    ],
+)
+def test_wave_geometry_refuses_what_the_kernel_cannot_take(v, b, rows, k, n):
+    with pytest.raises(ValueError, match="K \\* B <= N"):
+        twire.wave_geometry(v, b, rows, k, n, True)
+
+
+# K2: a team per (acceptor, lane) on a (lane blocks, A) grid, the variant
+# from V and the alignment of the burst, st_val and the vote values
+VOTE_GEOMETRY = [
+    # (A, V, the tensor held 4 bytes off 16) -> (variant, team, grid)
+    ((3, 16, None), ("vector", 4, (4, 3))),  # the paths' shape: 12 blocks
+    ((3, 16, "msg_val"), ("scalar", 16, (16, 3))),  # a burst view 4 bytes off 16
+    ((3, 16, "st_val"), ("scalar", 16, (16, 3))),
+    ((3, 16, "vote_value"), ("scalar", 16, (16, 3))),
+    ((5, 16, None), ("vector", 4, (4, 5))),
+    ((3, 5, None), ("scalar", 8, (8, 3))),
+    ((8, 1, None), ("scalar", 1, (1, 8))),
+]
+
+
+@pytest.mark.parametrize("args,want", VOTE_GEOMETRY)
+def test_vote_geometry_from_the_tensors_alignment(args, want):
+    """What K2's wrapper launches: ``_lanes`` over the burst, st_val and the
+    vote values, with rows = A."""
+    a, v, off = args
+    b, n = 128, 1024
+
+    def words(*shape, moved=False):
+        whole = torch.zeros((int(np.prod(shape)) + 4,), dtype=torch.int32)
+        x = whole[1 : 1 + int(np.prod(shape))] if moved else whole[: int(np.prod(shape))]
+        return x.view(shape)
+
+    msg_val = words(b, v, moved=off == "msg_val")
+    st_val = words(a, n, v, moved=off == "st_val")
+    vote_value = words(a, b, v, moved=off == "vote_value")
+    assert all(t.is_contiguous() for t in (msg_val, st_val, vote_value))
+    geo = twire._lanes(v, b, a, msg_val, st_val, vote_value)
+    assert (geo.variant, geo.team, geo.grid) == want
+    assert geo.block == twire.LANE_THREADS
