@@ -19,13 +19,19 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    each alive acceptor's own file; K1, K5, K6 and K2 in both variants of
    their team body (vector at V = 16 on 16-byte aligned tensors, scalar at
    V = 5 and on views 4 bytes off 16), each case printing the variant it
-   took;
+   took; the sequencer K3 at B of 3 to 4096 and on ``active`` views 0 to
+   3 bytes past 4; the digest K4 one leaf a launch and every leaf of a seal in
+   one launch, on the main path's seal shapes, views off 16, empty leaves
+   and 8 leaves, each case printing its grid and leaves, a seal profiled
+   to run one kernel and no fill, and one leaf past 2^31 words (8.6 GB)
+   against the plain fold taken chunk by chunk;
 4. the main path: ``PaxosContext(PaxosConfig(), fused=True, use_kernels=True,
    snapshots=True)`` on the card under a seeded lossy ``SimNet``, with ring
    wrap under reclamation, snapshots, an acceptor kill and revive, a crash
    and restore, and a coordinator failover and restore; the same schedule on
    the plain engine must give the same logs, seals and final state, and
-   every seal is folded again by K4's plain version and must agree;
+   every seal is folded again by K4's plain version and must agree; each
+   seal must be one K4 launch (on every path with seals);
 5. the staged path: ``PaxosContext(PaxosConfig(), n_learners=2)`` with its
    defaults (``fused=False``, ``use_kernels=True``) on the card under a
    lossy ``SimNet``, with ring wrap, a kill and revive, a failover and
@@ -81,8 +87,13 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    their grid, an empty kernel, and their times at 64, 128 and 256 threads
    a block, with the registers, spills and 128-bit load and store counts of
    ``csrc/wirepath.cu``'s and ``csrc/vote.cu``'s kernels, which must show no
-   spill in a team kernel and 128-bit stores in its vector variant; K9 also
-   beside PyTorch's
+   spill in a team kernel and 128-bit stores in its vector variant; K4's
+   seal as one launch beside the first design's five launches, the floor
+   of its grid and ``torch.sum`` over the same bytes, each launch reading
+   its bytes from HBM, at the N/4 seal and a sweep of prefixes up to 256
+   MiB, and K3 beside its grid's floor, with K4's and K3's registers,
+   spills and 128-bit loads, which must show no spill and 128-bit loads
+   in K4; K9 also beside PyTorch's
    ``scaled_dot_product_attention``, with its registers and spills and its
    library's HGMMA and UTMALDG counts, which must not be 0), each consensus
    path's decided values/s
@@ -315,46 +326,138 @@ def check_k1(dev, n: int = 1 << 16, v: int = 16) -> int:
     return worst
 
 
+def k4_variant(geo: k_digest.DigestGeometry) -> str:
+    """What a K4 launch runs: its grid and, a leaf, ``vector`` (an int4
+    body, with its scalar head and tail words) or ``scalar`` (head and tail
+    only) or ``empty``."""
+    kinds = ["vector" if s.body else "scalar" if s.head + s.tail else "empty" for s in geo.leaves]
+    heads = [f"{s.head}+{s.tail}" for s in geo.leaves]
+    return f"{geo.grid[0]} blocks, leaves {'/'.join(kinds)} (head+tail words {','.join(heads)})"
+
+
+def seal_leaves(k: int, v: int, dev, seed: int, off: int = 0) -> list[torch.Tensor]:
+    """A seal's two leaves, insts (K,) and values (K, V), one contiguous
+    buffer on the card whose data start ``off`` bytes past 16: so one
+    ``torch.sum`` reads exactly the seal's bytes."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.empty(k * (1 + v) + 4, dtype=torch.int32, device=dev)
+    start = (off - buf.data_ptr()) % 16 // 4
+    flat = buf[start : start + k * (1 + v)]
+    flat.random_(-(2**31), 2**31, generator=gen)
+    return [flat[:k], flat[k:].view(k, v)]
+
+
+def seal_geometry(leaves: list[torch.Tensor]) -> k_digest.DigestGeometry:
+    return k_digest.digest_geometry(
+        [x.numel() for x in leaves], [x.data_ptr() % 16 for x in leaves],
+        torch.cuda.get_device_properties(leaves[0].device).multi_processor_count,
+    )  # fmt: skip
+
+
 def check_k4(dev, n: int = 1 << 16, v: int = 16) -> int:
     """K4 against ``digest_plain`` on odd lengths and on the leaf lengths of
-    the main path's seals: after slice s the prefix holds about s*N/4
-    instances and s*N/4*V value words."""
+    the main path's seals (after slice s the prefix holds about s*N/4
+    instances and s*N/4*V value words), one leaf a launch; then the tree
+    launch, every leaf of a seal in one launch, on the main path's seal
+    shapes, on views 4, 8 and 12 bytes off 16, with empty leaves and on 8
+    leaves, against ``tree_digest_plain``; that a seal runs one kernel and
+    no fill (``torch.profiler``); and one leaf past 2^31 words against the
+    plain fold taken chunk by chunk (``digest_plain_chunked``)."""
     rng = np.random.default_rng(SEED + 1)
     worst = 0
-    seal_leaves = [s * n // 4 * w for s in range(1, 7) for w in (1, v)]
-    for n in (524_287, 524_289, 16_384 * 17, 1, 0, *seal_leaves):
+    seal_words = [s * n // 4 * w for s in range(1, 7) for w in (1, v)]
+    for n_ in (524_287, 524_289, 16_384 * 17, 1, 0, *seal_words):
         for dtype in (torch.int32, torch.float32):
             if dtype == torch.int32:
-                x = torch.from_numpy(rng.integers(-(2**31), 2**31, n, dtype=np.int32))
+                x = torch.from_numpy(rng.integers(-(2**31), 2**31, n_, dtype=np.int32))
             else:
-                x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+                x = torch.from_numpy(rng.standard_normal(n_).astype(np.float32))
             x = x.to(dev)
+            before = k_digest.launches
             got, want = k_digest.digest(x), k_digest.digest_plain(x)
             err = abs(int(got) - int(want))
-            print(f"  K4 n={n} {dtype}: {int(got)} vs {int(want)}")
-            if err:
-                raise AssertionError(f"K4 disagrees with its plain version at n={n} {dtype}")
+            print(f"  K4 n={n_} {dtype}: {int(got)} vs {int(want)}")
+            if err or k_digest.launches != before + 1:
+                raise AssertionError(f"K4 disagrees with its plain version at n={n_} {dtype}")
             worst = max(worst, err)
+    cases = [(f"seal after slice {s}", seal_leaves(s * n // 4, v, dev, SEED + s))
+             for s in range(1, 7)]  # fmt: skip
+    for off in (4, 8, 12):
+        leaves = seal_leaves(n // 4, v, dev, SEED + off, off)
+        cases.append((f"seal of N/4 {off} bytes off 16", leaves))
+    odd = [(0, 0), (1_000_001, 4), (0, 8), (7, 12), (5, 4), (70_001, 8), (3, 0), (262_147, 12)]
+    leaves = []
+    for k, (words, off) in enumerate(odd):
+        buf = torch.empty(words + 4, dtype=(torch.int32, torch.float32)[k % 2], device=dev)
+        leaf = buf[(off - buf.data_ptr()) % 16 // 4 :][:words]
+        leaf.copy_(torch.from_numpy(rng.integers(-(2**31), 2**31, words, dtype=np.int32))
+                   .view(leaf.dtype))  # fmt: skip
+        leaves.append(leaf)
+    cases.append(("8 leaves: empty, odd, float32, views off 16", leaves))
+    for name, leaves in cases:
+        before = k_digest.launches
+        got = k_digest.tree_digest(leaves).tolist()
+        want = k_digest.tree_digest_plain(leaves).tolist()
+        err = max(abs(a - b) for a, b in zip(got, want, strict=True))
+        print(f"  K4 tree {name}: {k4_variant(seal_geometry(leaves))}: {got} vs {want}")
+        if err or k_digest.launches != before + 1:
+            raise AssertionError(f"K4's tree launch disagrees with its plain version: {name}")
+        worst = max(worst, err)
+    leaves = seal_leaves(6 * n // 4, v, dev, SEED)
+    ops.tree_digest(leaves)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ops.tree_digest(leaves)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")
+               and not e.name.startswith("Memcpy")]  # fmt: skip
+    print(f"  K4 a seal's device work (torch.profiler): {kernels} and its one read-back")
+    if len(kernels) != 1 or not kernels[0].startswith("tree_digest_kernel"):
+        raise AssertionError(f"a seal ran {kernels}, not one K4 launch and no fill")
+    worst = max(worst, check_k4_past_int32(dev))
     return worst
 
 
+def check_k4_past_int32(dev, words: int = 2**31 + 2**20 + 3) -> int:
+    """One leaf of ``words`` (past 2^31, 8.6 GB), a view 4 bytes off 16, on
+    the card: K4 against the plain fold taken 2^26 words at a time, whose
+    identity ``D(x) = sum_c [D(x_c) + 2 o_c S(x_c)]`` the CPU tests hold."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    buf = torch.empty(words + 4, dtype=torch.int32, device=dev)
+    x = buf[(4 - buf.data_ptr()) % 16 // 4 :][:words]
+    x.random_(-(2**31), 2**31, generator=gen)
+    got = int(k_digest.digest(x))
+    want = int(k_digest.digest_plain_chunked(x, 1 << 26))
+    print(f"  K4 one leaf of {words} words ({4 * words / 1e9:.2f} GB, "
+          f"{k4_variant(seal_geometry([x]))}): {got} vs chunked plain {want}")  # fmt: skip
+    del x, buf
+    torch.cuda.empty_cache()
+    if got != want:
+        raise AssertionError("K4 disagrees with the chunked plain fold past 2^31 words")
+    return abs(got - want)
+
+
 def check_k3(dev) -> int:
-    """K3 against ``batched.coordinator_sequence``: bursts of 8 and 128 at
-    aligned, misaligned and negative watermarks and at watermarks near int32
-    max, where the instances wrap."""
+    """K3 against ``batched.coordinator_sequence``: bursts of 8, 128, 129, 3
+    and 4096 at aligned, misaligned and negative watermarks and at
+    watermarks near int32 max, where the instances wrap, with ``active``
+    on 4 bytes and 1 to 3 bytes off."""
     rng = np.random.default_rng(SEED + 5)
     worst = 0
-    for b in (8, 128):
+    for b, off in ((8, 0), (128, 0), (128, 1), (129, 0), (3, 2), (4096, 0), (4096, 3)):
         for base in (0, 4096, 1003, -77, 2**31 - 1 - b // 2, 2**31 - 1):
             cstate = CoordinatorState.init(crnd=11, next_inst=base, device=dev)
             values = torch.from_numpy(rng.integers(0, 1 << 20, (b, 16), dtype=np.int32)).to(dev)
-            active = torch.from_numpy(rng.random(b) < 0.8).to(dev)
+            buf = torch.empty(b + 4, dtype=torch.bool, device=dev)
+            active = buf[(off - buf.data_ptr()) % 4 :][:b]
+            active.copy_(torch.from_numpy(rng.random(b) < 0.8))
+            before = k_coordinator.launches
             gc, gp = ops.coordinator_sequence(cstate, values, active)
             wc, wp = batched.coordinator_sequence(cstate, values, active)
             err = max_abs_err([gc.next_inst, gc.crnd, *gp.tensors()],
                               [wc.next_inst, wc.crnd, *wp.tensors()])  # fmt: skip
-            print(f"  K3 b={b} next_inst={base}: max_abs_err={err}")
-            if err:
+            print(f"  K3 b={b} active {off} bytes off 4, next_inst={base}: max_abs_err={err}")
+            if err or k_coordinator.launches != before + 1:
                 raise AssertionError(f"K3 disagrees with its plain version at {base}, {b}")
             worst = max(worst, err)
     return worst
@@ -1317,6 +1420,33 @@ class PlainCalls:
         setattr(batched, self._name, self._orig)
 
 
+class SealCalls:
+    """Counts the seals made while entered: ``ops.tree_digest`` calls, each
+    of which must be one K4 launch on the card."""
+
+    def __init__(self):
+        self.calls = 0
+        self._orig = ops.tree_digest
+
+    def __enter__(self):
+        def counted(leaves):
+            self.calls += 1
+            return self._orig(leaves)
+
+        ops.tree_digest = counted
+        return self
+
+    def __exit__(self, *exc):
+        ops.tree_digest = self._orig
+
+
+def require_seals(path: str, launches: dict[str, int], seals: SealCalls) -> None:
+    """Each seal of a path was one K4 launch."""
+    if not seals.calls or launches["digest"] != seals.calls:
+        raise AssertionError(f"the {path} made {seals.calls} seals in {launches['digest']} K4 "
+                             f"launches")  # fmt: skip
+
+
 def run_staged_path(use_kernels: bool, dev, cfg: PaxosConfig | None = None) -> dict:
     """The paper's deployment as its users construct it, on the card:
     ``PaxosContext(PaxosConfig(), n_learners=2)`` with the default
@@ -2179,13 +2309,13 @@ def time_k1(dev) -> dict:
 
 
 def time_launch_floor(geo, walk: int, dev) -> float:
-    """``csrc/wirepath.cu``'s empty kernel on ``geo``'s grid and block,
-    ``walk`` launches in one CUDA graph, as ``time_walk`` times each kernel:
-    the floor under a launch of that shape."""
+    """``csrc/wirepath.cu``'s empty kernel on ``geo``'s grid (1-, 2- or
+    3-D) and block, ``walk`` launches in one CUDA graph, as ``time_walk``
+    times each kernel: the floor under a launch of that shape."""
     fn = _build.library("wirepath").launch_floor
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    gx, gy, gz = (*geo.grid, 1)[:3]
+    gx, gy, gz = (*geo.grid, 1, 1)[:3]
 
     def launch(k):
         _build.check(fn(gx, gy, gz, geo.block, torch.cuda.current_stream(dev).cuda_stream),
@@ -2208,25 +2338,114 @@ def team_times(kernel, walk: int, restore, geo, dev) -> dict:
     )  # fmt: skip
 
 
+_flat_fn = None
+
+
+def digest_flat(x: torch.Tensor) -> torch.Tensor:
+    """K4's first design on one leaf, as a seal ran it before the tree launch: a fill
+    of the output word, then the grid-stride kernel of 8 blocks an SM
+    (``csrc/digest.cu``'s ``digest_flat``, which only this timing
+    launches)."""
+    global _flat_fn
+    if _flat_fn is None:
+        _flat_fn = _build.library("digest").digest_flat
+        _flat_fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                             ctypes.c_void_p]  # fmt: skip
+        _flat_fn.restype = ctypes.c_int
+    bits = x.reshape(-1).view(torch.int32)
+    out = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = max(1, min(8 * sms, -(-bits.numel() // 256)))
+    rc = _flat_fn(bits.data_ptr(), bits.numel(), out.data_ptr(), blocks,
+                  torch.cuda.current_stream(x.device).cuda_stream)  # fmt: skip
+    _build.check(rc, "digest_flat launch")
+    return out[0]
+
+
+def flat_seal(leaves: list[torch.Tensor]) -> torch.Tensor:
+    """A seal's leaf digests by the first design: a fill and a launch a
+    leaf, and the stack, five launches for the seal's two leaves."""
+    return torch.stack([digest_flat(x) for x in leaves])
+
+
+def k4_bytes(leaves: list[torch.Tensor]) -> int:
+    """K4 reads every word of every leaf once and writes one digest a
+    leaf: at the N/4 seal (16,384 + 262,144 words) 1,114,120 B."""
+    return 4 * sum(x.numel() for x in leaves) + 4 * len(leaves)
+
+
+L2_FLUSH_BYTES = 128 << 20  # more than twice the card's 50 MB L2
+
+
+def seal_copies(k: int, v: int, dev, seed: int) -> list[list[torch.Tensor]]:
+    """Copies of a seal's leaves (``seal_leaves``), as many as hold
+    ``L2_FLUSH_BYTES`` together and at least one: a walk that folds them in
+    turn finds each copy gone from L2, which has read more than twice its
+    size since, so every launch reads its bytes from HBM."""
+    count = max(1, -(-L2_FLUSH_BYTES // (4 * k * (1 + v))))
+    return [seal_leaves(k, v, dev, seed + c) for c in range(count)]
+
+
+def time_seal(copies: list[list[torch.Tensor]], walk: int, dev) -> dict:
+    """One seal's fold on K4 (one launch) and on the first design (five),
+    the floor of K4's grid and ``torch.sum`` in int64 over the same bytes
+    (a library reduction, not a call that computes the digest), each over
+    a walk of ``walk`` launches, or one a copy if there are more copies, in
+    a CUDA graph, each launch on the next copy (``seal_copies``); rates and
+    the share of the bound against the bytes, read from HBM."""
+    n = len(copies)
+    walk = max(walk, n)
+    leaves = copies[0]
+    nbytes = k4_bytes(leaves)
+    for c in copies:
+        if c[1].data_ptr() != c[0].data_ptr() + 4 * c[0].numel():
+            raise AssertionError("a seal's leaves must lie in one buffer")
+    wholes = [c[0].as_strided((sum(x.numel() for x in c),), (1,)) for c in copies]
+    geo = seal_geometry(leaves)
+    bms, by = bound_ms(nbytes, 2 * nbytes // 4)
+    out = dict(
+        mbytes=nbytes / 2**20, copies=n, grid=geo.grid[0],
+        ms=time_walk(lambda k: k_digest.tree_digest(copies[k % n]), walk, True),
+        flat_ms=time_walk(lambda k: flat_seal(copies[k % n]), walk, True),
+        floor_ms=time_launch_floor(geo, walk, dev),
+        library_reduction_ms=time_walk(lambda k: torch.sum(wholes[k % n], dtype=torch.int64),
+                                       walk, True),
+        bound_ms=bms, bound_by=by,
+    )  # fmt: skip
+    out["gb_per_s"] = nbytes / out["ms"] / 1e6
+    out["flat_gb_per_s"] = nbytes / out["flat_ms"] / 1e6
+    out["bound_share"] = bms / out["ms"]
+    return out
+
+
 def time_k4(dev, n_leaf: int) -> dict:
-    """The seal of one N/4-instance snapshot: insts (K,) and values (K, V)."""
-    rng = np.random.default_rng(SEED + 4)
-    leaves = [
-        torch.from_numpy(rng.integers(0, 1 << 20, n_leaf, dtype=np.int32)).to(dev),
-        torch.from_numpy(rng.integers(-(2**31), 2**31, (n_leaf, 16), dtype=np.int32)).to(dev),
-    ]
-    big = leaves[1]
-    nbytes = big.numel() * 4 + 4
-    bms, by = bound_ms(nbytes, 2 * big.numel())
-    return dict(
-        ms=time_walk(lambda _: k_digest.digest(big), 50, True),
-        plain_ms=time_walk(lambda _: k_digest.digest_plain(big), 50, True),
-        bound_ms=bms,
-        bound_by=by,
-        eager_ms=time_walk(lambda _: k_digest.digest(big), 50, False),
+    """The seal of one N/4-instance snapshot, insts (K,) and values (K, V),
+    in one buffer: ``time_seal``, K4's plain version over the same copies;
+    then, on one copy, the first design's one-leaf launch on the values
+    leaf (the number earlier runs reported, its bytes in L2 from one
+    launch to the next), and eager, host launch cost included, K4, the
+    seal with its read-back and the first design's seal.  Then the sweep:
+    the same leaf shapes at prefixes of 6.4 MiB (the main path's last seal,
+    6N/4 instances), 64 MiB and 256 MiB, beside the N/4 seal's 1.06 MiB."""
+    v = 16
+    copies = seal_copies(n_leaf, v, dev, SEED + 4)
+    leaves, n = copies[0], len(copies)
+    out = time_seal(copies, 50, dev)
+    sweep = {n_leaf: dict(out)}
+    out.update(
+        plain_ms=time_walk(lambda k: k_digest.tree_digest_plain(copies[k % n]), max(50, n), True),
+        flat_leaf_ms=time_walk(lambda _: digest_flat(leaves[1]), 50, True),
+        eager_ms=time_walk(lambda _: k_digest.tree_digest(leaves), 50, False),
         seal_ms=time_walk(lambda _: ops.tree_digest(leaves), 50, False),
-        nbytes=nbytes,
-    )
+        flat_seal_eager_ms=time_walk(lambda _: k_digest.combine(flat_seal(leaves).tolist()), 50,
+                                     False),
+    )  # fmt: skip
+    del copies, leaves
+    for k in (6 * n_leaf, (64 << 20) // (4 * (1 + v)), (256 << 20) // (4 * (1 + v))):
+        sweep[k] = time_seal(seal_copies(k, v, dev, SEED + k), 20, dev)
+        torch.cuda.empty_cache()
+    out["sweep"] = sweep
+    return out
 
 
 def k2_bytes(a: int, b: int, v: int) -> int:
@@ -2350,6 +2569,10 @@ def time_staged(dev) -> dict:
             eager_ms=time_walk(kernel, walk, False, restore),
             bound_ms=bms, bound_by=by, bytes_per_launch=nbytes,
         )  # fmt: skip
+    # K3: the floor of its grid
+    geo = k_coordinator.sequence_geometry(b)
+    out["coordinator_sequence"].update(threads=geo.block, grid=list(geo.grid),
+                                       floor_ms=time_launch_floor(geo, walk, dev))  # fmt: skip
     # K2, a team kernel on a (lane blocks, A) grid: its floor and block sizes
     geo = k_wirepath.lane_geometry(v, b, a, True)
     out["acceptor_vote_all"].update(team_times(runs["acceptor_vote_all"][0], walk, restore, geo,
@@ -2650,34 +2873,44 @@ TEAM_KERNELS = {  # source -> its team kernels, each built as <int4> and <int>
 }  # fmt: skip
 
 
+def build_facts(src: str) -> dict:
+    """Each kernel of ``csrc/<src>.cu``: its registers, spills and stack
+    (``-Xptxas -v``) and its 128-bit global loads and stores in the SASS of
+    the built library (``cuobjdump --dump-sass``)."""
+    facts, name = {}, None
+    for line in _build.build_log(src).splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_name(line.split("'")[1])
+            facts[name] = {}
+        elif name and "spill stores" in line:
+            facts[name].update(stack_bytes=int(line.split()[0]),
+                               spill_store_bytes=int(line.split(",")[1].split()[0]),
+                               spill_load_bytes=int(line.split(",")[2].split()[0]))  # fmt: skip
+        elif name and "Used" in line and "registers" in line:
+            facts[name]["registers"] = int(line.split("Used")[1].split()[0])
+    for chunk in _build.sass(src).split("Function : ")[1:]:
+        fn = facts.setdefault(kernel_name(chunk.split()[0]), {})
+        fn["ldg128"] = len(re.findall(r"\bLDG(?:\.\w+)*?\.128\b", chunk))
+        fn["stg128"] = len(re.findall(r"\bSTG(?:\.\w+)*?\.128\b", chunk))
+    return facts
+
+
+def spills(fn: dict) -> bool:
+    """Whether a kernel's build spilled (or the kernel was not built)."""
+    return bool(fn.get("spill_store_bytes", 1) or fn.get("spill_load_bytes", 1))
+
+
 def team_build_facts() -> dict:
-    """Each kernel of ``csrc/wirepath.cu`` and ``csrc/vote.cu``: its
-    registers, spills and stack (``-Xptxas -v``) and its 128-bit global
-    loads and stores in the SASS of the built library (``cuobjdump
-    --dump-sass``).  Fails if a team kernel (K1, K5, K6, K2) spills, if a
-    vector variant has no 128-bit store, or if G=1 at the paths' shape runs
-    on one block."""
+    """``build_facts`` of ``csrc/wirepath.cu`` and ``csrc/vote.cu``.  Fails
+    if a team kernel (K1, K5, K6, K2) spills, if a vector variant has no
+    128-bit store, or if G=1 at the paths' shape runs on one block."""
     facts = {}
     for src, entries in TEAM_KERNELS.items():
-        name = None
-        for line in _build.build_log(src).splitlines():
-            if "Compiling entry function" in line:
-                name = kernel_name(line.split("'")[1])
-                facts[name] = {}
-            elif name and "spill stores" in line:
-                facts[name].update(stack_bytes=int(line.split()[0]),
-                                   spill_store_bytes=int(line.split(",")[1].split()[0]),
-                                   spill_load_bytes=int(line.split(",")[2].split()[0]))  # fmt: skip
-            elif name and "Used" in line and "registers" in line:
-                facts[name]["registers"] = int(line.split("Used")[1].split()[0])
-        for chunk in _build.sass(src).split("Function : ")[1:]:
-            fn = facts.setdefault(kernel_name(chunk.split()[0]), {})
-            fn["ldg128"] = len(re.findall(r"\bLDG(?:\.\w+)*?\.128\b", chunk))
-            fn["stg128"] = len(re.findall(r"\bSTG(?:\.\w+)*?\.128\b", chunk))
+        facts.update(build_facts(src))
         for entry in entries:
             for word in ("<int4>", "<int>"):
                 fn = facts.get(entry + word, {})
-                if fn.get("spill_store_bytes", 1) or fn.get("spill_load_bytes", 1):
+                if spills(fn):
                     raise AssertionError(f"{entry}{word} spills or was not built: {fn}")
             if not facts[entry + "<int4>"].get("stg128"):
                 raise AssertionError(f"{entry}<int4> has no 128-bit global store: {facts}")
@@ -2685,6 +2918,19 @@ def team_build_facts() -> dict:
     if geo.grid[0] < 2:
         raise AssertionError(f"K1 at G=1 runs on one block: {geo}")
     facts["G=1 geometry"] = dataclasses.asdict(geo)
+    return facts
+
+
+def k4_k3_build_facts() -> dict:
+    """``build_facts`` of ``csrc/digest.cu`` and ``csrc/coordinator.cu``.
+    Fails if K4's tree kernel or K3 spills, or if K4's has no 128-bit
+    global load."""
+    facts = {**build_facts("digest"), **build_facts("coordinator")}
+    for name in ("tree_digest_kernel", "coordinator_sequence_kernel"):
+        if spills(facts.get(name, {})):
+            raise AssertionError(f"{name} spills or was not built: {facts.get(name)}")
+    if not facts["tree_digest_kernel"].get("ldg128"):
+        raise AssertionError(f"tree_digest_kernel has no 128-bit global load: {facts}")
     return facts
 
 
@@ -2848,6 +3094,7 @@ def run(dev: torch.device) -> None:
     errs["K9"] = check_k9(dev)
     check_lm_small(dev)
     print(f"  team kernels' build: {json.dumps(team_build_facts())}")
+    print(f"  K4's and K3's build: {json.dumps(k4_k3_build_facts())}")
     # timed here, before the paths, and printed after them
     times = {"wirepath_round": time_k1(dev), "digest": time_k4(dev, PaxosConfig().n_instances // 4)}
     times.update(time_staged(dev))
@@ -2859,12 +3106,13 @@ def run(dev: torch.device) -> None:
 
     print("main path: PaxosContext(PaxosConfig(), fused=True, use_kernels=True, snapshots=True)")
     reset_launches()
-    with PlainCalls() as plain_votes:
+    with PlainCalls() as plain_votes, SealCalls() as seals:
         kern = run_main_path(True, dev)
     launches = read_launches()
     print(f"  launches on the main path: {launches}, fused rounds: {kern['rounds']}, "
-          f"plain Phase-2 votes: {plain_votes.calls}")  # fmt: skip
+          f"plain Phase-2 votes: {plain_votes.calls}, seals: {seals.calls}")  # fmt: skip
     require_launched("main path", launches, ["wirepath_round", "digest", "acceptor_vote_all"])
+    require_seals("main path", launches, seals)
     if launches["wirepath_round"] != kern["rounds"] or plain_votes.calls:
         raise AssertionError(f"the main path did not vote through the kernels: {launches}")
     require_variant("main path", launches, ["wirepath_round", "acceptor_vote_all"])
@@ -2927,13 +3175,19 @@ def run(dev: torch.device) -> None:
     print("multi-group path: PaxosContext(PaxosConfig(n_groups=8, persistent_rounds=1, "
           "realign_after=4), use_kernels=True, snapshots=True)")  # fmt: skip
     reset_launches()
-    with PlainCalls() as plain_votes, PlainCalls("_rows_round") as plain_rounds:
+    with (
+        PlainCalls() as plain_votes,
+        PlainCalls("_rows_round") as plain_rounds,
+        SealCalls() as seals,
+    ):
         mg = run_multigroup_path(True, dev)
     mg_launches = read_launches()
     dispatches = len(mg["dispatch_s"])
     print(f"  launches on the multi-group path: {mg_launches}, fused dispatches: {dispatches}, "
-          f"plain Phase-2 votes: {plain_votes.calls}, plain rounds: {plain_rounds.calls}")
+          f"plain Phase-2 votes: {plain_votes.calls}, plain rounds: {plain_rounds.calls}, "
+          f"seals: {seals.calls}")  # fmt: skip
     require_launched("multi-group path", mg_launches, ["K1-cohort", "digest", "acceptor_vote_all"])
+    require_seals("multi-group path", mg_launches, seals)
     if mg_launches["K1-cohort"] != dispatches or plain_votes.calls or plain_rounds.calls:
         raise AssertionError(f"the multi-group path did not run through the kernels: {mg_launches}")
     require_variant("multi-group path", mg_launches, ["K1-cohort", "acceptor_vote_all"])
@@ -2959,13 +3213,19 @@ def run(dev: torch.device) -> None:
           "realign_after=4), use_kernels=True, snapshots=True): persistent_rounds=8, "
           "async_pump=True")  # fmt: skip
     reset_launches()
-    with PlainCalls() as plain_votes, PlainCalls("_rows_round") as plain_rounds:
+    with (
+        PlainCalls() as plain_votes,
+        PlainCalls("_rows_round") as plain_rounds,
+        SealCalls() as seals,
+    ):
         dflt = run_multigroup_path(True, dev, default_multigroup_config())
     dflt_launches = read_launches()
     depths = dflt["depths"]
     waves = sum(c for k, c in depths.items() if k > 1)
     print(f"  launches: {dflt_launches}, waves {waves}, single rounds {depths.get(1, 0)}, "
-          f"plain Phase-2 votes: {plain_votes.calls}, plain rounds: {plain_rounds.calls}")
+          f"plain Phase-2 votes: {plain_votes.calls}, plain rounds: {plain_rounds.calls}, "
+          f"seals: {seals.calls}")  # fmt: skip
+    require_seals("default multi-group path", dflt_launches, seals)
     print(f"  wave depths (K: dispatches): {dict(sorted(depths.items()))}")
     require_launched("default multi-group path", dflt_launches,
                      ["K5", "K1-cohort", "digest", "acceptor_vote_all"])  # fmt: skip
@@ -3005,13 +3265,18 @@ def run(dev: torch.device) -> None:
           "mesh=make_group_mesh(2), use_kernels=True, snapshots=True) on the multi-group "
           "path's schedule, then a live migration")  # fmt: skip
     reset_launches()
-    with PlainCalls() as plain_votes, PlainCalls("_rows_round") as plain_rounds:
+    with (
+        PlainCalls() as plain_votes,
+        PlainCalls("_rows_round") as plain_rounds,
+        SealCalls() as seals,
+    ):
         shd = run_multigroup_path(True, dev, default_multigroup_config(), shards=2, deep=False)
     sh_launches = read_launches()
     rounds = sum(k * c for k, c in shd["depths"].items())
     print(f"  launches: {sh_launches}, dispatches {len(shd['dispatch_s'])} (single rounds "
           f"{rounds}), plain Phase-2 votes: {plain_votes.calls}, plain rounds: "
-          f"{plain_rounds.calls}")  # fmt: skip
+          f"{plain_rounds.calls}, seals: {seals.calls}")  # fmt: skip
+    require_seals("sharded multi-group path", sh_launches, seals)
     print(f"  wave depths (K: dispatches): {dict(sorted(shd['depths'].items()))}")
     require_launched("sharded multi-group path", sh_launches,
                      ["K6", "K1-shard", "digest", "acceptor_vote_all"])  # fmt: skip

@@ -420,9 +420,13 @@ def digest(x: torch.Tensor) -> torch.Tensor:
 
 
 def tree_digest(leaves: Sequence[torch.Tensor]) -> int:
-    """Digest a sequence of arrays, combining leaf digests in order; one
-    device-to-host read for all leaves."""
+    """Digest a sequence of arrays, combining leaf digests in order: on the
+    card one K4 launch for every leaf (at most ``MAX_LEAVES``) and one
+    device-to-host read, on the CPU the plain fold."""
     if not leaves:
         return _digest.combine([])
-    ds = torch.stack([digest(leaf) for leaf in leaves])
+    if _route(leaves[0], "tree_digest"):
+        ds = _digest.tree_digest(leaves)
+    else:
+        ds = _digest.tree_digest_plain(leaves)
     return _digest.combine(ds.tolist())

@@ -128,6 +128,131 @@ def test_digest_kernel_matches_plain(cuda, n, dtype):
     assert k_digest.launches == before + 1
 
 
+def _digest_leaf(rng, n, dtype, off, dev):
+    """A leaf of ``n`` words on the card, int32 or float32, whose data start
+    ``off`` bytes past a 16-byte boundary."""
+    if dtype == torch.int32:
+        host = rng.integers(I32_MIN, I32_MAX, n, dtype=np.int32, endpoint=True)
+    else:
+        host = rng.standard_normal(n).astype(np.float32)
+    buf = torch.empty(n + 4, dtype=dtype, device=dev)
+    start = ((off - buf.data_ptr()) % 16) // 4
+    x = buf[start : start + n]
+    x.copy_(torch.from_numpy(host))
+    assert x.is_contiguous() and (n == 0 or x.data_ptr() % 16 == off)  # an empty view has none
+    return x
+
+
+I32, F32 = torch.int32, torch.float32
+# (words, dtype, bytes past 16) of each leaf: the seal's two leaves, odd
+# lengths, empty leaves mixed with full ones, float32 leaves, views 4, 8
+# and 12 bytes off 16, and eight leaves
+TREE_CASES = [
+    [(16_384, I32, 0), (16_384 * 16, I32, 0)],
+    [(16_384, I32, 4), (16_384 * 16, I32, 4)],
+    [(524_287, F32, 4)],
+    [(524_288 + 3, I32, 12)],
+    [(0, I32, 0), (1_000_001, I32, 4), (0, F32, 0), (7, I32, 12)],
+    [(1, I32, 8)],
+    [(0, I32, 0)],
+    [(0, I32, 0), (0, F32, 4)],
+    [(5, F32, 4), (6, I32, 8), (3, I32, 12)],
+    [(70_001, F32, 4), (1, I32, 12), (4096 * 256 + 3, I32, 8), (9, F32, 0), (33, I32, 4),
+     (1 << 20, I32, 0), (12, F32, 8), (255, I32, 12)],
+]  # fmt: skip
+
+
+@pytest.mark.parametrize("case", TREE_CASES)
+def test_tree_digest_kernel_matches_plain(cuda, case):
+    """One launch a seal, each leaf's digest equal to the plain fold's."""
+    rng = np.random.default_rng(len(case) * 1000 + sum(n for n, _, _ in case) % 997)
+    leaves = [_digest_leaf(rng, n, dtype, off, cuda) for n, dtype, off in case]
+    before = k_digest.launches
+    got = k_digest.tree_digest(leaves)
+    assert k_digest.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (len(case),) and got.device == leaves[0].device
+    want = k_digest.tree_digest_plain(leaves)
+    on_cpu = k_digest.tree_digest_plain([x.cpu() for x in leaves])
+    assert got.tolist() == want.tolist() == on_cpu.tolist()
+    assert ops.tree_digest(leaves) == k_digest.combine(want.tolist())
+    assert k_digest.launches == before + 2
+
+
+@pytest.mark.parametrize("count", range(1, 9))
+def test_tree_digest_kernel_folds_one_to_eight_leaves(cuda, count):
+    rng = np.random.default_rng(count)
+    leaves = [
+        _digest_leaf(rng, int(rng.integers(0, 300_000)), (I32, F32)[i % 2], 4 * (i % 4), cuda)
+        for i in range(count)
+    ]
+    before = k_digest.launches
+    assert k_digest.tree_digest(leaves).tolist() == k_digest.tree_digest_plain(leaves).tolist()
+    assert k_digest.launches == before + 1
+
+
+def test_tree_digest_kernel_refuses_nine_leaves(cuda):
+    leaves = [torch.zeros(4, dtype=I32, device=cuda)] * 9
+    before = k_digest.launches
+    with pytest.raises(ValueError, match="1 to 8 leaves"):
+        k_digest.tree_digest(leaves)
+    with pytest.raises(ValueError, match="1 to 8 leaves"):
+        ops.tree_digest(leaves)
+    assert k_digest.launches == before
+
+
+def test_tree_digest_kernel_replays_in_a_cuda_graph(cuda):
+    """Two launches in one CUDA graph, replayed twice on new data: each
+    launch leaves its stream's ticket at 0 for the next."""
+    rng = np.random.default_rng(23)
+    leaves = [_digest_leaf(rng, 16_384, I32, 0, cuda), _digest_leaf(rng, 16_384 * 16, I32, 0, cuda)]
+    k_digest.tree_digest(leaves)  # the device's tickets are zeroed outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        first = k_digest.tree_digest(leaves)
+        second = k_digest.tree_digest(leaves[::-1])
+    for _ in range(2):
+        for x in leaves:
+            x.copy_(torch.from_numpy(rng.integers(I32_MIN, I32_MAX, x.numel(), dtype=np.int32)))
+        g.replay()
+        torch.cuda.synchronize()
+        want = k_digest.tree_digest_plain(leaves).tolist()
+        assert first.tolist() == want and second.tolist() == want[::-1]
+    assert k_digest.tree_digest(leaves).tolist() == want
+
+
+def test_tree_digest_kernel_graphs_replay_at_once_on_two_streams(cuda):
+    """Two seals captured in two CUDA graphs on ``torch.cuda.graph``'s one
+    capture stream, replayed at once on two streams, beside an eager seal
+    on a third: no two of the launches share a ticket word."""
+    rng = np.random.default_rng(29)
+    seals = [
+        [_digest_leaf(rng, 16_384, I32, 0, cuda), _digest_leaf(rng, 16_384 * 16, I32, 4, cuda)]
+        for _ in range(3)
+    ]
+    k_digest.tree_digest(seals[2])  # the device's tickets are zeroed outside the capture
+    torch.cuda.synchronize()
+    graphs, outs = [], []
+    for leaves in seals[:2]:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            outs.append([k_digest.tree_digest(leaves) for _ in range(4)])
+        graphs.append(g)
+    want = [k_digest.tree_digest_plain(leaves).tolist() for leaves in seals]
+    streams = [torch.cuda.Stream() for _ in range(3)]
+    for _ in range(20):
+        for g, s in zip(graphs, streams, strict=False):
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                g.replay()
+        with torch.cuda.stream(streams[2]):
+            eager = [k_digest.tree_digest(seals[2]) for _ in range(4)]
+        torch.cuda.synchronize()
+        for got, w in zip(outs, want, strict=False):
+            assert [d.tolist() for d in got] == [w] * 4
+        assert [d.tolist() for d in eager] == [want[2]] * 4
+
+
 FIELDS = ("msgtype", "inst", "rnd", "vrnd", "swid", "value")
 
 
@@ -144,6 +269,29 @@ def test_sequencer_kernel_matches_plain(cuda, next_inst, b):
     for f in FIELDS:
         assert torch.equal(getattr(gp, f), getattr(wp, f)), f
     assert int(gc.next_inst) == int(wc.next_inst) and int(gc.crnd) == 4
+
+
+@pytest.mark.parametrize("next_inst", [0, I32_MAX, I32_MAX - 2, I32_MAX - 64, -5])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("b", [1, 3, 8, 128, 129, 4096])
+def test_sequencer_kernel_matches_plain_at_any_burst(cuda, b, off, next_inst):
+    """K3 at any B, on ``active`` views 0 to 3 bytes past 4; the instances
+    wrap through int32 max."""
+    rng = np.random.default_rng([b, off, next_inst % 1013])
+    buf = torch.empty(b + 8, dtype=torch.bool, device=cuda)
+    start = (off - buf.data_ptr()) % 4
+    active = buf[start : start + b]
+    active.copy_(torch.from_numpy(rng.random(b) < 0.6))
+    assert active.data_ptr() % 4 == off
+    vals = torch.from_numpy(rng.integers(0, 9, (b, 16), dtype=np.int32)).to(cuda)
+    cstate = CoordinatorState.init(crnd=7, next_inst=next_inst, device=cuda)
+    before = k_coordinator.launches
+    gc, gp = ops.coordinator_sequence(cstate, vals, active)
+    assert k_coordinator.launches == before + 1
+    wc, wp = batched.coordinator_sequence(cstate, vals, active)
+    for f in FIELDS:
+        assert torch.equal(getattr(gp, f), getattr(wp, f)), f
+    assert int(gc.next_inst) == int(wc.next_inst) and int(gc.crnd) == 7
 
 
 def _phase2(rng, inst, v, dev):

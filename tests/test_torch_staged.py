@@ -24,6 +24,7 @@ from repro.core import batched as rb  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro_torch.core import batched as tb  # noqa: E402
 from repro_torch.core.bridge import export_state, import_state  # noqa: E402
+from repro_torch.kernels import coordinator as tcoord  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 
 CFG = dict(n_acceptors=3, n_instances=256, value_words=16, batch=16)
@@ -145,6 +146,55 @@ def test_coordinator_sequence_matches_tpu_kernel(next_inst, b):
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(tp, f).numpy(), np.asarray(getattr(rp, f)), f)
     assert int(tc.next_inst) == int(rc.next_inst) and int(tc.crnd) == 9
+
+
+@pytest.mark.parametrize("b", [1, 3, 129, 4096])
+@pytest.mark.parametrize("next_inst", [0, I32_MAX - 1, I32_MAX - 2048, -7])
+def test_coordinator_sequence_matches_tpu_kernel_at_any_burst(next_inst, b):
+    """K3's bursts: any B, watermarks at and near int32 max, where the
+    instances and the advanced watermark wrap.  The reference's kernel
+    takes B only as a multiple of its block (128 above 128); at B = 129 the
+    oracle is the reference's jnp sequencer."""
+    rng = np.random.default_rng([b, next_inst % 1009])
+    active = rng.random(b) < 0.5
+    vals = rng.integers(I32_MIN, I32_MAX, (b, 4), dtype=np.int32, endpoint=True)
+    ref = rops.coordinator_sequence if b <= 128 or b % 128 == 0 else rb.coordinator_sequence
+    rc, rp = ref(
+        R.CoordinatorState(jnp.int32(next_inst), jnp.int32(3)),
+        jnp.asarray(vals),
+        jnp.asarray(active),
+    )
+    tc, tp = tops.coordinator_sequence(
+        T.CoordinatorState.init(crnd=3, next_inst=next_inst), _t(vals), _t(active)
+    )
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(tp, f).numpy(), np.asarray(getattr(rp, f)), f)
+    assert int(tc.next_inst) == int(rc.next_inst)
+
+
+@pytest.mark.parametrize("b", [1, 3, 4, 8, 127, 128, 129, 132, 4096, 4097])
+def test_sequence_geometry_covers_the_burst_in_whole_warps(b):
+    """K3's launch: a thread a lane, whole warps a block, at most THREADS,
+    and as few blocks as cover the burst."""
+    geo = tcoord.sequence_geometry(b)
+    assert geo.block % 32 == 0 and 32 <= geo.block <= tcoord.THREADS
+    (blocks,) = geo.grid
+    assert blocks * geo.block >= b > (blocks - 1) * geo.block
+    if b <= tcoord.THREADS:
+        assert blocks == 1 and geo.block - 32 < b
+    if b == 128:
+        assert (geo.block, geo.grid) == (128, (1,))
+
+
+def test_sequence_geometry_refuses_an_empty_burst():
+    with pytest.raises(ValueError, match="at least one lane"):
+        tcoord.sequence_geometry(0)
+
+
+def test_sequencer_kernel_refuses_cpu_tensors():
+    one = torch.zeros((), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcoord.coordinator_sequence_window(one, one, torch.ones(8, dtype=torch.bool))
 
 
 def _stack_state(rng, a: int, n: int, v: int, hi: int = 9):
