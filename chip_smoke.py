@@ -15,15 +15,19 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    also against K sequential K1 launches and at K = 65,535 and 65,536 (the
    grid's z edge), and the packed shard round K6 and K1's shard slice, K6
    also against K1's shard slice on one cohort; the staged vote K2 (a team
-   of threads per (acceptor, lane)) also against K7's one-thread body on
-   each alive acceptor's own file; K1, K5, K6 and K2 in both variants of
-   their team body (vector at V = 16 on 16-byte aligned tensors, scalar at
-   V = 5 and on views 4 bytes off 16), each case printing the variant it
-   took; the sequencer K3 at B of 3 to 4096 and on ``active`` views 0 to
-   3 bytes past 4; the digest K4 one leaf a launch and every leaf of a seal in
-   one launch, on the main path's seal shapes, views off 16, empty leaves
-   and 8 leaves, each case printing its grid and leaves, a seal profiled
-   to run one kernel and no fill, and one leaf past 2^31 words (8.6 GB)
+   of threads per (acceptor, lane)) and the per-role acceptor K7 (the same
+   team body at A = 1) also against the first design's one-thread body
+   (the witness) on each alive acceptor's own file; the per-role learner
+   K8 (a team a lane that loads every vote first) where its first agreeing
+   acceptor is 0, 1, A-1 or none, at A up to one past the acceptors it
+   loads up front; K1, K5, K6, K2, K7 and K8 in both variants of their
+   team body (vector at V = 16 on 16-byte aligned tensors, scalar at V = 5
+   and on views 4 bytes off 16), each case printing the variant it took;
+   the sequencer K3 at B of 3 to 4096 and on ``active`` views 0 to 3 bytes
+   past 4; the digest K4 one leaf a launch and every leaf of a seal in one
+   launch, on the main path's seal shapes, views off 16, empty leaves and
+   8 leaves, each case printing its grid and leaves, a seal profiled to
+   run one kernel and no fill, and one leaf past 2^31 words (8.6 GB)
    against the plain fold taken chunk by chunk;
 4. the main path: ``PaxosContext(PaxosConfig(), fused=True, use_kernels=True,
    snapshots=True)`` on the card under a seeded lossy ``SimNet``, with ring
@@ -39,8 +43,9 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    give the same logs, learners' tables and final state, K3 must run once
    per ``sequence()`` and K2 once per ``vote()``;
 6. the per-role path: one ring walk of bursts through the sequencer, each
-   acceptor alone and the learner (K3, K7 x A, K8), held against the same
-   bursts through the acceptor array's vote (K2) and K8's plain version;
+   acceptor alone and the learner (K3, K7 x A, K8, the last two on their
+   team body in its vector variant), held against the same bursts through
+   the acceptor array's vote (K2) and K8's plain version;
 7. the multi-group path: ``PaxosContext(PaxosConfig(n_groups=8,
    persistent_rounds=1, realign_after=4), use_kernels=True, snapshots=True)``
    under a lossy ``SimNet``, uniform then skewed load, per-group failover,
@@ -83,12 +88,17 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    prompt tokens and 16 new ones at batch 4, twice alike, and two of them
    alone as in the batch;
 12. times: each kernel by CUDA events at its path's shapes beside its bound
-   and its plain version (K1, K5, K6 and K2 also beside the launch floor of
-   their grid, an empty kernel, and their times at 64, 128 and 256 threads
-   a block, with the registers, spills and 128-bit load and store counts of
-   ``csrc/wirepath.cu``'s and ``csrc/vote.cu``'s kernels, which must show no
-   spill in a team kernel and 128-bit stores in its vector variant; K4's
-   seal as one launch beside the first design's five launches, the floor
+   and its plain version (K1, K5, K6, K2, K7 and K8 also beside the launch
+   floor of their grid, an empty kernel, and their times at 64, 128 and
+   256 threads a block, with the registers, spills and 128-bit load and
+   store counts of ``csrc/wirepath.cu``'s, ``csrc/vote.cu``'s and
+   ``csrc/learner.cu``'s kernels, which must show no spill in a team
+   kernel and 128-bit stores in its vector variant; K7 also beside its
+   first design (the witness), K8 also where acceptor 0 rejects every lane
+   and with its votes in L2; K3, K7
+   and K8 at Table 1's shape, B = 512, beside forwarding, one copy of the
+   batch, as microseconds a message; K4's
+   seal as one launch beside the floor
    of its grid and ``torch.sum`` over the same bytes, each launch reading
    its bytes from HBM, at the N/4 seal and a sweep of prefixes up to 256
    MiB, and K3 beside its grid's floor, with K4's and K3's registers,
@@ -102,8 +112,8 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run, and
-so does a launch of a team kernel (K1, K5, K6, K2) of a path that did not
-take the vector variant.
+so does a launch of a team kernel (K1, K5, K6, K2, K7, K8) of a path that
+did not take the vector variant.
 
 Any failure raises, so the script exits non-zero and prints no result.
 """
@@ -243,7 +253,8 @@ def off16(x: torch.Tensor) -> torch.Tensor:
 
 
 def variants() -> tuple[int, int]:
-    """The launch counts of the team kernels' (K1, K5, K6, K2) two variants."""
+    """The launch counts of the team kernels' (K1, K5, K6, K2, K7, K8) two
+    variants."""
     return k_wirepath.vector_launches, k_wirepath.scalar_launches
 
 
@@ -500,11 +511,13 @@ def check_votes(dev, n: int = 1 << 16, v: int = 16) -> tuple[int, int, list]:
     ``batched.acceptor_phase2``), at A in {3, 5} and B in {8, 128}: aligned,
     misaligned and ring-end windows, a dead acceptor, a stale round (every
     lane rejected), NOP fillers, a recovery window at an arbitrary instance,
-    the state updated in place; K2 in its vector variant there, then in its
-    scalar one at V = 5 and with the burst a view 4 bytes off 16 into a
-    larger one or ``st_val`` 4 bytes off 16 (``check_k2_variants``).
-    Returns the largest differences of K2 and K7 and the vote batches K2
-    made, for K8's check."""
+    the state updated in place; K2 and K7 in their vector variant there,
+    then K2 in its scalar one at V = 5 and with the burst a view 4 bytes off
+    16 into a larger one or ``st_val`` 4 bytes off 16
+    (``check_k2_variants``); both against the first design's one-thread
+    body (``check_k2_against_k7``); K7 in both variants, at B = 100 and 512
+    (``check_k7_variants``).  Returns the largest differences of K2 and K7
+    and the vote batches K2 made, for K8's check."""
     rng = np.random.default_rng(SEED + 6)
     worst2 = worst7 = 0
     made = []
@@ -553,15 +566,17 @@ def check_votes(dev, n: int = 1 << 16, v: int = 16) -> tuple[int, int, list]:
                 if name == "stale round" and bool((got.msgtype == 4).any()):
                     raise AssertionError("a stale round was accepted")
                 variant = variant_since(before)
-                print(f"  K2/K7 a={a} alive={alive} b={b} {name}: K2 variant={variant} "
+                print(f"  K2/K7 a={a} alive={alive} b={b} {name}: K2+K7 variant={variant} "
                       f"max_abs_err K2={err2} K7={err7}")  # fmt: skip
                 if err2 or err7:
                     raise AssertionError(f"K2 or K7 disagrees with the plain engine: {name}")
                 if variant != "vector":
-                    raise AssertionError(f"K2 took the {variant} variant at V={v}, aligned")
+                    raise AssertionError(f"K2 or K7 took the {variant} variant at V={v}, aligned")
                 worst2, worst7 = max(worst2, err2), max(worst7, err7)
                 made.append((got, a))
-    worst2 = max(worst2, check_k2_variants(dev, n), check_k2_against_k7(dev, n, v))
+    witnessed2, witnessed7 = check_k2_against_k7(dev, n, v)
+    worst2 = max(worst2, check_k2_variants(dev, n), witnessed2)
+    worst7 = max(worst7, witnessed7, check_k7_variants(dev, n))
     return worst2, worst7, made
 
 
@@ -618,21 +633,27 @@ def check_k2_variants(dev, n: int) -> int:
     return worst
 
 
-def check_k2_against_k7(dev, n: int, v: int) -> int:
-    """K2's team body against K7's one-thread ``vote_lane``: at A=3, B=128,
-    acceptor 1 dead, over an aligned, a ring-end and a scattered window, in
-    both variants (V = 16 and V = 5), each alive acceptor's vote row and
-    registers from K2 must equal K7's on a clone of that acceptor's file; the
-    dead acceptor's row and registers equal the plain engine's.  Returns the
-    largest difference."""
+def check_k2_against_k7(dev, n: int, v: int) -> tuple[int, int]:
+    """K2's and K7's team body against the first design's one-thread
+    ``vote_lane`` (``acceptor_phase2_witness``): at A=3, B=128, acceptor 1
+    dead, over an aligned, a ring-end and a scattered window, in both
+    variants (V = 16 and V = 5), each alive acceptor's vote row and
+    registers from K2, and from K7 on a clone of that acceptor's file, must
+    equal the witness's on another clone; the dead acceptor's row and
+    registers equal the plain engine's.  Returns the largest differences of
+    K2 and K7."""
     rng = np.random.default_rng(SEED + 26)
     a, b, crnd, alive = 3, 128, 6, [1, 0, 1]
     alv = torch.tensor(alive, dtype=torch.bool, device=dev)
-    worst = 0
+    worst2 = worst7 = 0
     for vc in (v, 5):
         state, twin = vote_case(rng, a, n, vc, crnd, dev)
-        files = {i: AcceptorState(*(x[i].clone() for x in vars(state).values()))
-                 for i in range(a) if alive[i]}  # fmt: skip
+
+        def clones():
+            return {i: AcceptorState(*(x[i].clone() for x in vars(state).values()))
+                    for i in range(a) if alive[i]}  # fmt: skip
+
+        files, witness = clones(), clones()
         windows = (
             ("aligned", 4096 + np.arange(b)),
             ("ring end", 3 * n - b // 2 + np.arange(b)),
@@ -643,23 +664,70 @@ def check_k2_against_k7(dev, n: int, v: int) -> int:
             before = variants()
             _, got = ops.acceptor_phase2_all(state, msgs, alv)
             _, plain = batched.acceptor_phase2_all(twin, msgs, alv)
-            variant = variant_since(before)
-            mine, theirs = [], []
+            k2_variant = variant_since(before)
+            before = variants()
+            k7 = {i: ops.acceptor_phase2(f, msgs, i)[1] for i, f in files.items()}
+            k7_variant = variant_since(before)
+            k2_rows, k7_rows, want2, want7 = [], [], [], []
             for i in range(a):
-                row = [x[i] for x in got.tensors()] + [x[i] for x in vars(state).values()]
-                if alive[i]:
-                    _, k7 = ops.acceptor_phase2(files[i], msgs, i)
-                    other = [*k7.tensors(), *vars(files[i]).values()]
-                else:
-                    other = [x[i] for x in plain.tensors()] + [x[i] for x in vars(twin).values()]
-                mine += row
-                theirs += other
+                k2_rows += [x[i] for x in got.tensors()] + [x[i] for x in vars(state).values()]
+                if not alive[i]:
+                    want2 += [x[i] for x in plain.tensors()] + [x[i] for x in vars(twin).values()]
+                    continue
+                *_, wt, wi, wr, wv, ws, wval = k_acceptor.acceptor_phase2_witness(
+                    *vars(witness[i]).values(), i, msgs.msgtype, msgs.inst, msgs.rnd, msgs.value)
+                row = [wt, wi, wr, wv, ws, wval, *vars(witness[i]).values()]
+                want2 += row
+                want7 += row
+                k7_rows += [*k7[i].tensors(), *vars(files[i]).values()]
             sync(dev)
-            err = max_abs_err(mine, theirs)
-            print(f"  K2 against K7 v={vc} {name}: K2 variant={variant} max_abs_err={err}")
-            if err:
-                raise AssertionError(f"K2 disagrees with K7 on an alive acceptor: v={vc} {name}")
-            worst = max(worst, err)
+            err2, err7 = max_abs_err(k2_rows, want2), max_abs_err(k7_rows, want7)
+            print(f"  K2 and K7 against the witness v={vc} {name}: K2 variant={k2_variant} "
+                  f"K7 variant={k7_variant} max_abs_err K2={err2} K7={err7}")  # fmt: skip
+            if err2 or err7:
+                raise AssertionError(f"K2 or K7 disagrees with the witness: v={vc} {name}")
+            worst2, worst7 = max(worst2, err2), max(worst7, err7)
+    return worst2, worst7
+
+
+def check_k7_variants(dev, n: int) -> int:
+    """K7 against ``batched.acceptor_phase2`` where its launch shape moves:
+    V = 5 and V = 1; V = 16 with the burst a view 4 bytes off 16 into a
+    larger burst, and with ``st_val`` 4 bytes off 16 (all scalar); B = 100
+    (not a multiple of a block's 32 lanes) and Table 1's B = 512 (vector).
+    Each case asserts and prints the variant it took.  Returns the largest
+    difference."""
+    rng = np.random.default_rng(SEED + 27)
+    worst, crnd = 0, 6
+    cases = (  # V, B, the tensor 4 bytes off 16, the variant
+        (5, 128, None, "scalar"),
+        (1, 128, None, "scalar"),
+        (16, 128, "burst", "scalar"),
+        (16, 128, "st_val", "scalar"),
+        (16, 100, None, "vector"),
+        (16, 512, None, "vector"),
+    )
+    for vc, b, off, want in cases:
+        state, twin = vote_case(rng, 1, n, vc, crnd, dev)
+        file = AcceptorState(*(x[0] for x in vars(state).values()))
+        plain_file = AcceptorState(*(x[0] for x in vars(twin).values()))
+        if off == "st_val":
+            file = AcceptorState(file.rnd, file.vrnd, off16(file.value))
+        msgs = phase2_batch(rng, n - b // 3 + np.arange(b), crnd, vc, dev)
+        if off == "burst":
+            whole = torch.cat([msgs.value[:1], msgs.value]).reshape(-1)
+            msgs = msgs.replace(value=off16(whole)[vc:].view(b, vc))
+        before = variants()
+        _, got = ops.acceptor_phase2(file, msgs, 2)
+        _, plain = batched.acceptor_phase2(plain_file, msgs, 2)
+        sync(dev)
+        variant = variant_since(before)
+        err = max_abs_err([*got.tensors(), *vars(file).values()],
+                          [*plain.tensors(), *vars(plain_file).values()])  # fmt: skip
+        print(f"  K7 v={vc} b={b} off16={off}: variant={variant} max_abs_err={err}")
+        if err or variant != want:
+            raise AssertionError(f"K7 at v={vc} b={b} off16={off}: variant {variant}, err {err}")
+        worst = max(worst, err)
     return worst
 
 
@@ -689,6 +757,61 @@ def check_k8(dev, made: list, v: int = 16) -> int:
             raise AssertionError(f"K8 disagrees with its plain version: {name}")
         worst = max(worst, err)
     print(f"  K8: {len(cases)} cases, max_abs_err={worst}")
+    return max(worst, check_k8_shapes(dev))
+
+
+def k8_votes(rng, a: int, b: int, v: int, first: int | None, dev):
+    """Votes whose first agreeing acceptor is ``first`` on every lane (None:
+    no acceptor agrees): acceptors before it REJECT with non-zero values,
+    after it P2B at the winning round or one below (which do not agree)."""
+    vtype = np.full((a, b), 4, np.int32)
+    vrnd = np.where(rng.random((a, b)) < 0.5, 7, 6).astype(np.int32)
+    if first is None:
+        vtype[:] = 7
+    else:
+        vtype[:first] = 7
+        vrnd[first] = 7
+    value = rng.integers(1, 2**31, (a, b, v), dtype=np.int32)
+    return [torch.from_numpy(x).to(dev) for x in (vtype, vrnd, value)]
+
+
+def check_k8_shapes(dev) -> int:
+    """K8 where its design branches: the first agreeing acceptor 0, 1, A-1
+    or none, at A = 1, 3, 5 and 9 (above the ``VOTE_CAP`` = 8 acceptors a
+    thread loads up front, so it reloads past the cap); in both variants
+    (V = 16; V = 5, and the vote values 4 bytes off 16: scalar); B = 100
+    (not a multiple of a block's 32 lanes) and Table 1's B = 512.  Each case
+    asserts the variant it took.  Returns the largest difference."""
+    rng = np.random.default_rng(SEED + 28)
+    shapes = (  # V, B, vote values 4 bytes off 16, the variant
+        (16, 128, False, "vector"),
+        (16, 100, False, "vector"),
+        (16, 512, False, "vector"),
+        (5, 128, False, "scalar"),
+        (16, 128, True, "scalar"),
+    )
+    worst, count = 0, 0
+    for a in (1, 3, 5, k_learner.VOTE_CAP + 1):
+        for first in sorted({0, min(1, a - 1), a - 1}) + [None]:
+            for vc, b, off, want in shapes:
+                vtype, vrnd, value = k8_votes(rng, a, b, vc, first, dev)
+                if off:
+                    value = off16(value)
+                before = variants()
+                got = k_learner.learner_quorum_window(a // 2 + 1, vtype, vrnd, value)
+                plain = k_learner.learner_quorum_plain(a // 2 + 1, vtype, vrnd, value)
+                sync(dev)
+                variant = variant_since(before)
+                err = max_abs_err(got, plain)
+                if err or variant != want:
+                    raise AssertionError(f"K8 at a={a} first={first} v={vc} b={b} off16={off}: "
+                                         f"variant {variant}, max_abs_err {err}")  # fmt: skip
+                if first is None and bool(got[2].any()):
+                    raise AssertionError("K8 gave a value on a lane where no acceptor agrees")
+                worst, count = max(worst, err), count + 1
+            print(f"  K8 a={a} first agreeing={first}: {len(shapes)} shapes (vector and "
+                  f"scalar, b=100, 512, off16) max_abs_err={worst}")  # fmt: skip
+    print(f"  K8 shapes: {count} cases, max_abs_err={worst}")
     return worst
 
 
@@ -1384,7 +1507,7 @@ LAUNCHES = {  # kernel name -> (module, attribute) of its wrapper's count
     "K6": (k_wirepath, "packed_launches"),
     "K1-shard": (k_wirepath, "shard_launches"),
     "K9": (k_flash, "launches"),
-    "team vector": (k_wirepath, "vector_launches"),  # K1, K5, K6 and K2
+    "team vector": (k_wirepath, "vector_launches"),  # K1, K5, K6, K2, K7 and K8
     "team scalar": (k_wirepath, "scalar_launches"),
 }
 
@@ -2338,36 +2461,6 @@ def team_times(kernel, walk: int, restore, geo, dev) -> dict:
     )  # fmt: skip
 
 
-_flat_fn = None
-
-
-def digest_flat(x: torch.Tensor) -> torch.Tensor:
-    """K4's first design on one leaf, as a seal ran it before the tree launch: a fill
-    of the output word, then the grid-stride kernel of 8 blocks an SM
-    (``csrc/digest.cu``'s ``digest_flat``, which only this timing
-    launches)."""
-    global _flat_fn
-    if _flat_fn is None:
-        _flat_fn = _build.library("digest").digest_flat
-        _flat_fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                             ctypes.c_void_p]  # fmt: skip
-        _flat_fn.restype = ctypes.c_int
-    bits = x.reshape(-1).view(torch.int32)
-    out = torch.zeros((1,), dtype=torch.int32, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(8 * sms, -(-bits.numel() // 256)))
-    rc = _flat_fn(bits.data_ptr(), bits.numel(), out.data_ptr(), blocks,
-                  torch.cuda.current_stream(x.device).cuda_stream)  # fmt: skip
-    _build.check(rc, "digest_flat launch")
-    return out[0]
-
-
-def flat_seal(leaves: list[torch.Tensor]) -> torch.Tensor:
-    """A seal's leaf digests by the first design: a fill and a launch a
-    leaf, and the stack, five launches for the seal's two leaves."""
-    return torch.stack([digest_flat(x) for x in leaves])
-
-
 def k4_bytes(leaves: list[torch.Tensor]) -> int:
     """K4 reads every word of every leaf once and writes one digest a
     leaf: at the N/4 seal (16,384 + 262,144 words) 1,114,120 B."""
@@ -2387,12 +2480,12 @@ def seal_copies(k: int, v: int, dev, seed: int) -> list[list[torch.Tensor]]:
 
 
 def time_seal(copies: list[list[torch.Tensor]], walk: int, dev) -> dict:
-    """One seal's fold on K4 (one launch) and on the first design (five),
-    the floor of K4's grid and ``torch.sum`` in int64 over the same bytes
-    (a library reduction, not a call that computes the digest), each over
-    a walk of ``walk`` launches, or one a copy if there are more copies, in
-    a CUDA graph, each launch on the next copy (``seal_copies``); rates and
-    the share of the bound against the bytes, read from HBM."""
+    """One seal's fold on K4 (one launch), the floor of K4's grid and
+    ``torch.sum`` in int64 over the same bytes (a library reduction, not a
+    call that computes the digest), each over a walk of ``walk`` launches,
+    or one a copy if there are more copies, in a CUDA graph, each launch on
+    the next copy (``seal_copies``); the rate and the share of the bound
+    against the bytes, read from HBM."""
     n = len(copies)
     walk = max(walk, n)
     leaves = copies[0]
@@ -2406,14 +2499,12 @@ def time_seal(copies: list[list[torch.Tensor]], walk: int, dev) -> dict:
     out = dict(
         mbytes=nbytes / 2**20, copies=n, grid=geo.grid[0],
         ms=time_walk(lambda k: k_digest.tree_digest(copies[k % n]), walk, True),
-        flat_ms=time_walk(lambda k: flat_seal(copies[k % n]), walk, True),
         floor_ms=time_launch_floor(geo, walk, dev),
         library_reduction_ms=time_walk(lambda k: torch.sum(wholes[k % n], dtype=torch.int64),
                                        walk, True),
         bound_ms=bms, bound_by=by,
     )  # fmt: skip
     out["gb_per_s"] = nbytes / out["ms"] / 1e6
-    out["flat_gb_per_s"] = nbytes / out["flat_ms"] / 1e6
     out["bound_share"] = bms / out["ms"]
     return out
 
@@ -2421,10 +2512,8 @@ def time_seal(copies: list[list[torch.Tensor]], walk: int, dev) -> dict:
 def time_k4(dev, n_leaf: int) -> dict:
     """The seal of one N/4-instance snapshot, insts (K,) and values (K, V),
     in one buffer: ``time_seal``, K4's plain version over the same copies;
-    then, on one copy, the first design's one-leaf launch on the values
-    leaf (the number earlier runs reported, its bytes in L2 from one
-    launch to the next), and eager, host launch cost included, K4, the
-    seal with its read-back and the first design's seal.  Then the sweep:
+    then, on one copy, eager, host launch cost included, K4 and the seal
+    with its read-back.  Then the sweep:
     the same leaf shapes at prefixes of 6.4 MiB (the main path's last seal,
     6N/4 instances), 64 MiB and 256 MiB, beside the N/4 seal's 1.06 MiB."""
     v = 16
@@ -2434,11 +2523,8 @@ def time_k4(dev, n_leaf: int) -> dict:
     sweep = {n_leaf: dict(out)}
     out.update(
         plain_ms=time_walk(lambda k: k_digest.tree_digest_plain(copies[k % n]), max(50, n), True),
-        flat_leaf_ms=time_walk(lambda _: digest_flat(leaves[1]), 50, True),
         eager_ms=time_walk(lambda _: k_digest.tree_digest(leaves), 50, False),
         seal_ms=time_walk(lambda _: ops.tree_digest(leaves), 50, False),
-        flat_seal_eager_ms=time_walk(lambda _: k_digest.combine(flat_seal(leaves).tolist()), 50,
-                                     False),
     )  # fmt: skip
     del copies, leaves
     for k in (6 * n_leaf, (64 << 20) // (4 * (1 + v)), (256 << 20) // (4 * (1 + v))):
@@ -2577,6 +2663,105 @@ def time_staged(dev) -> dict:
     geo = k_wirepath.lane_geometry(v, b, a, True)
     out["acceptor_vote_all"].update(team_times(runs["acceptor_vote_all"][0], walk, restore, geo,
                                                dev))  # fmt: skip
+    # K7 and K8, team kernels on one row of lane blocks: their floor and block
+    # sizes; K7 also beside its first design (the witness, one thread a lane)
+    # on the same windows
+    geo = k_wirepath.lane_geometry(v, b, 1, True)
+    out["acceptor_phase2"].update(
+        first_design_ms=time_walk(lambda k: k_acceptor.acceptor_phase2_witness(
+            *vars(file0).values(), 0, *vote_args(k)), walk, True, restore),
+        **team_times(runs["acceptor_phase2"][0], walk, restore, geo, dev),
+    )  # fmt: skip
+    # acceptor 0 rejects every lane, so the first agreeing acceptor is 1: the
+    # speculative load of acceptor 0's value is wasted, the bytes the same
+    reject0 = vote_type.clone()
+    reject0[:, 0] = 7
+    deliver, _, value = k_learner.learner_quorum_window(q, reject0[0], vote_vrnd[0], vote_val[0])
+    if not (bool(deliver.all()) and torch.equal(value, vote_val[0][1])):
+        raise AssertionError("K8's timed walk must deliver acceptor 1's value on every lane")
+    # K8 after the same restore as its time above (the restore copies 14 MB,
+    # so the walk finds part of its votes gone from L2), and once without it,
+    # its votes in L2 as the per-role walk finds the votes K7 has just written
+    out["learner_quorum"].update(
+        first_agreeing_1_ms=time_walk(lambda k: k_learner.learner_quorum_window(
+            q, reject0[k], vote_vrnd[k], vote_val[k]), walk, True, restore),
+        votes_in_l2_ms=time_walk(runs["learner_quorum"][0], walk, True),
+        **team_times(runs["learner_quorum"][0], walk, restore, geo, dev),
+    )  # fmt: skip
+    restore()
+    return out
+
+
+def time_table1(dev) -> dict:
+    """The port's per-message row of the paper's Table 1, at the shape of the
+    reference's ``benchmarks/table1_component_latency.py``: bursts of B =
+    512 messages, V = 16, N = 65,536, A = 3, quorum 2.  K3 sequences a
+    burst, K7 votes it for one acceptor, K8 takes three acceptors' votes;
+    beside them forwarding, one copy of the same batch's bytes (its five
+    header fields and its values, B*(5+V)*4 bytes) on the card, as the
+    reference's forwarding row moves the batch through an identity.  Each
+    over a walk of N/B = 128 bursts of the ring's second lap in a CUDA
+    graph, the register file restored before each timed walk, every lane
+    accepted and agreed by all; microseconds a message = ms * 1000 / B."""
+    a, n, v, b, q = 3, 1 << 16, 16, 512, 2
+    crnd, walk = 5, n // b
+    rng = np.random.default_rng(SEED + 12)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def words(*shape):
+        return torch.from_numpy(rng.integers(-(2**31), 2**31, shape, dtype=np.int32)).to(dev)
+
+    init = dict(
+        rnd=torch.from_numpy(rng.integers(0, crnd + 1, n, dtype=np.int32)).to(dev),
+        vrnd=torch.from_numpy(rng.integers(-1, crnd + 1, n, dtype=np.int32)).to(dev),
+        val=words(n, v),
+    )
+    live = {k: x.clone() for k, x in init.items()}
+    file0 = AcceptorState(live["rnd"], live["vrnd"], live["val"])
+
+    def restore():
+        for k, x in init.items():
+            live[k].copy_(x)
+
+    bases = torch.arange(n, 2 * n, b, **i32)
+    crnd_t = torch.tensor(crnd, **i32)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    # the walk's batches, packed (walk, B, 5 + V): msgtype, inst, rnd, vrnd, swid, value
+    packed = torch.empty((walk, b, 5 + v), **i32)
+    packed[:, :, 0] = 3
+    packed[:, :, 1] = torch.arange(n, 2 * n, **i32).view(walk, b)
+    packed[:, :, 2] = crnd
+    packed[:, :, 3] = -1
+    packed[:, :, 4] = 0
+    packed[:, :, 5:] = words(walk, b, v)
+    heads = packed[:, :, :5].permute(0, 2, 1).contiguous()  # (walk, 5, B)
+    values = packed[:, :, 5:].contiguous()
+    forwarded = torch.empty_like(packed[0])
+    vote_type = torch.full((walk, a, b), 4, **i32)
+    vote_vrnd = torch.full((walk, a, b), crnd, **i32)
+    vote_val = words(walk, a, b, v)
+    runs = {  # name: (call, bytes, operations)
+        "forwarding": (lambda k: forwarded.copy_(packed[k]), 2 * b * (5 + v) * 4, 0),
+        "coordinator_sequence": (
+            lambda k: k_coordinator.coordinator_sequence_window(bases[k], crnd_t, active),
+            k3_bytes(b), 6 * b),
+        "acceptor_phase2": (
+            lambda k: k_acceptor.acceptor_phase2_window(
+                *vars(file0).values(), 0, heads[k, 0], heads[k, 1], heads[k, 2], values[k]),
+            k7_bytes(b, v), 11 * b),
+        "learner_quorum": (
+            lambda k: k_learner.learner_quorum_window(q, vote_type[k], vote_vrnd[k], vote_val[k]),
+            k8_bytes(a, b, v, b), b * (6 * a + 2)),
+    }  # fmt: skip
+    out = dict(card=CARD, burst=b, value_words=v, ring=n, acceptors=a, quorum=q)
+    for name, (call, nbytes, ops_) in runs.items():
+        ms = time_walk(call, walk, True, restore)
+        bms, by = bound_ms(nbytes, ops_)
+        out[name] = dict(ms=ms, us_per_message=ms * 1e3 / b, bound_ms=bms, bound_by=by,
+                         bytes_per_launch=nbytes)  # fmt: skip
+    geo = k_wirepath.lane_geometry(v, b, 1, True)
+    out["acceptor_phase2"].update(variant=geo.variant, team=geo.team, grid=list(geo.grid))
+    out["learner_quorum"].update(variant=geo.variant, team=geo.team, grid=list(geo.grid))
     restore()
     return out
 
@@ -2869,7 +3054,8 @@ def kernel_name(mangled: str) -> str:
 TEAM_KERNELS = {  # source -> its team kernels, each built as <int4> and <int>
     "wirepath": ("wirepath_round_kernel", "cohort_wirepath_round_kernel",
                  "persistent_wirepath_round_kernel", "packed_shard_round_kernel"),
-    "vote": ("acceptor_vote_all_kernel",),
+    "vote": ("acceptor_vote_all_kernel",),  # K2 and K7
+    "learner": ("learner_quorum_kernel",),
 }  # fmt: skip
 
 
@@ -2901,9 +3087,10 @@ def spills(fn: dict) -> bool:
 
 
 def team_build_facts() -> dict:
-    """``build_facts`` of ``csrc/wirepath.cu`` and ``csrc/vote.cu``.  Fails
-    if a team kernel (K1, K5, K6, K2) spills, if a vector variant has no
-    128-bit store, or if G=1 at the paths' shape runs on one block."""
+    """``build_facts`` of ``csrc/wirepath.cu``, ``csrc/vote.cu`` and
+    ``csrc/learner.cu``.  Fails if a team kernel (K1, K5, K6, K2 and K7,
+    K8) spills, if a vector variant has no 128-bit store, or if G=1 at the
+    paths' shape runs on one block."""
     facts = {}
     for src, entries in TEAM_KERNELS.items():
         facts.update(build_facts(src))
@@ -3098,6 +3285,7 @@ def run(dev: torch.device) -> None:
     # timed here, before the paths, and printed after them
     times = {"wirepath_round": time_k1(dev), "digest": time_k4(dev, PaxosConfig().n_instances // 4)}
     times.update(time_staged(dev))
+    times["Table 1"] = time_table1(dev)
     times["K1-cohort"] = time_k1_cohort(dev)
     times["K5"] = time_k5(dev)
     times["K6"] = time_k6(dev)
@@ -3169,7 +3357,8 @@ def run(dev: torch.device) -> None:
     require_launched("per-role path", role_launches, list(want))
     if any(role_launches[k] != n for k, n in want.items()):
         raise AssertionError(f"the per-role path's launches are not {want}")
-    require_variant("per-role path", role_launches, ["acceptor_vote_all"])
+    require_variant("per-role path", role_launches,
+                    ["acceptor_vote_all", "acceptor_phase2", "learner_quorum"])  # fmt: skip
     errs["learner_quorum"] = max(errs["learner_quorum"], roles["max_abs_err"])
 
     print("multi-group path: PaxosContext(PaxosConfig(n_groups=8, persistent_rounds=1, "
@@ -3384,6 +3573,10 @@ def run(dev: torch.device) -> None:
     path_metrics["LM serving"] = dict(card=CARD, **lm_serve)
     for name, t in times.items():
         print(f"  {name} {json.dumps(t)}")
+    row = times["Table 1"]
+    print(f"  Table 1, microseconds a message at B = {row['burst']} on {CARD}: "
+          + ", ".join(f"{name} {row[name]['us_per_message']}" for name in
+                      ("forwarding", "coordinator_sequence", "acceptor_phase2", "learner_quorum")))
     for name, m in path_metrics.items():
         print(f"  {name} {json.dumps(m)}")
 

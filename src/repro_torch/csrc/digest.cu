@@ -35,10 +35,10 @@
 // whatever order the blocks run in.  An empty leaf has no block: block 0
 // writes its 0.
 //
-// The first design, a grid-stride loop of scalar loads over one leaf with
-// a fixed grid of 8 blocks an SM and one atomicAdd a block into a word the
-// wrapper zero-filled (a fill launch before it), stays as `digest_flat`:
-// only the timing in chip_smoke.py launches it, beside this one.
+// The first design was a grid-stride loop of scalar loads over one leaf
+// with a fixed grid of 8 blocks an SM and one atomicAdd a block into a word
+// the wrapper zero-filled (a fill launch before it): a launch and a fill a
+// leaf.  Its times stand in PERF.md.
 //
 // Bound.  Each word is read once (4 bytes) and costs one multiply-add, so
 // the fold is bound by the bytes read: 4n bytes over the card's memory
@@ -175,34 +175,3 @@ extern "C" int tree_digest(const void* table, int count, void* out, void* ticket
 
 // The size of one Leaf record, which the host checks against its layout.
 extern "C" int tree_digest_leaf_bytes() { return (int)sizeof(Leaf); }
-
-// ---------------------------------------------------------------------------
-// The first design, for the timing's comparison only
-// ---------------------------------------------------------------------------
-__global__ void digest_flat_kernel(const uint32_t* __restrict__ x, long long n,
-                                   uint32_t* __restrict__ out)
-{
-    uint32_t acc = 0;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
-        acc += x[i] * (uint32_t)(2 * i + 1);
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-    __shared__ uint32_t warp_sums[32];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (lane == 0) warp_sums[warp] = acc;
-    __syncthreads();
-    if (warp == 0) {
-        acc = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0u;
-        for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-        if (lane == 0) atomicAdd(out, acc);
-    }
-}
-
-// `out` must hold 0: the blocks add into it.
-extern "C" int digest_flat(const void* x, long long n, void* out, int blocks, void* stream)
-{
-    if (n < 0 || blocks < 1) return (int)cudaErrorInvalidValue;
-    digest_flat_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)x, n, (uint32_t*)out);
-    return (int)cudaGetLastError();
-}

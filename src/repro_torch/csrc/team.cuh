@@ -1,5 +1,6 @@
 // The team of threads that serves one lane, shared by the lane bodies of
-// csrc/wirepath.cu (K1, K5, K6) and csrc/vote.cu (K2).
+// csrc/wirepath.cu (K1, K5, K6), csrc/vote.cu (K2, K7) and csrc/learner.cu
+// (K8).
 //
 // A team is T threads of one warp, T a power of two dividing 32, so a team
 // never straddles a warp and its shuffles and `__syncwarp` name only its own

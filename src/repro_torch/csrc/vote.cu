@@ -7,9 +7,12 @@
 // stacked rings updated in place, one (A, B) vote batch per field.  K7
 // (`acceptor_phase2`) replaces `acceptor_phase2_window` of
 // src/repro/kernels/acceptor.py:92: the same vote by one acceptor on its own
-// register file, with swid = aid and no alive mask.  K2's kernel runs a
-// team of threads per (acceptor, lane); K7 keeps the first design's one
-// thread per lane, `vote_lane`, which K2's team body is held against.
+// register file, with swid = aid and no alive mask.  Both run one kernel,
+// a team of threads per (acceptor, lane): K7 is its A = 1 launch with
+// swid = aid + a and a null alive mask (every acceptor alive).  The first
+// design's one thread per lane, `vote_lane`, stays only as the witness the
+// card checks hold the team body against (`acceptor_phase2_witness`); no
+// path launches it.
 //
 // Semantics (bit for bit the TPU kernels' and the plain engine's): acceptor
 // a accepts lane j iff alive[a] && msgtype[j] in {P2A, NOP} && rnd[j] >=
@@ -28,13 +31,14 @@
 // pairwise distinct (so B <= N), so no two teams of one acceptor write the
 // same registers.  The wrapper checks B <= N; distinctness is the caller's.
 //
-// K2's design.  The first K2 was one thread per (acceptor, lane) on blocks
-// of 128 threads, 3 blocks at A=3, B=128; each thread stored its V value
-// words one int32 at a time into st_val and into the vote value,
-// neighbouring threads 4*V bytes apart, and loaded st_vrnd only after those
-// stores: the three faults K1's first form had (csrc/wirepath.cu's header).
-// Now a team of T threads serves one (acceptor, lane), the team and its
-// chunk loads and stores those of csrc/team.cuh, in three steps:
+// The design.  The first K2 and K7 were one thread per (acceptor, lane) on
+// blocks of 128 threads, 3 blocks at A=3, B=128 and 1 for K7; each thread
+// stored its V value words one int32 at a time into st_val and into the
+// vote value, neighbouring threads 4*V bytes apart, and loaded st_vrnd only
+// after those stores: the three faults K1's first form had
+// (csrc/wirepath.cu's header).  Now a team of T threads serves one
+// (acceptor, lane), the team and its chunk loads and stores those of
+// csrc/team.cuh, in three steps:
 //   Load.  Every load first: the lane's burst words the thread owns (their
 //     address depends on j alone), msgtype, inst and rnd of the lane and
 //     alive[a] (read-only, through the non-coherent path), then
@@ -49,8 +53,9 @@
 // st_val and the vote values all start on 16 bytes: int4 chunks, T the
 // power of two at or above V/4, 4 at V = 16) and scalar (int32 chunks, T at
 // or above V), T at most 32.  The grid is (lane blocks, A), blocks of
-// `threads` (whole teams); at A=3, B=128, V=16 and 128 threads, 12 blocks.
-// The wrapper chooses variant, team and block on the host
+// `threads` (whole teams): at V=16 and 128 threads, 32 lanes a block, so
+// K2 at A=3, B=128 takes 12 blocks, K7 at B=128 4 and at B=512 16.  The
+// wrapper chooses variant, team and block on the host
 // (`kernels.wirepath.lane_geometry`); the entry checks them again.
 //
 // Bound.  Only the bytes the kernel must read and write count, at the state
@@ -75,7 +80,8 @@
 #define MSG_P2B 4
 #define MSG_REJECT 7
 
-// K7's lane body: one acceptor's vote on lane j by one thread.  The
+// The first design's lane body, one acceptor's vote on lane j by one
+// thread: the witness of the team body (`acceptor_phase2_witness`).  The
 // register pointers are that acceptor's (N,), (N,), (N, V) file; the vote
 // pointers its (B,), (B, V) row.
 __device__ __forceinline__ void vote_lane(
@@ -116,12 +122,13 @@ __device__ __forceinline__ void vote_lane(
     }
 }
 
-// K2's body: acceptor a's vote on lane j, served by a team (the header's
-// three steps).  blockIdx.y is the acceptor.
+// K2's and K7's body: acceptor a's vote on lane j, served by a team (the
+// header's three steps).  blockIdx.y is a; its vote carries swid
+// aid_base + a; a null alive means every acceptor is alive.
 template <typename Word>
 __global__ void acceptor_vote_all_kernel(
-    const unsigned char* __restrict__ alive,  // bool[A]
-    int N, int V, int B, int team,
+    const unsigned char* __restrict__ alive,  // bool[A], or null
+    int aid_base, int N, int V, int B, int team,
     const int* __restrict__ msgtype,  // int32[B]
     const int* __restrict__ minst,    // int32[B]
     const int* __restrict__ mrnd,     // int32[B]
@@ -145,7 +152,7 @@ __global__ void acceptor_vote_all_kernel(
     Word val[PASS];
     load_pass(val, src, tm, chunks, 0);
     const int inst = __ldg(minst + j), mt = __ldg(msgtype + j), r = __ldg(mrnd + j);
-    const bool live = __ldg(alive + a) != 0;
+    const bool live = alive == nullptr || __ldg(alive + a) != 0;
     int slot = inst % N;
     if (slot < 0) slot += N;  // the non-negative modulo of jnp's `%`
     const size_t reg = (size_t)a * N + slot;
@@ -162,7 +169,7 @@ __global__ void acceptor_vote_all_kernel(
         vi[row] = inst;
         vr[row] = accept ? r : cur_rnd;
         vv[row] = accept ? r : cur_vrnd;
-        vs[row] = a;
+        vs[row] = aid_base + a;
         if (accept) {
             st_rnd[reg] = r;
             st_vrnd[reg] = r;
@@ -182,9 +189,9 @@ __global__ void acceptor_vote_all_kernel(
     }
 }
 
-static const int K7_THREADS = 128;  // K7: one thread a lane
+static const int WITNESS_THREADS = 128;  // the witness: one thread a lane
 
-__global__ void acceptor_phase2_kernel(
+__global__ void acceptor_phase2_witness_kernel(
     int aid, int N, int V, int B,
     const int* __restrict__ msgtype, const int* __restrict__ minst,
     const int* __restrict__ mrnd, const int* __restrict__ mval,
@@ -201,8 +208,10 @@ __global__ void acceptor_phase2_kernel(
               st_rnd, st_vrnd, st_val, vt, vi, vr, vv, vs, vval);
 }
 
-extern "C" int acceptor_vote_all(
-    const void* alive, int A, int N, int V, int B,
+// The team kernel on A register files of N slots (one for K7), the votes of
+// acceptor a carrying swid aid_base + a.
+static int launch_votes(
+    const void* alive, int aid_base, int A, int N, int V, int B,
     const void* msgtype, const void* inst, const void* rnd, const void* value,
     void* st_rnd, void* st_vrnd, void* st_val,
     void* vt, void* vi, void* vr, void* vv, void* vs, void* vval,
@@ -215,7 +224,7 @@ extern "C" int acceptor_vote_all(
     const dim3 grid((B + lanes - 1) / lanes, A);
     auto go = [&](auto word) {
         acceptor_vote_all_kernel<decltype(word)><<<grid, threads, 0, (cudaStream_t)stream>>>(
-            (const unsigned char*)alive, N, V, B, team,
+            (const unsigned char*)alive, aid_base, N, V, B, team,
             (const int*)msgtype, (const int*)inst, (const int*)rnd, (const int*)value,
             (int*)st_rnd, (int*)st_vrnd, (int*)st_val,
             (int*)vt, (int*)vi, (int*)vr, (int*)vv, (int*)vs, (int*)vval);
@@ -224,7 +233,30 @@ extern "C" int acceptor_vote_all(
     return (int)cudaGetLastError();
 }
 
+extern "C" int acceptor_vote_all(
+    const void* alive, int A, int N, int V, int B,
+    const void* msgtype, const void* inst, const void* rnd, const void* value,
+    void* st_rnd, void* st_vrnd, void* st_val,
+    void* vt, void* vi, void* vr, void* vv, void* vs, void* vval,
+    int vec, int team, int threads, void* stream)
+{
+    if (alive == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_votes(alive, 0, A, N, V, B, msgtype, inst, rnd, value, st_rnd, st_vrnd, st_val,
+                        vt, vi, vr, vv, vs, vval, vec, team, threads, stream);
+}
+
 extern "C" int acceptor_phase2(
+    int aid, int N, int V, int B,
+    const void* msgtype, const void* inst, const void* rnd, const void* value,
+    void* st_rnd, void* st_vrnd, void* st_val,
+    void* vt, void* vi, void* vr, void* vv, void* vs, void* vval,
+    int vec, int team, int threads, void* stream)
+{
+    return launch_votes(nullptr, aid, 1, N, V, B, msgtype, inst, rnd, value, st_rnd, st_vrnd,
+                        st_val, vt, vi, vr, vv, vs, vval, vec, team, threads, stream);
+}
+
+extern "C" int acceptor_phase2_witness(
     int aid, int N, int V, int B,
     const void* msgtype, const void* inst, const void* rnd, const void* value,
     void* st_rnd, void* st_vrnd, void* st_val,
@@ -232,8 +264,8 @@ extern "C" int acceptor_phase2(
     void* stream)
 {
     if (B < 1 || B > N || V < 1) return (int)cudaErrorInvalidValue;
-    const int blocks = (B + K7_THREADS - 1) / K7_THREADS;
-    acceptor_phase2_kernel<<<blocks, K7_THREADS, 0, (cudaStream_t)stream>>>(
+    const int blocks = (B + WITNESS_THREADS - 1) / WITNESS_THREADS;
+    acceptor_phase2_witness_kernel<<<blocks, WITNESS_THREADS, 0, (cudaStream_t)stream>>>(
         aid, N, V, B,
         (const int*)msgtype, (const int*)inst, (const int*)rnd, (const int*)value,
         (int*)st_rnd, (int*)st_vrnd, (int*)st_val,

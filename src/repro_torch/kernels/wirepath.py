@@ -20,9 +20,10 @@ first, stores 16 bytes a thread where it can and spreads over the SMs
 (``csrc/wirepath.cu``'s header).  ``lane_geometry`` chooses on the host the
 variant (``vector``: int4 words, where V % 4 == 0 and the value tensors
 start on 16 bytes; ``scalar`` otherwise), the team size, the block and the
-grid (``wave_geometry`` K5's 3-D grid); ``vector_launches`` and
-``scalar_launches`` count the launches of each variant of every team
-kernel (K1, K5, K6 and K2).  K1 takes any window base: each lane computes
+grid (``wave_geometry`` K5's 3-D grid) for every team kernel: these, K2,
+K7 (``kernels.acceptor``) and K8 (``kernels.learner``);
+``vector_launches`` and ``scalar_launches`` count the launches of each
+variant of all six.  K1 takes any window base: each lane computes
 its own ring slot, so there is no block-alignment precondition, and
 ``group_block`` (the TPU kernel's group fold) changes no result.  It
 requires ``B <= N`` (distinct slots, so in-place writes never race),
@@ -75,18 +76,17 @@ import torch
 
 from ..core.plan import DEFAULT_BLOCK_B
 from . import _build
-from .acceptor import vote_io
 
 MAX_A = 8
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
-# threads per block of the team kernels K1, K5, K6 and K2 (whole teams),
-# chosen on the card (PERF.md section 6); read at each launch
+# threads per block of the team kernels K1, K5, K6, K2, K7 and K8 (whole
+# teams), chosen on the card (PERF.md section 6); read at each launch
 LANE_THREADS = 128
 MAX_GRID_YZ = 65_535  # a grid's y and z extents at most
 
 # launches of K1 (single group, cohort form, shard slice), K6, K5 and K2 in
-# this process, and of the two variants of these team kernels; reset by
-# whoever reads them
+# this process, and of the two variants of every team kernel (these, K7
+# and K8); reset by whoever reads them
 launches = 0
 cohort_launches = 0
 shard_launches = 0
@@ -152,8 +152,9 @@ def _aligned(*tensors: torch.Tensor) -> bool:
 
 def _lanes(v: int, b: int, rows: int, *tensors: torch.Tensor) -> LaneGeometry:
     """``lane_geometry`` for these value tensors: for K1 and K6 st_val, lval,
-    the burst and the value output; for K2 (rows = A) the burst, st_val and
-    the vote values."""
+    the burst and the value output; for K2 (rows = A) and K7 (rows = 1) the
+    burst, st_val and the vote values; for K8 (rows = 1) the vote values
+    and the value output."""
     return lane_geometry(v, b, rows, _aligned(*tensors))
 
 
@@ -166,6 +167,32 @@ def _launched(geo: LaneGeometry, rc: int, what: str) -> None:
         vector_launches += 1
     else:
         scalar_launches += 1
+
+
+def vote_io(
+    what: str,
+    lead: tuple,
+    n: int,
+    msgtype: torch.Tensor,
+    inst: torch.Tensor,
+    msg_rnd: torch.Tensor,
+    msg_val: torch.Tensor,
+) -> list[torch.Tensor]:
+    """Check a Phase-2 batch for a vote kernel (K2, K7) and allocate its
+    votes: five int32 ``lead + (B,)`` fields (type, inst, rnd, vrnd, swid)
+    and the ``lead + (B, V)`` values.  ``B <= N`` keeps the lanes' slots
+    distinct for a contiguous window; the kernels need distinct slots in
+    general."""
+    dev = msg_val.device
+    _build.on_card(what, dev)
+    b, v = msg_val.shape
+    if not 1 <= b <= n:
+        raise ValueError(f"{what} needs 1 <= B <= N, got B={b}, N={n}")
+    for name, t in (("msgtype", msgtype), ("inst", inst), ("rnd", msg_rnd)):
+        _build.require(what, name, t, torch.int32, (b,), dev)
+    _build.require(what, "value", msg_val, torch.int32, (b, v), dev)
+    fields = torch.empty((5, *lead, b), dtype=torch.int32, device=dev).unbind(0)
+    return [*fields, torch.empty((*lead, b, v), dtype=torch.int32, device=dev)]
 
 
 def _kernel():

@@ -1368,33 +1368,146 @@ def test_team_vote_kernel_matches_plain(cuda, monkeypatch, a, v, off, alive, thr
 
 @pytest.mark.parametrize("v", [16, 5])
 def test_vote_all_equals_k7_per_acceptor(cuda, v):
-    """K2's new team body against K7's old one-thread ``vote_lane``: each
-    alive acceptor's vote row and registers from K2 equal K7's on a clone
-    of that acceptor's own file, window after window; the dead acceptor's
-    row and registers equal the plain version's."""
+    """K2's and K7's team body against the first design's one-thread
+    ``vote_lane`` (``acceptor_phase2_witness``): each alive acceptor's vote
+    row and registers from K2, and from K7 on a clone of that acceptor's
+    own file, equal the witness's on another clone, window after window;
+    the dead acceptor's row and registers equal the plain version's."""
     a, n, b, alive = 3, 65536, 128, [1, 0, 1]
     rng = np.random.default_rng([v, 7])
     s = _state(rng, a, n, v, 0, 5, cuda)["stack"]
     twin = AcceptorState(*(x.clone() for x in vars(s).values()))
-    files = {i: AcceptorState(*(x[i].clone() for x in vars(s).values())) for i in (0, 2)}
+
+    def clones():
+        return {i: AcceptorState(*(x[i].clone() for x in vars(s).values())) for i in (0, 2)}
+
+    files, witness = clones(), clones()
     alv = torch.tensor(alive, dtype=torch.bool, device=cuda)
     for inst in _windows(rng, n, b):
         msgs = _phase2(rng, inst, v, cuda)
         _, got = ops.acceptor_phase2_all(s, msgs, alv)
         _, want = batched.acceptor_phase2_all(twin, msgs, alv)
         for i, f in files.items():
-            before = k_acceptor.launches
+            before, seen = k_acceptor.launches, k_acceptor.witness_launches
             _, k7 = ops.acceptor_phase2(f, msgs, i)
+            w = k_acceptor.acceptor_phase2_witness(*vars(witness[i]).values(), i, msgs.msgtype,
+                                                   msgs.inst, msgs.rnd, msgs.value)  # fmt: skip
             assert k_acceptor.launches == before + 1
-            for name in FIELDS:
-                assert torch.equal(getattr(got, name)[i], getattr(k7, name)), (i, name)
+            assert k_acceptor.witness_launches == seen + 1
+            for name, theirs in zip(FIELDS, w[3:], strict=True):
+                assert torch.equal(getattr(got, name)[i], theirs), (i, name)
+                assert torch.equal(getattr(k7, name), theirs), (i, name)
         for name in FIELDS:
             assert torch.equal(getattr(got, name)[1], getattr(want, name)[1]), name
     for i, f in files.items():
         for name in ("rnd", "vrnd", "value"):
             assert torch.equal(getattr(s, name)[i], getattr(f, name)), (i, name)
+            assert torch.equal(getattr(witness[i], name), getattr(f, name)), (i, name)
     for name in ("rnd", "vrnd", "value"):
         assert torch.equal(getattr(s, name)[1], getattr(twin, name)[1]), name
+
+
+@pytest.mark.parametrize(
+    "v,b,off,threads,variant",
+    [
+        (16, 128, None, 128, "vector"),  # the per-role walk: 4 blocks of 32 lanes
+        (16, 512, None, 128, "vector"),  # Table 1's burst
+        (16, 100, None, 64, "vector"),  # B not a multiple of a block's lanes
+        (16, 128, "msg_val", 128, "scalar"),  # a view into a burst, 4 bytes off 16
+        (16, 100, "st_val", 256, "scalar"),
+        (5, 128, None, 128, "scalar"),
+        (3, 77, None, 64, "scalar"),
+        (64, 128, None, 256, "vector"),
+        (130, 128, None, 128, "scalar"),  # 5 words a thread: stores in 3 passes
+    ],
+)
+def test_team_acceptor_kernel_matches_plain(cuda, monkeypatch, v, b, off, threads, variant):
+    """K7 on K2's team body against ``batched.acceptor_phase2`` in both
+    variants, over an aligned, a misaligned, a ring-end and a scattered
+    window, blocks of 64, 128 and 256 threads; the variant asserted by its
+    counter, the register file in place."""
+    n = 4096
+    rng = np.random.default_rng([v, b, threads, 24])
+    s = _state(rng, 1, n, v, 0, 5, cuda)["stack"]
+    file = AcceptorState(*(x[0] for x in vars(s).values()))
+    twin = AcceptorState(*(x.clone() for x in vars(file).values()))
+    if off == "st_val":
+        file = AcceptorState(file.rnd, file.vrnd, _off16(file.value))
+    ptrs = [x.data_ptr() for x in vars(file).values()]
+    monkeypatch.setattr(k_wirepath, "LANE_THREADS", threads)
+    for inst in _windows(rng, n, b):
+        msgs = _phase2(rng, inst, v, cuda)
+        if off == "msg_val":
+            msgs = msgs.replace(value=_burst_view(msgs.value))
+            assert msgs.value.data_ptr() % 16 == 4
+        before, count = _variants(), k_acceptor.launches
+        _, got = ops.acceptor_phase2(file, msgs, 3)
+        _, want = batched.acceptor_phase2(twin, msgs, 3)
+        assert _ran(before) == variant and k_acceptor.launches == count + 1
+        for f in FIELDS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        for x, y in zip(vars(file).values(), vars(twin).values(), strict=True):
+            assert torch.equal(x, y)
+    assert [x.data_ptr() for x in vars(file).values()] == ptrs
+
+
+def _quorum_votes(rng, a, b, v, dev):
+    """Votes whose first agreeing acceptor cycles over the lanes: 0, 1, A-1
+    and none, then foreign lanes (mixed types and vrnds); acceptors before
+    the first agreeing one REJECT with non-zero values, after it P2B at the
+    winning round or one below."""
+    vtype = np.full((a, b), 4, np.int32)
+    vrnd = np.where(rng.random((a, b)) < 0.5, 7, 6).astype(np.int32)
+    kinds = [0, min(1, a - 1), a - 1, None, "foreign"]
+    for j in range(b):
+        kind = kinds[j % len(kinds)]
+        if kind is None:
+            vtype[:, j] = 7
+        elif kind == "foreign":
+            vtype[:, j] = rng.choice([4, 4, 7, 2], a)
+            vrnd[:, j] = rng.integers(-3, 4, a)
+        else:
+            vtype[:kind, j] = 7
+            vrnd[kind, j] = 7
+    value = rng.integers(1, I32_MAX, (a, b, v), dtype=np.int32)
+    return [torch.from_numpy(x).to(dev) for x in (vtype, vrnd, value)]
+
+
+@pytest.mark.parametrize(
+    "a,v,b,off,threads,variant",
+    [
+        (3, 16, 128, False, 128, "vector"),  # the per-role walk: 4 blocks of 32 lanes
+        (3, 16, 512, False, 128, "vector"),  # Table 1's burst
+        (3, 16, 100, False, 64, "vector"),  # B not a multiple of a block's lanes
+        (1, 16, 128, False, 128, "vector"),
+        (5, 16, 77, True, 256, "scalar"),  # the vote values 4 bytes off 16
+        (3, 5, 128, False, 128, "scalar"),
+        (8, 16, 128, False, 128, "vector"),  # every acceptor loaded up front
+        (9, 16, 128, False, 128, "vector"),  # one above VOTE_CAP: reloads past it
+        (9, 5, 100, False, 64, "scalar"),
+        (12, 64, 128, True, 256, "scalar"),
+        (3, 130, 128, False, 128, "scalar"),  # 5 words a thread: the rest after deciding
+        (3, 256, 64, False, 128, "vector"),  # 2 int4 a thread at T = 32
+    ],
+)
+def test_team_quorum_kernel_matches_plain(cuda, monkeypatch, a, v, b, off, threads, variant):
+    """K8's team body against ``learner.learner_quorum_plain`` in both
+    variants, on lanes whose first agreeing acceptor is 0, 1, A-1 or none
+    and on foreign lanes, at A up to and past ``VOTE_CAP``, blocks of 64,
+    128 and 256 threads; the variant asserted by its counter, value 0
+    where no acceptor agrees."""
+    rng = np.random.default_rng([a, v, b, threads])
+    vtype, vrnd, value = _quorum_votes(rng, a, b, v, cuda)
+    if off:
+        value = _off16(value)
+    monkeypatch.setattr(k_wirepath, "LANE_THREADS", threads)
+    before, count = _variants(), k_learner.launches
+    got = k_learner.learner_quorum_window(a // 2 + 1, vtype, vrnd, value)
+    want = k_learner.learner_quorum_plain(a // 2 + 1, vtype, vrnd, value)
+    assert _ran(before) == variant and k_learner.launches == count + 1
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+    assert not got[2][3::5].any()  # the lanes where no acceptor agrees
 
 
 # ---------------------------------------------------------------------------
@@ -1541,12 +1654,25 @@ def test_attention_kernel_refuses_a_negative_window(cuda):
     assert k_flash.launches == before
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
-def test_model_attention_hands_k9_views_not_copies(full_f32, dtype, atol):
-    """``layers.flash_attention``'s card route passes K9 (B, H, S, D) views of
-    the models' (B, S, ., D) tensors, their own storage, and launches once;
-    the output comes back as the models' layout without a copy."""
-    from repro_torch.kernels import flash_attention as k_flash
+def _k9_misfits(got: torch.Tensor, want: np.ndarray, atol: float) -> str:
+    """Where the elements of a (B, S, KVH, G, D) attention output that are
+    more than ``atol`` off ``want`` lie: their count by (b, h, q tile), h =
+    kv head * G + g, the tile K9's block of rows (32 in float32, 128 in
+    bfloat16).  A block-level race shows as whole tiles, a fault of the
+    inputs' ordering as scattered elements."""
+    rows = 32 if got.dtype == torch.float32 else 128
+    bad = np.argwhere(np.abs(got.float().cpu().numpy() - want) > atol)
+    _, _, _, g, _ = got.shape
+    tiles: dict[tuple[int, int, int], int] = {}
+    for b, s, kv, gi, _ in bad:
+        key = (int(b), int(kv * g + gi), int(s) // rows)
+        tiles[key] = tiles.get(key, 0) + 1
+    return f"{len(bad)} elements off by more than {atol}; by (b, h, q tile): {tiles}"
+
+
+def _k9_case(dtype):
+    """The model-layout case (B=2, S=300, KVH=2, G=2, D=64, seed 6) on the
+    CPU: q, k, v in ``dtype`` and the CPU path's float32 output."""
     from repro_torch.models import layers
 
     rng = np.random.default_rng(6)
@@ -1554,7 +1680,21 @@ def test_model_attention_hands_k9_views_not_copies(full_f32, dtype, atol):
     q = torch.from_numpy(rng.standard_normal((b, s, kvh, g, d)).astype(np.float32)).to(dtype)
     k, v = (torch.from_numpy(rng.standard_normal((b, s, kvh, d)).astype(np.float32)).to(dtype)
             for _ in range(2))  # fmt: skip
-    want = layers.flash_attention(q.float(), k.float(), v.float(), window=40)
+    return (q, k, v), layers.flash_attention(q.float(), k.float(), v.float(), window=40).numpy()
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_model_attention_hands_k9_views_not_copies(full_f32, dtype, atol):
+    """``layers.flash_attention``'s card route passes K9 (B, H, S, D) views of
+    the models' (B, S, ., D) tensors, their own storage, and launches once;
+    the output comes back as the models' layout without a copy.  A second
+    launch on the same inputs is bitwise the first, and both are within
+    ``atol`` of the CPU path; a failure names the (b, h, q tile) of every
+    element off."""
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.models import layers
+
+    (q, k, v), want = _k9_case(dtype)
     card = [x.to(full_f32) for x in (q, k, v)]
     seen = []
     router = k_flash.flash_attention
@@ -1573,7 +1713,38 @@ def test_model_attention_hands_k9_views_not_copies(full_f32, dtype, atol):
     for arg, src in zip(seen[0], card):
         assert not arg.is_contiguous() and arg.data_ptr() == src.data_ptr()
     assert got.is_contiguous() and got.shape == q.shape
-    np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(), atol=atol)
+    again = layers.flash_attention(*card, window=40)
+    assert k_flash.launches == before + 2
+    assert torch.equal(again, got), _k9_misfits(again, got.float().cpu().numpy(), 0.0)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, atol=atol,
+                               err_msg=_k9_misfits(got, want, atol))  # fmt: skip
+
+
+def test_model_attention_float32_repeats_bitwise(full_f32):
+    """K9's float32 route on the model-layout case, 200 times, each time from
+    new copies of the inputs on the card and into a new output, the CPU
+    path's output computed anew beside it: every card output bitwise the
+    first, every CPU output bitwise the first, and the first within 2e-5 of
+    each other; a failure counts the runs that differ and names where their
+    elements lie."""
+    from repro_torch.models import layers
+
+    (q, k, v), want = _k9_case(torch.float32)
+    first = None
+    differ, cpu_differ = [], []
+    for i in range(200):
+        got = layers.flash_attention(*(x.to(full_f32) for x in (q, k, v)), window=40)
+        again = layers.flash_attention(q, k, v, window=40).numpy()
+        if not np.array_equal(again, want):
+            cpu_differ.append((i, float(np.abs(again - want).max())))
+        if first is None:
+            first = got
+            np.testing.assert_allclose(got.cpu().numpy(), want, atol=2e-5,
+                                       err_msg=_k9_misfits(got, want, 2e-5))  # fmt: skip
+        elif not torch.equal(got, first):
+            differ.append((i, _k9_misfits(got, first.cpu().numpy(), 0.0)))
+    assert not cpu_differ, f"{len(cpu_differ)} of 200 CPU outputs differ: {cpu_differ[:5]}"
+    assert not differ, f"{len(differ)} of 199 launches differ from the first: {differ[:5]}"
 
 
 def test_model_attention_runs_k9_on_the_card(full_f32):

@@ -215,6 +215,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(16, **i32), torch.zeros(16, **i32), torch.zeros((16, 4), **i32), 0,
             z8, z8, z8, z84,
         ),
+        lambda: tacc.acceptor_phase2_witness(
+            torch.zeros(16, **i32), torch.zeros(16, **i32), torch.zeros((16, 4), **i32), 0,
+            z8, z8, z8, z84,
+        ),
         lambda: twire.acceptor_vote_all_window(
             torch.zeros((3, 16), **i32), torch.zeros((3, 16), **i32),
             torch.zeros((3, 16, 4), **i32), torch.ones(3, dtype=torch.bool), z8, z8, z8, z84,
@@ -223,8 +227,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             2, torch.zeros((3, 8), **i32), torch.zeros((3, 8), **i32), torch.zeros((3, 8, 4), **i32)
         ),
     ]  # fmt: skip
-    before = (tcoord.launches, tacc.launches, twire.vote_all_launches, tlearn.launches)
+    def counts():
+        return (tcoord.launches, tacc.launches, tacc.witness_launches, twire.vote_all_launches,
+                tlearn.launches, twire.vector_launches, twire.scalar_launches)  # fmt: skip
+
+    before = counts()
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    assert (tcoord.launches, tacc.launches, twire.vote_all_launches, tlearn.launches) == before
+    assert counts() == before
