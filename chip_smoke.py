@@ -71,13 +71,33 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    order of ``deliver`` callbacks, seals, state, dispatch count, fold
    widths, placement and plan; every dispatch must launch K6 or K1's shard
    slice once per shard;
-10. K9, the attention kernel, against its plain version at the cases of
+10. the replicated KV tier: ``ConsensusService`` and ``ReplicatedKV`` over
+   the service of 8 (``run_kv_path``), 1,024 sessions each the single
+   writer of two 8-byte keys, the op mix of ``run_kv_twins``
+   (``tests/test_kv_linearizable.py``: 50% put, 20% delete, 30% cas) with
+   12-byte values, on its chaos schedule (group 0's coordinator failover
+   and restore, an acceptor crash with state loss and its restore from the
+   snapshot, compaction every 4 waves, retire and create), eight fused
+   single-group twins fed the same values at the same cadence (their
+   replicas must equal the service's at the retirement and at the end), a
+   second context's sealed snapshot adopted with no dispatch, and
+   ``benchmarks/bench_wirepath.py``'s KV row (128 puts a round trip, 4,096
+   leased gets); every get must equal the session's last write and the
+   decoded chain, a leased get must dispatch nothing, and both read paths
+   must run; then the same tier on ``make_group_mesh(2)`` with one
+   ``plan_placement`` and a ``migrate_group`` (``run_kv_sharded``), the
+   moved group's sessions reading the same values after the move.  Each
+   against the plain engine's run (logs, archives, replicas, answers,
+   stats, dispatch count, seals, plan, slabs); K5, K1's cohort form and K4
+   must launch (one K4 launch a seal), K6 and K1's shard slice on the
+   sharded part;
+11. K9, the attention kernel, against its plain version at the cases of
    ``tests/test_flash_kernel.py``, rows that see no key, ragged lengths,
    head dims 16 to 256 and the LM path's shapes, on contiguous tensors and
    on (B, H, S, D) views of (B, S, H, D) ones (float32 at 2e-5 with TF32
    off, bfloat16 at 2e-2); the same model at a reduced width on the card
    against the CPU;
-11. LM serving at gemma3-27b's full width, its depth cut from 62 to 12
+12. LM serving at gemma3-27b's full width, its depth cut from 62 to 12
    layers (two 5:1 local:global superblocks), random weights from a seeded
    generator on the card (``lm_params``): ``make_prefill_step`` on 2 prompts
    of 2048 tokens in bfloat16, K9 12 times a call on views of the layers'
@@ -87,7 +107,7 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    ``serve_step`` decode; ``ServeLoop`` answering 8 requests of 64-512
    prompt tokens and 16 new ones at batch 4, twice alike, and two of them
    alone as in the batch;
-12. times: each kernel by CUDA events at its path's shapes beside its bound
+13. times: each kernel by CUDA events at its path's shapes beside its bound
    and its plain version (K1, K5, K6, K2, K7 and K8 also beside the launch
    floor of their grid, an empty kernel, and their times at 64, 128 and
    256 threads a block, with the registers, spills and 128-bit load and
@@ -107,8 +127,9 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    ``scaled_dot_product_attention``, with its registers and spills and its
    library's HGMMA and UTMALDG counts, which must not be 0), each consensus
    path's decided values/s
-   and latency, and the LM path's prefill and decode times;
-13. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+   and latency, the KV tier's ops/s, write and leased-get microseconds
+   and read:write ratio, and the LM path's prefill and decode times;
+14. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run, and
@@ -159,6 +180,16 @@ from repro_torch.serve.engine import (  # noqa: E402
     make_prefill_step,
     make_serve_step,
 )
+from repro_torch.serve.kv import (  # noqa: E402
+    OP_CAS,
+    OP_DELETE,
+    OP_PUT,
+    GroupReplica,
+    KvOp,
+    ReplicatedKV,
+    decode_op,
+)
+from repro_torch.serve.service import ConsensusService  # noqa: E402
 
 SEED = 20160519
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -1976,6 +2007,456 @@ def run_multigroup_path(
 
 
 # ---------------------------------------------------------------------------
+# replicated KV: the service and the KV tier over the defaults' dataplane
+# ---------------------------------------------------------------------------
+KV_SESSIONS = 1024  # client sessions, routed onto the groups by session_hash
+KV_WAVES = 12  # the chaos schedule of run_kv_twins (tests/test_kv_linearizable.py)
+KV_BURST, KV_READS = 128, 4096  # the KV row of benchmarks/bench_wirepath.py
+KV_PROBES = 8  # sessions a wave that read right after a write (one read-index op each)
+
+
+def kv_key(i: int, j: int) -> bytes:
+    return b"%06dk%d" % (i, j)  # 8 bytes: session i's key j
+
+
+def kv_value(i: int, c: int) -> bytes:
+    return b"%06dv%05d" % (i, c % 100_000)  # 12 bytes: session i's op c
+
+
+def apply_op(state: dict, op: KvOp) -> None:
+    """The KV tier's apply rule on one segment's key -> value map: a cas
+    applies against the segment's own value (absent and deleted both read
+    as ``None``)."""
+    if op.op == OP_PUT or (op.op == OP_CAS and state.get(op.key) == op.expect):
+        state[op.key] = op.value
+    elif op.op == OP_DELETE:
+        state[op.key] = None
+
+
+class KvModel:
+    """What each session wrote, segment by segment, by the KV tier's rules:
+    a cas applies against its own ``(group, generation)`` segment's value
+    (absent and deleted both read as ``None``); a key present in a newer
+    segment of the session's chain masks the older ones.  With every key
+    written by one session only, the model's answer is the session's last
+    write."""
+
+    def __init__(self):
+        self.segs: dict[int, dict[tuple[int, int], dict[bytes, bytes | None]]] = {}
+
+    def apply(self, i: int, seg, op: KvOp) -> None:
+        apply_op(self.segs.setdefault(i, {}).setdefault(seg, {}), op)
+
+    def get(self, i: int, chain, key: bytes) -> bytes | None:
+        mine = self.segs.get(i, {})
+        for seg in reversed(chain):
+            if key in mine.get(seg, {}):
+                return mine[seg][key]
+        return None
+
+
+def decode_segments(svc: ConsensusService, segs) -> dict:
+    """The read oracle: every segment's log decoded afresh into its key ->
+    value map, apart from the replicas the KV tier keeps."""
+    out = {}
+    for seg in segs:
+        state: dict[bytes, bytes | None] = {}
+        for _inst, payload in svc.log_segment(*seg):
+            apply_op(state, decode_op(payload))
+        out[seg] = state
+    return out
+
+
+def replica_of(log) -> tuple:
+    """A fresh apply loop over a whole log: the twins' side of the check."""
+    rep = GroupReplica()
+    rep.apply_log(list(log))
+    return rep.signature()
+
+
+class KvClients:
+    """1,024 sessions over a ``ReplicatedKV``, each the single writer of two
+    keys, with the op mix of ``run_kv_twins``: 50% put, 20% delete, 30% cas
+    (a third expect-absent, two thirds a value expect that mostly misses),
+    8-byte keys and 12-byte values (a cas frame is 18 + 8 + 12 + 12 bytes).
+    ``reads`` gets a key of every session and holds each answer to the
+    model and to the oracle that decodes the session's stitched chain; a
+    leased get must leave ``dispatch_count`` where it was."""
+
+    def __init__(self, svc: ConsensusService, kv: ReplicatedKV, n: int, rng, clock):
+        self.svc, self.kv, self.rng, self.clock = svc, kv, rng, clock
+        self.sids = [f"kv-{i:04d}" for i in range(n)]
+        self.counters = [0] * n
+        self.model = KvModel()
+        self.writes = self.gets = 0
+        self.answers: list = []
+
+    def op(self, i: int) -> None:
+        self.counters[i] += 1
+        c = self.counters[i]
+        key = kv_key(i, int(self.rng.integers(2)))
+        r = self.rng.random()
+        if r < 0.5:
+            op = KvOp(OP_PUT, key, kv_value(i, c))
+        elif r < 0.7:
+            op = KvOp(OP_DELETE, key)
+        else:
+            expect = None if r < 0.8 else kv_value(i, int(self.rng.integers(c)))
+            op = KvOp(OP_CAS, key, kv_value(i, c), expect)
+        self.write(i, op)
+
+    def write(self, i: int, op: KvOp) -> None:
+        s = self.kv.session(self.sids[i])
+        if op.op == OP_PUT:
+            t = s.put(op.key, op.value)
+        elif op.op == OP_DELETE:
+            t = s.delete(op.key)
+        else:
+            t = s.cas(op.key, op.expect, op.value)
+        self.model.apply(i, (t.group, self.svc.group_generation(t.group)), op)
+        self.writes += 1
+
+    def get(self, i: int, key: bytes, oracle: dict | None = None) -> bytes | None:
+        kv, hw = self.kv, self.svc.ctx.hw
+        leased, base = kv.stats["leased_gets"], hw.dispatch_count
+        got = kv.session(self.sids[i]).get(key)
+        self.gets += 1
+        chain = self.svc.session_chain(self.sids[i])
+        want = self.model.get(i, chain, key)
+        if got != want:
+            raise AssertionError(f"stale read: session {i} key {key!r} got {got!r}, "
+                                 f"its last write {want!r}")  # fmt: skip
+        if oracle is not None:
+            seen = None
+            for seg in reversed(chain):
+                if key in oracle[seg]:
+                    seen = oracle[seg][key]
+                    break
+            if got != seen:
+                raise AssertionError(f"session {i} key {key!r} got {got!r}, its chain {seen!r}")
+        if kv.stats["leased_gets"] > leased and hw.dispatch_count != base:
+            raise AssertionError(f"a leased get of session {i} dispatched to the card")
+        self.answers.append(got)
+        return got
+
+    def reads(self) -> None:
+        t0 = time.perf_counter()
+        segs = {seg for sid in self.sids for seg in self.svc.session_chain(sid)}
+        oracle = decode_segments(self.svc, segs)
+        self.clock["oracle_s"] += time.perf_counter() - t0
+        for i in range(len(self.sids)):
+            self.get(i, kv_key(i, int(self.rng.integers(2))), oracle)
+
+
+def quiesce(svc: ConsensusService) -> None:
+    svc.run_until_quiescent()
+    if not svc.ctx.quiescent():
+        raise AssertionError("the service did not drain")
+
+
+def aligned(x: int, b: int) -> int:
+    return -(-x // b) * b
+
+
+def feed_twins(ctx, twins: list, clock: dict) -> None:
+    """Every value the service submits to group g goes to twin g too, and
+    each pump of the service pumps every twin: the same schedule at the same
+    cadence.  The twins' share of the wall goes to ``clock["twins_s"]``."""
+    submit, pump = ctx.submit, ctx.pump
+
+    def fed_submit(payload: bytes, group: int = 0) -> int:
+        seq = submit(payload, group=group)
+        t0 = time.perf_counter()
+        if twins[group] is not None:  # an adopted group has no twin
+            twins[group].submit(payload)
+        clock["twins_s"] += time.perf_counter() - t0
+        return seq
+
+    def fed_pump(rounds: int = 1) -> None:
+        pump(rounds)
+        t0 = time.perf_counter()
+        for twin in twins:
+            if twin is not None:
+                twin.pump(rounds)
+        clock["twins_s"] += time.perf_counter() - t0
+
+    ctx.submit, ctx.pump = fed_submit, fed_pump
+
+
+def kv_bench(svc: ConsensusService, kv: ReplicatedKV) -> dict:
+    """``benchmarks/bench_wirepath.py``'s KV row: a write burst of 128 puts,
+    one round trip each through the dispatch, then 4,096 leased gets, each
+    the best of 3 by the host clock; the gets must dispatch nothing."""
+    s = kv.session("kv-bench")
+    write_s, read_s = [], []
+    for t in range(3):
+        sync(svc.ctx.hw.device)
+        t0 = time.perf_counter()
+        for j in range(KV_BURST):
+            s.put(b"bnch%04d" % (j & 63), b"t%03dj%07d" % (t, j))
+        svc.run_until_quiescent()
+        kv.refresh()
+        sync(svc.ctx.hw.device)
+        write_s.append(time.perf_counter() - t0)
+    if s.get(b"bnch0001") != b"t002j%07d" % (64 + 1):  # settle: the lease validates
+        raise AssertionError("the write burst's last value did not land")
+    base, leased = svc.ctx.hw.dispatch_count, kv.stats["leased_gets"]
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(KV_READS):
+            s.get(b"bnch0001")
+        read_s.append(time.perf_counter() - t0)
+    if svc.ctx.hw.dispatch_count != base or kv.stats["leased_gets"] != leased + 3 * KV_READS:
+        raise AssertionError("the bench's leased gets dispatched to the card")
+    write_us, read_us = min(write_s) / KV_BURST * 1e6, min(read_s) / KV_READS * 1e6
+    return dict(write_us_per_op=write_us, leased_get_us_per_op=read_us,
+                read_write_ratio=write_us / read_us)  # fmt: skip
+
+
+def run_kv_path(use_kernels: bool, dev) -> dict:
+    """The replicated KV tier on the defaults' service (``PaxosConfig(
+    n_groups=8, realign_after=4)``, snapshots on): ``ConsensusService`` and
+    ``ReplicatedKV`` over 8 groups of A=3, N=65,536, 64-byte values, with
+    eight fused single-group twins (snapshots on) fed the same values at the
+    same cadence.  ``KV_WAVES`` waves of 2 to 4 ops from each of 1,024
+    sessions, the first ``KV_PROBES`` of them reading right after a write,
+    then a get of every session; on ``run_kv_twins``'s chaos schedule:
+    group 0's coordinator fails in wave 3 and is restored in wave 5 (its
+    window carries whole bursts from a burst-aligned estimate, so that the
+    restore burns nothing forward, which the engine does only under
+    ``use_kernels``: the kernel and plain runs stay comparable), an
+    acceptor of group 0 crashes with its state in wave 6 and is restored
+    from the snapshot in wave 9, group 7 retires in wave 7 (its replica held
+    to a fresh apply over its twin's log) and is created again in wave 10,
+    and every group is compacted every 4 waves.  Then a second context's
+    sealed snapshot of its group 3 is adopted into the slot group 6 vacates
+    (its replica must equal the source's, with no dispatch), one more wave,
+    every live group's replica held to a fresh apply over its twin's log,
+    and the KV bench row (``kv_bench``)."""
+    cfg = default_multigroup_config()
+    g, b = cfg.n_groups, cfg.batch
+    ctx = PaxosContext(cfg, use_kernels=use_kernels, snapshots=True, device=dev)
+    hw = ctx.hw
+    svc = ConsensusService(ctx)
+    kv = ReplicatedKV(svc)
+    single = dataclasses.replace(cfg, n_groups=1)
+
+    def twin():
+        return PaxosContext(single, use_kernels=use_kernels, fused=True, snapshots=True,
+                            device=dev)  # fmt: skip
+
+    twins = [twin() for _ in range(g)]
+    clock = {"twins_s": 0.0, "oracle_s": 0.0}
+    feed_twins(ctx, twins, clock)
+    rng = np.random.default_rng(SEED + 25)
+    clients = KvClients(svc, kv, KV_SESSIONS, rng, clock)
+    seals, retire_sigs = [], []
+    churn, window = g - 1, (3, 4)
+    sync(dev)
+    t0 = time.perf_counter()
+
+    def wave(w: int) -> None:
+        hot = [i for i in range(KV_SESSIONS) if svc.group_of(clients.sids[i]) == 0]
+        hot_set = set(hot)
+        in_window = w in window
+        for i in range(KV_SESSIONS):
+            if in_window and i in hot_set:
+                continue
+            for _ in range(int(rng.integers(2, 5))):
+                clients.op(i)
+        if in_window:  # whole bursts to group 0's software coordinator
+            for k in range(b):
+                clients.op(hot[k % len(hot)])
+        probes = [i for i in range(KV_SESSIONS) if not (in_window and i in hot_set)][:KV_PROBES]
+        for i in probes:  # a pending write: the get takes one read-index op
+            op = KvOp(OP_PUT, kv_key(i, 0), kv_value(i, 99_999))
+            clients.write(i, op)
+            clients.get(i, op.key)
+        quiesce(svc)
+        clients.reads()
+
+    for w in range(KV_WAVES):
+        if w == 3:
+            gap = hw.next_inst_host[0]
+            ctx.fail_coordinator(est_next_inst=aligned(gap, b), group=0)
+            twins[0].fail_coordinator()
+        if w == 5:
+            ctx.restore_hardware_coordinator(group=0)
+            twins[0].restore_hardware_coordinator()
+        if w == 6:
+            ctx.crash_acceptor(2, group=0)
+            twins[0].crash_acceptor(2)
+        if w == 7:
+            gen = svc.group_generation(churn)
+            svc.retire_group(churn)
+            kv.refresh()
+            sig = kv.replica(churn, gen).signature()
+            if sig != replica_of(twins[churn].delivered_log):
+                raise AssertionError(f"retired group {churn}'s replica differs from its twin's")
+            retire_sigs.append(sig)
+            twins[churn] = None
+        if w == 9:
+            if ctx.snapshots.watermark(0) <= 0:
+                raise AssertionError("group 0 has no snapshot to restore from")
+            ctx.restore_acceptor(2, group=0)
+            twins[0].restore_acceptor(2)
+        if w == 10:
+            if svc.create_group() != churn:
+                raise AssertionError("create_group did not reuse the retired slot")
+            twins[churn] = twin()
+        wave(w)
+        if (w + 1) % 4 == 0:  # compaction mid-stream, both sides
+            for gid in ctx.live_groups():
+                seals.append(ctx.snapshot_group(gid).seal)
+                twins[gid].snapshot_group()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    chaos = dict(clock, writes=clients.writes, gets=clients.gets, wall_s=wall)
+
+    # a sealed snapshot from a second context, adopted into a vacated slot
+    peer = PaxosContext(cfg, use_kernels=use_kernels, snapshots=True, device=dev)
+    peer_svc = ConsensusService(peer)
+    peer_kv = ReplicatedKV(peer_svc)
+    src = 3
+    sids = [sid for sid in (f"peer-{i}" for i in range(4096)) if peer_svc.group_of(sid) == src]
+    for k, sid in enumerate(sids[:64]):
+        for j in range(4):
+            peer_kv.session(sid).put(b"p%07d" % (4 * k + j), b"peer%08d" % j)
+    quiesce(peer_svc)
+    peer.hw.burn_forward(src, aligned(peer.hw.next_inst_host[src], b))  # realigned under kernels
+    snap = peer.snapshot_group(src)
+    peer_kv.refresh()
+    want = peer_kv.replica(src).signature()
+    vacated = g - 2
+    svc.retire_group(vacated)
+    twins[vacated] = None
+    base = hw.dispatch_count
+    if svc.adopt_group(snap, list(peer.snapshots.log_prefix(src))) != vacated:
+        raise AssertionError("adopt_group did not reuse the vacated slot")
+    kv.refresh()
+    if kv.replica(vacated).signature() != want or hw.dispatch_count != base:
+        raise AssertionError("the adopted snapshot was not applied host-side as the source's")
+    seals.append(snap.seal)
+    wave(KV_WAVES)
+    for twin_ in twins:
+        if twin_ is not None:
+            twin_.run_until_quiescent()
+    for gid in ctx.live_groups():
+        log = ctx.full_group_log(gid)
+        if twins[gid] is not None:
+            theirs = twins[gid].full_group_log()
+            if [p for _, p in log] != [p for _, p in theirs]:
+                raise AssertionError(f"group {gid}'s payloads differ from its twin's")
+        else:
+            theirs = log
+        if kv.replica(gid).signature() != replica_of(theirs):
+            raise AssertionError(f"group {gid}'s replica differs from a fresh apply")
+    del ctx.submit, ctx.pump  # the twins stop here: the bench times the service alone
+    if not kv.stats["leased_gets"] or not kv.stats["read_index_gets"]:
+        raise AssertionError(f"the schedule did not take both read paths: {kv.stats}")
+    bench = kv_bench(svc, kv)
+    return dict(
+        logs=[ctx.full_group_log(gid) for gid in range(g)],
+        archived=svc.archived_segments(),
+        signatures={key: rep.signature() for key, rep in kv._replicas.items()},
+        retire_sigs=retire_sigs,
+        answers=clients.answers,
+        stats=dict(kv.stats),
+        dispatch_count=hw.dispatch_count,
+        seals=seals,
+        report=svc.plan_report(),
+        epoch=svc.routing_epoch,
+        state=export_state(hw),
+        chaos=chaos,
+        bench=bench,
+    )
+
+
+def kv_metrics(run_: dict, counts: dict | None = None) -> dict:
+    """A KV run's numbers: client ops (writes and gets) a second over the
+    schedule's wall less the twins' and the read oracle's host time, and
+    the bench row where the run has one."""
+    c = run_["chaos"]
+    own_s = c["wall_s"] - c.get("twins_s", 0.0) - c["oracle_s"]
+    out = dict(kv_ops_per_s=(c["writes"] + c["gets"]) / own_s, **c, own_wall_s=own_s,
+               **run_.get("bench", {}))  # fmt: skip
+    if counts is not None:
+        out["launches"] = {key: n for key, n in counts.items() if n}
+    return out
+
+
+def run_kv_sharded(use_kernels: bool, dev) -> dict:
+    """The KV tier on the defaults' service sharded over ``make_group_mesh(2)``
+    (two shards of four groups on the card): three waves of puts from every
+    session, the sessions of one group writing four times as much; one
+    ``plan_placement`` of the loads; a retire on the shard the plan gives
+    the hot group (the other shard if the plan keeps it) and
+    ``migrate_group`` of the hot group there, from a burst-aligned drain
+    watermark (the move re-seats the sequencer, realigned only under
+    ``use_kernels``).  The hot group's sessions read the same values after
+    the move as before, each get leased and dispatching nothing; two more
+    waves, every get held to the model and the chain oracle."""
+    cfg = default_multigroup_config()
+    b = cfg.batch
+    ctx = PaxosContext(cfg, use_kernels=use_kernels, snapshots=True, device=dev,
+                       mesh=make_group_mesh(2, dev))  # fmt: skip
+    hw = ctx.hw
+    svc = ConsensusService(ctx)
+    kv = ReplicatedKV(svc)
+    clock = {"oracle_s": 0.0}
+    clients = KvClients(svc, kv, KV_SESSIONS, np.random.default_rng(SEED + 26), clock)
+    hot = svc.group_of(clients.sids[0])
+
+    def wave(w: int) -> None:
+        for i, sid in enumerate(clients.sids):
+            for j in range(4 if svc.group_of(sid) == hot else 1):
+                clients.write(i, KvOp(OP_PUT, kv_key(i, j % 2), kv_value(i, 10 * w + j)))
+        quiesce(svc)
+        clients.reads()
+
+    sync(dev)
+    t0 = time.perf_counter()
+    for w in range(3):
+        wave(w)
+    plan = svc.plan_placement()
+    dst = plan.shard_of(hot)
+    if dst == svc.shard_of(clients.sids[0]):
+        dst = 1 - dst
+    gone = next(h for h in ctx.live_groups() if h != hot and svc.group_placement()[h] == dst)
+    svc.retire_group(gone)
+    movers = [i for i, sid in enumerate(clients.sids) if svc.group_of(sid) == hot]
+    before = [kv.session(clients.sids[i]).get(kv_key(i, 0)) for i in movers]
+    hw.burn_forward(hot, aligned(hw.next_inst_host[hot], b))
+    snap = svc.migrate_group(hot, dst)
+    if hw.shard_of_group(hot) != dst or any(svc.shard_of(clients.sids[i]) != dst for i in movers):
+        raise AssertionError(f"group {hot} did not move to shard {dst}: {svc.group_placement()}")
+    base, leased = hw.dispatch_count, kv.stats["leased_gets"]
+    after = [clients.get(i, kv_key(i, 0)) for i in movers]
+    if after != before or hw.dispatch_count != base:
+        raise AssertionError("the moved group's sessions read other values, or dispatched")
+    if kv.stats["leased_gets"] != leased + len(movers):
+        raise AssertionError("a get of the moved group's sessions was not leased")
+    for w in range(3, 5):
+        wave(w)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    return dict(
+        logs=[ctx.full_group_log(gid) for gid in range(cfg.n_groups)],
+        signatures={key: rep.signature() for key, rep in kv._replicas.items()},
+        answers=clients.answers,
+        stats=dict(kv.stats),
+        dispatch_count=hw.dispatch_count,
+        seals=[snap.seal],
+        placement=svc.group_placement(),
+        plan=plan.slot_of,
+        moved=(hot, gone, dst, len(movers)),
+        report=svc.plan_report(),
+        state=export_state(hw),
+        chaos=dict(clock, writes=clients.writes, gets=clients.gets, wall_s=wall),
+    )
+
+
+# ---------------------------------------------------------------------------
 # LM serving: K9 and the dense transformer at gemma3-27b's width
 # ---------------------------------------------------------------------------
 LM_ARCH, LM_LAYERS = "gemma3-27b", 12  # depth cut from 62 layers: two 5:1 superblocks
@@ -3223,6 +3704,74 @@ def percentiles(round_s: list[float]) -> tuple[float, float]:
     return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
 
 
+def run_replicated_kv(dev) -> dict:
+    """The replicated KV phase: ``run_kv_path`` and ``run_kv_sharded`` on the
+    card, each with its launches counted and against its plain engine's
+    run; raises on the first difference."""
+    print("replicated KV: ConsensusService and ReplicatedKV over PaxosContext(PaxosConfig("
+          "n_groups=8, realign_after=4), use_kernels=True, snapshots=True), 1,024 sessions, "
+          "eight single-group twins, run_kv_twins's chaos schedule, an adopted "
+          "snapshot")  # fmt: skip
+    reset_launches()
+    with (
+        PlainCalls() as plain_votes,
+        PlainCalls("_rows_round") as plain_rounds,
+        SealCalls() as seals,
+    ):
+        kvp = run_kv_path(True, dev)
+    kv_launches = read_launches()
+    print(f"  launches: {kv_launches}, plain Phase-2 votes: {plain_votes.calls}, plain rounds: "
+          f"{plain_rounds.calls}, seals: {seals.calls}")  # fmt: skip
+    require_launched("replicated KV", kv_launches, ["K5", "K1-cohort", "digest"])
+    require_seals("replicated KV", kv_launches, seals)
+    if plain_votes.calls or plain_rounds.calls:
+        raise AssertionError(f"the replicated KV path ran the plain engine: {kv_launches}")
+    require_variant("replicated KV", kv_launches,
+                    ["wirepath_round", "K1-cohort", "K5", "acceptor_vote_all"])  # fmt: skip
+    print("  the same schedule on the plain engine (use_kernels=False) on the card")
+    kvp_plain = run_kv_path(False, dev)
+    for key in ("logs", "archived", "signatures", "retire_sigs", "answers", "stats",
+                "dispatch_count", "seals", "report", "epoch"):  # fmt: skip
+        if kvp[key] != kvp_plain[key]:
+            raise AssertionError(f"replicated KV kernel and plain runs differ in {key}")
+    for key, arr in kvp["state"].items():
+        if not np.array_equal(arr, kvp_plain["state"][key]):
+            raise AssertionError(f"replicated KV kernel and plain runs differ in state {key}")
+    print(f"  equal: {len(kvp['logs'])} group logs ({[len(x) for x in kvp['logs']]}), "
+          f"{len(kvp['archived'])} archived segments, {len(kvp['signatures'])} replica "
+          f"signatures, {len(kvp['answers'])} gets, stats {kvp['stats']}, dispatch_count "
+          f"{kvp['dispatch_count']}, {len(kvp['seals'])} seals, planner report "
+          f"{kvp['report']}; twins' replicas equal at the retirement and at the end; no "
+          f"stale read; no leased get dispatched")  # fmt: skip
+
+    print("replicated KV, sharded: the same tier over make_group_mesh(2), one plan_placement "
+          "and a migrate_group")  # fmt: skip
+    reset_launches()
+    with SealCalls() as seals:
+        kvs = run_kv_sharded(True, dev)
+    kvs_launches = read_launches()
+    print(f"  launches: {kvs_launches}, seals: {seals.calls}")
+    require_launched("sharded replicated KV", kvs_launches, ["K6", "K1-shard", "digest"])
+    require_seals("sharded replicated KV", kvs_launches, seals)
+    print("  the same schedule on the plain engine (use_kernels=False) on the card")
+    kvs_plain = run_kv_sharded(False, dev)
+    for key in ("logs", "signatures", "answers", "stats", "dispatch_count", "seals",
+                "placement", "plan", "moved", "report"):  # fmt: skip
+        if kvs[key] != kvs_plain[key]:
+            raise AssertionError(f"sharded replicated KV kernel and plain runs differ in {key}")
+    for key, arr in kvs["state"].items():
+        if not np.array_equal(arr, kvs_plain["state"][key]):
+            raise AssertionError(f"sharded replicated KV kernel and plain runs differ in {key}")
+    hot, gone, dst, movers = kvs["moved"]
+    print(f"  equal: group logs, {len(kvs['signatures'])} replica signatures, "
+          f"{len(kvs['answers'])} gets, stats {kvs['stats']}, placement {kvs['placement']} "
+          f"(plan {kvs['plan']}); group {hot} moved to shard {dst} after group {gone} "
+          f"retired, its {movers} sessions read the same values after the move, "
+          f"leased")  # fmt: skip
+    return dict(kvp=kvp, kvp_plain=kvp_plain, kv_launches=kv_launches, kvs=kvs,
+                kvs_plain=kvs_plain, kvs_launches=kvs_launches)  # fmt: skip
+
+
 def require_launched(path: str, launches: dict[str, int], names: list[str]) -> None:
     missing = [name for name in names if launches[name] == 0]
     if missing:
@@ -3511,6 +4060,8 @@ def run(dev: torch.device) -> None:
     print(f"  fold widths seen (width: dispatches): {dict(sorted(shd['folds'].items()))}, "
           f"stats {shd['stats']}")  # fmt: skip
 
+    kvr = run_replicated_kv(dev)
+
     print(f"LM weights: {LM_ARCH} at full width, {LM_LAYERS} of its 62 layers, random from a "
           f"seeded generator on the card, float32 and bfloat16")  # fmt: skip
     params32, params16 = lm_params(dev)
@@ -3566,6 +4117,12 @@ def run(dev: torch.device) -> None:
             plain_dispatch_ms_p50=plain_p50,
             plain_dispatch_ms_p99=plain_p99,
         )
+    for name, run_, base, counts in (
+        ("replicated KV", kvr["kvp"], kvr["kvp_plain"], kvr["kv_launches"]),
+        ("sharded replicated KV", kvr["kvs"], kvr["kvs_plain"], kvr["kvs_launches"]),
+    ):
+        plain_ = {f"plain_{k}": v for k, v in kv_metrics(base).items()}
+        path_metrics[name] = dict(card=CARD, **kv_metrics(run_, counts), **plain_)
     lm.pop("call_s")
     path_metrics["LM prefill path"] = dict(card=CARD, batch=K9_PATH[0], prompt_tokens=K9_PATH[3],
                                            layers=LM_LAYERS, **lm)  # fmt: skip

@@ -8,10 +8,13 @@ Layers:
   * ``api``       — drop-in submit / deliver / recover (paper Fig. 4), single-,
                     multi-group and groups-sharded dataplanes
   * ``fabric``    — the groups-sharded round, shard by shard over a mesh
+  * ``log``       — replicated log, gaps, quorum trim (a copy of the reference's)
   * ``snapshot``  — sealed snapshot store + ring reclamation
   * ``failover``  — coordinator takeover and acceptor restore
   * ``network``   — seeded lossy message fabric (a copy of the reference's)
+  * ``baseline``  — libpaxos-like software deployment (comparison baseline)
   * ``bridge``    — state export/import through numpy, in the reference's names
+  * ``device``    — ``resolve_device``: the card unless the caller asks otherwise
 """
 
 from .api import (  # noqa: F401
@@ -20,6 +23,8 @@ from .api import (  # noqa: F401
     PaxosContext,
     ShardedMultiGroupDataplane,
 )
+from .baseline import SoftwarePaxos  # noqa: F401
+from .log import ReplicatedLog  # noqa: F401
 from .network import FaultSpec, SimNet  # noqa: F401
 from .snapshot import GroupSnapshot, RingOverflowError, SnapshotStore  # noqa: F401
 from .types import (  # noqa: F401

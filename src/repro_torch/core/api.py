@@ -53,6 +53,7 @@ import torch
 from ..kernels import ops as kops
 from . import batched
 from . import plan as plan_mod
+from .device import resolve_device
 from .network import SimNet
 from .paxos import Coordinator as SoftCoordinator
 from .plan import NO_ROUND, NOP_SENTINEL
@@ -71,16 +72,6 @@ from .types import (
 )
 
 INT32_MAX = 2**31 - 1
-
-
-def resolve_device(device: torch.device | str | None) -> torch.device:
-    """``None`` means the card; asking for CUDA where there is none raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: pass device='cpu' to run the port on the CPU"
-        )
-    return dev
 
 
 @dataclasses.dataclass

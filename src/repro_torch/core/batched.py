@@ -16,7 +16,8 @@ Unlike the reference, which returns new immutable arrays, the register
 files (``AcceptorState``, ``LearnerState``) are updated in place, as the
 kernel updates them; the functions still return them, so callers read like
 the reference.  A batch must address distinct ring slots (``inst % N``
-pairwise distinct), which the sequencer guarantees for ``B <= N``.
+pairwise distinct), which the sequencer guarantees for ``B <= N``; only
+``acceptor_sequential``, one message at a time, takes any batch.
 """
 
 from __future__ import annotations
@@ -158,6 +159,44 @@ def acceptor_phase1_all(
     """Phase-1 promise of the whole acceptor array (recovery / takeover)."""
     aids = torch.arange(stack.rnd.shape[0], dtype=I32, device=stack.rnd.device)
     return stack, _phase1(stack, msgs, alive, aids)
+
+
+def acceptor_sequential(
+    astate: AcceptorState, msgs: MsgBatch, aid: int = 0
+) -> tuple[AcceptorState, MsgBatch]:
+    """One acceptor, one message at a time in batch order (recovery,
+    adversarial batches): any batch, duplicate slots included, where the
+    batched functions need distinct slots.  A plain loop over the batch,
+    with no kernel; the registers are updated in place."""
+    n = astate.n_instances
+    msgtype, inst, rnd = (x.tolist() for x in (msgs.msgtype, msgs.inst, msgs.rnd))
+    out_type, out_rnd, out_vrnd = [], [], []
+    out_value = torch.zeros_like(msgs.value)
+    for j, (t, i, r) in enumerate(zip(msgtype, inst, rnd, strict=True)):
+        slot = i % n
+        cur_rnd, cur_vrnd = int(astate.rnd[slot]), int(astate.vrnd[slot])
+        accept = t in (MSG_P2A, MSG_NOP) and r >= cur_rnd
+        promise = t == MSG_P1A and r > cur_rnd
+        if t == MSG_P1A:
+            out_value[j] = astate.value[slot]
+        if accept:
+            astate.vrnd[slot] = r
+            astate.value[slot] = msgs.value[j]
+            out_value[j] = msgs.value[j]
+        if accept or promise:
+            astate.rnd[slot] = r
+        out_type.append(MSG_P2B if accept else MSG_P1B if promise else MSG_REJECT)
+        out_rnd.append(r if accept or promise else cur_rnd)
+        out_vrnd.append(r if accept else cur_vrnd)
+    dev = msgs.msgtype.device
+    return astate, MsgBatch(
+        msgtype=torch.tensor(out_type, dtype=I32, device=dev),
+        inst=msgs.inst.clone(),
+        rnd=torch.tensor(out_rnd, dtype=I32, device=dev),
+        vrnd=torch.tensor(out_vrnd, dtype=I32, device=dev),
+        swid=torch.full_like(msgs.swid, aid),
+        value=out_value,
+    )
 
 
 def learner_quorum(

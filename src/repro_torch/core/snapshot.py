@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from .device import resolve_device
 
 
 class RingOverflowError(RuntimeError):
@@ -176,11 +177,12 @@ class SnapshotStore:
       out of the context's ``group_log``: the compacted half of the stitched
       ``delivered()`` view.
 
-    Seals are computed on ``device``: the context passes its own.
+    Seals are computed on ``device``: the card unless the caller passes
+    another (the context passes its own).
     """
 
-    def __init__(self, device: torch.device | str = "cpu") -> None:
-        self.device = torch.device(device)
+    def __init__(self, device: torch.device | str | None = None) -> None:
+        self.device = resolve_device(device)
         self._insts: dict[int, np.ndarray] = {}
         self._values: dict[int, np.ndarray] = {}
         self._watermark: dict[int, int] = {}

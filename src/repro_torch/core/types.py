@@ -83,6 +83,10 @@ class MsgBatch:
 
     FIELDS = ("msgtype", "inst", "rnd", "vrnd", "swid", "value")
 
+    @property
+    def batch(self) -> int:
+        return self.msgtype.shape[0]
+
     def tensors(self) -> list[torch.Tensor]:
         """The six header fields, in order (``gid`` left out)."""
         return [getattr(self, f) for f in self.FIELDS]

@@ -53,7 +53,7 @@ def make_group_mesh(n_shards: int = 0, device: torch.device | str | None = None)
     per visible card; ``device=None`` means the card, and asking for the
     card where there is none raises.  ``n_shards=S`` puts S logical shards
     on ``device``."""
-    from ..core.api import resolve_device
+    from ..core.device import resolve_device
 
     dev = resolve_device(device)
     if n_shards == 0:

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.api import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.serve.engine import Request, ServeLoop
 

@@ -20,7 +20,7 @@ from typing import Any
 
 import torch
 
-from ..core.api import resolve_device
+from ..core.device import resolve_device
 from . import layers as L
 from .layers import PSpec
 

@@ -3,9 +3,9 @@
 The port of the LM half of ``repro.serve.engine``.  ``make_prefill_step``
 and ``make_serve_step`` are the two entry points of the inference shapes;
 ``ServeLoop`` runs greedy continuous batching over ``serve_step`` on the
-host.  The consensus half (``ConsensusService``, sessions, the KV tier)
-joins this module later (``ROADMAP.md`` queue 1, item 5) and will not
-depend on this half.
+host.  The consensus half (``ConsensusService``, sessions and routing)
+lives in ``serve.service``, which does not depend on this half; its names
+are re-exported here, where the reference defines them.
 """
 
 from __future__ import annotations
@@ -16,8 +16,16 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.api import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.models import registry
+from repro_torch.serve.service import (  # noqa: F401
+    ConsensusService,
+    Session,
+    Ticket,
+    session_group,
+    session_group_live,
+    session_hash,
+)
 
 
 def make_prefill_step(cfg) -> Callable:

@@ -1769,3 +1769,72 @@ def test_model_attention_runs_k9_on_the_card(full_f32):
     with pytest.raises(NotImplementedError, match="k_positions"):
         layers.flash_attention(*card, k_positions=torch.arange(100, device=full_f32))
     assert k_flash.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# the replicated KV tier on the card
+# ---------------------------------------------------------------------------
+def _kv_schedule(dev) -> dict:
+    """Sessions over ``ReplicatedKV`` on a grouped context at the defaults
+    (persistent waves, snapshots): puts, deletes and cas, a read-index get
+    after a pending write, leased gets, a compaction, a retire and a create."""
+    from repro_torch.serve.kv import ReplicatedKV
+    from repro_torch.serve.service import ConsensusService
+
+    cfg = PaxosConfig(n_acceptors=3, n_instances=256, batch=8, n_groups=3)
+    ctx = PaxosContext(cfg, snapshots=True, device=dev)
+    svc = ConsensusService(ctx)
+    kv = ReplicatedKV(svc)
+    rng = np.random.default_rng(11)
+    sids = [f"user-{i}" for i in range(12)]
+    answers, seals = [], []
+    for w in range(6):
+        for i, sid in enumerate(sids):
+            s = kv.session(sid)
+            for _ in range(int(rng.integers(1, 5))):
+                key = b"k%d" % int(rng.integers(3))
+                r = rng.random()
+                if r < 0.5:
+                    s.put(key, b"%s:%d" % (sid.encode(), w))
+                elif r < 0.7:
+                    s.delete(key)
+                else:
+                    s.cas(key, None if r < 0.8 else b"%s:%d" % (sid.encode(), w - 1), b"c%d" % w)
+        s = kv.session(sids[0])
+        s.put(b"k0", b"probe%d" % w)
+        answers.append(s.get(b"k0"))  # a pending write: one read-index op
+        svc.run_until_quiescent()
+        answers += [kv.session(sid).get(b"k%d" % (i % 3)) for i, sid in enumerate(sids)]
+        if w == 2:
+            seals += [ctx.snapshot_group(gid).seal for gid in ctx.live_groups()]
+            svc.retire_group(svc.group_of(sids[1]))
+        if w == 4:
+            svc.create_group()
+    return dict(
+        logs=[ctx.full_group_log(gid) for gid in range(cfg.n_groups)],
+        signatures={key: rep.signature() for key, rep in kv._replicas.items()},
+        answers=answers,
+        stats=dict(kv.stats),
+        dispatch_count=ctx.hw.dispatch_count,
+        seals=seals,
+        report=svc.plan_report(),
+        state=export_state(ctx.hw),
+    )
+
+
+def test_replicated_kv_on_the_card_equals_the_cpu(cuda):
+    """The same KV schedule on the card (K5, K1's cohort form, K4) and on
+    the CPU (their plain versions): logs, every replica, every answer, the
+    tier's stats, the dispatch count, seals, the plan and the slabs."""
+    for name in ("persistent_launches", "cohort_launches"):
+        setattr(k_wirepath, name, 0)
+    k_digest.launches = 0
+    got = _kv_schedule(cuda)
+    assert k_wirepath.persistent_launches > 0 and k_wirepath.cohort_launches > 0
+    assert k_digest.launches == len(got["seals"]) > 0
+    want = _kv_schedule(torch.device("cpu"))
+    for key in ("logs", "signatures", "answers", "stats", "dispatch_count", "seals", "report"):
+        assert got[key] == want[key], key
+    for key, arr in want["state"].items():
+        np.testing.assert_array_equal(got["state"][key], arr, err_msg=key)
+    assert got["stats"]["leased_gets"] and got["stats"]["read_index_gets"] >= 6

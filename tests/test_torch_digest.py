@@ -79,6 +79,28 @@ def test_seal_matches_reference_and_empty_seals_to_zero():
     assert tops.tree_digest([]) == 0
 
 
+def test_snapshot_store_means_the_card_by_default(monkeypatch):
+    """``SnapshotStore()`` seals on the card: without one it raises, as the
+    context does; ``device="cpu"`` seals through K4's plain version, equal
+    to the reference's store on the same drained prefix."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        tsnap.SnapshotStore()
+    rng = np.random.default_rng(6)
+    insts = np.arange(40, 104, dtype=np.int32)
+    values = rng.integers(-(2**31), 2**31, (64, 16), dtype=np.int32)
+    got, want = tsnap.SnapshotStore(device="cpu"), rsnap.SnapshotStore()
+    for store in (got, want):
+        store.absorb(2, insts, values, 110)
+    assert got.device == torch.device("cpu")
+    assert got.seal(2) == want.seal(2) != 0
+    snap = got.snapshot(2)
+    assert (snap.watermark, snap.seal) == (110, want.seal(2))
+    other = tsnap.SnapshotStore(device="cpu")
+    other.seed(0, snap)  # verifies the seal on the CPU
+    assert other.seal(0) == snap.seal
+
+
 # ---------------------------------------------------------------------------
 # K4's launch geometry (csrc/digest.cu, laid out on the host)
 # ---------------------------------------------------------------------------
