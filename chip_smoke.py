@@ -107,7 +107,24 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    ``serve_step`` decode; ``ServeLoop`` answering 8 requests of 64-512
    prompt tokens and 16 new ones at batch 4, twice alike, and two of them
    alone as in the batch;
-13. times: each kernel by CUDA events at its path's shapes beside its bound
+13. training (``run_training``): ``launch/train.py``'s path at qwen3-4b's
+   full width (d_model 2560, 32 heads, 8 kv heads, d_ff 9728, vocab
+   151,936), its depth cut from 36 to 8 layers, bf16, remat on:
+   ``init_state``, ``make_train_step`` and ``run_loop`` with the staged
+   ``PaxosContext(PaxosConfig(n_acceptors=3, n_instances=4096, batch=16))``,
+   10 steps of 4 x 2048 tokens from the uniform stream, stragglers at 0.3;
+   finite losses, the first within 0.5 of ln(vocab), ``committed`` as the
+   straggler draws give it, one delivered ``step:`` record with its
+   step's digest for each committed step, in order; K9, K3 and K2 must
+   launch; ms a step, tokens/s, peak memory and K9's share of a step.  The
+   reduced model in float32, three steps on the card against the same
+   steps on the CPU from the same state, and one step's gradients through
+   K9 against the plain attention's on the card; ``examples/
+   torch_train_100m.py``'s 30 steps (the loss falls; K9 and K1 launch); a
+   checkpoint committed through consensus at step 3, restored bit for bit,
+   resumed with the uninterrupted run's losses, and with acceptors 0 and 1
+   killed a save that stays invisible;
+14. times: each kernel by CUDA events at its path's shapes beside its bound
    and its plain version (K1, K5, K6, K2, K7 and K8 also beside the launch
    floor of their grid, an empty kernel, and their times at 64, 128 and
    256 threads a block, with the registers, spills and 128-bit load and
@@ -129,7 +146,7 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    path's decided values/s
    and latency, the KV tier's ops/s, write and leased-get microseconds
    and read:write ratio, and the LM path's prefill and decode times;
-14. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+15. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run, and
@@ -144,11 +161,14 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import importlib.util
+import itertools
 import json
 import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -174,6 +194,7 @@ from repro_torch.launch.mesh import make_group_mesh  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import registry as lm_registry  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.convert import state_from_numpy, state_to_numpy  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Request,
     ServeLoop,
@@ -190,6 +211,11 @@ from repro_torch.serve.kv import (  # noqa: E402
     decode_op,
 )
 from repro_torch.serve.service import ConsensusService  # noqa: E402
+from repro_torch.train import train_loop  # noqa: E402
+from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.train.data import DataConfig, SyntheticStream  # noqa: E402
+from repro_torch.train.optimizer import OptConfig  # noqa: E402
+from repro_torch.train.train_loop import LoopConfig, run_loop  # noqa: E402
 
 SEED = 20160519
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -2784,6 +2810,320 @@ def run_lm_serving(dev, params: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# training: launch/train.py's path, quorum-committed steps, checkpoints
+# ---------------------------------------------------------------------------
+TRAIN_LAYERS = 8  # qwen3-4b's depth cut from 36 layers; every width is the published one
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_STRAGGLERS = 4, 2048, 10, 0.3
+# card against CPU, reduced qwen3-4b in float32, 3 steps of AdamW at lr 1e-3:
+# loss and grad_norm within 1e-4 relative (K9's float32 tolerance carried
+# through the layers); params within 1e-4, a tenth of one step's size, so a
+# wrong update of any leaf shows (5.79e-6 measured on an H100 at 700 W)
+TRAIN_PARITY_RTOL = 1e-4
+TRAIN_PARITY_PARAMS_ATOL = 1e-4
+TRAIN_PARITY_OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
+# one step's gradients through K9 and its backward pass against autograd
+# through the chunked softmax on the card, relative to each leaf's largest
+# entry (tests/test_torch_cuda.py's)
+MODEL_GRAD_RTOL = 1e-4
+# a resumed run against the uninterrupted one, the same steps on the same
+# card: equal unless an accumulation on the card runs in another order
+RESUME_ATOL = 1e-5
+
+
+def train_config():
+    return dataclasses.replace(get_config("qwen3-4b"), n_layers=TRAIN_LAYERS)
+
+
+def train_paxos(dev) -> PaxosContext:
+    """``launch/train.py``'s consensus context: the staged path (K3, K2)."""
+    return PaxosContext(PaxosConfig(n_acceptors=3, n_instances=4096, batch=16), device=dev)
+
+
+def step_records(log) -> list[tuple[int, int]]:
+    """(step, digest) of every ``step:`` record of a delivered log, in order."""
+    return [(int.from_bytes(p[5:9], "little"), int.from_bytes(p[9:13], "little", signed=True))
+            for _, p in log if p.startswith(b"step:")]  # fmt: skip
+
+
+class ChunkedAttention:
+    """While entered, the models' attention on the card runs the chunked
+    softmax (``models.layers._chunked_attention``) under autograd instead of
+    ``K9Attention``: K9's forward and its backward pass both replaced by an
+    independent autograd route (a hook of this script, not a path of the
+    port).  Counts its calls."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        self._router = lm_layers.flash_attention
+
+        def chunked(q, k, v, *, causal=True, window=0, q_offset=0, k_positions=None,
+                    chunk_q=512, chunk_k=512, softmax_scale=None):  # fmt: skip
+            self.calls += 1
+            scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
+            return lm_layers._chunked_attention(q, k, v, causal, int(window), int(q_offset),
+                                                k_positions, chunk_q, chunk_k, scale)  # fmt: skip
+
+        lm_layers.flash_attention = chunked
+        return self
+
+    def __exit__(self, *exc):
+        lm_layers.flash_attention = self._router
+
+
+class RecordedSteps:
+    """A train step that records each step's digest and host time (the
+    digest's read-back synchronises the device)."""
+
+    def __init__(self, step, dev):
+        self.step, self.dev, self.digests, self.step_s = step, dev, [], []
+
+    def __call__(self, state, batch):
+        t0 = time.perf_counter()
+        state, metrics = self.step(state, batch)
+        self.digests.append(int(metrics["digest"]))
+        sync(self.dev)
+        self.step_s.append(time.perf_counter() - t0)
+        return state, metrics
+
+
+def batches(stream, start: int, dev):
+    for i in itertools.count(start):
+        yield {k: torch.from_numpy(v).to(dev) for k, v in stream.batch_at(i).items()}
+
+
+def time_training_attention(dev) -> dict:
+    """One layer's attention at the training shape (B=4, H=32, KVH=8,
+    S=2048, D=128, bf16, causal): K9's forward on views of the models'
+    layout in a CUDA graph, and the backward pass (``attention_vjp``, the
+    chunked softmax recomputed in PyTorch ops) by CUDA events, median of 3."""
+    b, h, kvh, s, d = TRAIN_BATCH, 32, 8, TRAIN_SEQ, 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 93)
+    qh, kh, vh = k9_inputs(gen, b, h, kvh, s, s, d, torch.bfloat16, dev, views=True)
+    k9_ms = time_walk(lambda i: k_flash.flash_attention(qh, kh, vh), 20, True)
+    q = qh.permute(0, 2, 1, 3).reshape(b, s, kvh, h // kvh, d)
+    k, v = kh.permute(0, 2, 1, 3), vh.permute(0, 2, 1, 3)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    vjp = []
+    for _ in range(4):
+        start.record()
+        k_flash.attention_vjp(q, k, v, dout, True, 0, d**-0.5)
+        end.record()
+        torch.cuda.synchronize()
+        vjp.append(start.elapsed_time(end))
+    return dict(k9_ms=k9_ms, vjp_ms=float(np.median(vjp[1:])))
+
+
+def run_training_full_width(dev) -> dict:
+    """``launch/train.py``'s path at qwen3-4b's full width, 8 layers, bf16:
+    ``init_state``, ``make_train_step`` and ``run_loop`` with the staged
+    context, 10 steps of 4 x 2048 tokens from the uniform stream, stragglers
+    at 0.3; launches counted from 0."""
+    cfg = train_config()
+    print(f"  {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.n_kv_heads} kv heads, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
+          f"depth cut from {get_config('qwen3-4b').n_layers} to {cfg.n_layers} layers, "
+          f"{lm_registry.count_params(cfg) / 1e9:.3f} G params in {cfg.dtype}, remat "
+          f"{cfg.remat_policy if cfg.remat else 'off'}")  # fmt: skip
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = train_loop.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, global_batch=TRAIN_BATCH,
+                                        seq_len=TRAIN_SEQ, seed=SEED))  # fmt: skip
+    ctx = train_paxos(dev)
+    step = RecordedSteps(train_loop.make_train_step(cfg, OptConfig(total_steps=TRAIN_STEPS)), dev)
+    loop = LoopConfig(steps=TRAIN_STEPS, straggler_prob=TRAIN_STRAGGLERS)
+    reset_launches()
+    with PlainCalls() as plain_votes, PlainAttention() as plain_attention:
+        state, hist = run_loop(cfg, state, iter(stream), loop=loop, train_step=step,
+                               paxos_ctx=ctx, rng_seed=SEED)  # fmt: skip
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = hist["loss"]
+    # the draws themselves are held against the reference's run_loop in
+    # tests/test_torch_train.py; here each step commits by the 2-of-3 quorum
+    # rule, and exactly the committed steps reach the log with their digests
+    quorum = [3 - s >= 2 for s in hist["straggled"]]
+    want = [(i + 1, step.digests[i]) for i, c in enumerate(hist["committed"]) if c]
+    got = step_records(ctx.delivered_log)
+    print(f"  losses {losses}; committed {hist['committed']}, straggled {hist['straggled']}; "
+          f"step records {got}")  # fmt: skip
+    print(f"  launches: {launches}, plain Phase-2 votes {plain_votes.calls}, plain attention "
+          f"calls {plain_attention.calls}")  # fmt: skip
+    if not all(math.isfinite(x) for x in losses) or abs(losses[0] - math.log(cfg.vocab)) > 0.5:
+        raise AssertionError(f"training losses {losses}: not finite, or the first not within "
+                             f"0.5 of ln({cfg.vocab}) = {math.log(cfg.vocab)}")  # fmt: skip
+    if hist["committed"] != quorum or len(quorum) != TRAIN_STEPS or not 0 < sum(quorum):
+        raise AssertionError(f"committed {hist['committed']} does not follow the quorum rule "
+                             f"on straggled {hist['straggled']}")  # fmt: skip
+    if got != want:
+        raise AssertionError(f"the delivered step records {got} are not the committed "
+                             f"steps' {want}")  # fmt: skip
+    require_launched("training path", launches, ["K9", "coordinator_sequence",
+                                                 "acceptor_vote_all"])  # fmt: skip
+    if launches["K9"] < cfg.n_layers * TRAIN_STEPS or plain_votes.calls or plain_attention.calls:
+        raise AssertionError(f"the training path did not attend through K9 in every layer or "
+                             f"voted on the plain engine: {launches}")  # fmt: skip
+    del state
+    torch.cuda.empty_cache()
+    p50, p99 = percentiles(step.step_s[1:])  # the first step builds the cuBLAS plans
+    att = time_training_attention(dev)
+    k9_per_step = launches["K9"] / TRAIN_STEPS
+    print(f"  step p50 {p50:.3f} ms (first step {step.step_s[0] * 1e3:.3f} ms), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3):.1f} tokens/s, peak memory {peak / 1e9:.3f} GB; "
+          f"K9 {att['k9_ms']:.5f} ms a launch x {k9_per_step:g} a step = "
+          f"{100 * k9_per_step * att['k9_ms'] / p50:.2f}% of a step; the attention's backward "
+          f"pass {att['vjp_ms']:.3f} ms a layer = "
+          f"{100 * cfg.n_layers * att['vjp_ms'] / p50:.1f}%")  # fmt: skip
+    return dict(
+        layers=cfg.n_layers, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        first_step_ms=step.step_s[0] * 1e3, step_ms_p50=p50, step_ms_p99=p99,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3), max_memory_allocated_gb=peak / 1e9,
+        losses=losses, committed=sum(hist["committed"]), straggled=sum(hist["straggled"]),
+        digests=step.digests, k9_launches_per_step=k9_per_step,
+        k9_ms=att["k9_ms"], k9_share=k9_per_step * att["k9_ms"] / p50,
+        attention_vjp_ms=att["vjp_ms"], attention_vjp_share=cfg.n_layers * att["vjp_ms"] / p50,
+        launches={name: n for name, n in launches.items() if n},
+    )  # fmt: skip
+
+
+def run_training_parity(dev) -> dict:
+    """The reduced qwen3-4b in float32: three steps on the card against the
+    same three steps on the CPU from the same state (``models.convert``'s
+    carry-over), then one step's gradients through ``K9Attention`` (K9 and
+    ``attention_vjp``) against autograd through the chunked softmax on the
+    card."""
+    cfg = get_config("qwen3-4b").reduced()
+    start = state_to_numpy(train_loop.init_state(cfg, torch.Generator().manual_seed(SEED)))
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, global_batch=4, seq_len=64, seed=SEED))
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        state, metrics = state_from_numpy(start, d), []
+        step = train_loop.make_train_step(cfg, OptConfig(**TRAIN_PARITY_OPT))
+        before = k_flash.launches
+        for batch in itertools.islice(batches(stream, 0, d), 3):
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"]), int(m["digest"])))
+        runs[d.type] = (state, metrics, k_flash.launches - before)
+    (card, got, k9), (cpu, want, k9_cpu) = runs["cuda"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for g, w in zip(got, want) for a, b in zip(g[:2], w[:2]))
+    pairs = zip(lm_layers.tree_leaves(card.params), lm_layers.tree_leaves(cpu.params))
+    param_err = max((a.cpu() - b).abs().max().item() for a, b in pairs)
+    print(f"  reduced qwen3-4b, 3 steps, card against CPU: (loss, grad_norm, digest) "
+          f"{got} against {want}; largest relative difference {rel}, params max_abs_err "
+          f"{param_err}; K9 launches {k9} on the card, {k9_cpu} on the CPU")  # fmt: skip
+    if rel > TRAIN_PARITY_RTOL or param_err > TRAIN_PARITY_PARAMS_ATOL or not k9 or k9_cpu:
+        raise AssertionError("the reduced training steps differ between the card and the CPU")
+
+    vg = train_loop.value_and_grad(train_loop.make_loss_fn(cfg))
+    params, batch = state_from_numpy(start, dev).params, next(batches(stream, 3, dev))
+    before = k_flash.launches
+    loss, grads = vg(params, batch)
+    if k_flash.launches == before:
+        raise AssertionError("the gradient step did not launch K9")
+    launched = k_flash.launches
+    with ChunkedAttention() as plain:
+        plain_loss, plain_grads = vg(params, batch)
+    if not plain.calls or k_flash.launches != launched:
+        raise AssertionError("the comparison step did not run the chunked attention alone")
+    grad_err = 0.0
+    for a, b in zip(lm_layers.tree_leaves(grads), lm_layers.tree_leaves(plain_grads)):
+        grad_err = max(grad_err, (a - b).abs().max().item() / b.abs().max().item())
+    attn = grads["blocks"]["attn"]
+    reached = {n: [bool(attn[n][i].abs().max() > 0) for i in range(cfg.n_layers)]
+               for n in ("wq", "wk", "wv")}  # fmt: skip
+    print(f"  one step's gradients through K9Attention (K9, attention_vjp) against autograd "
+          f"through the chunked attention on the card: loss "
+          f"{float(loss)} and {float(plain_loss)}, largest difference {grad_err} of a leaf's "
+          f"largest entry; non-zero wq, wk, wv gradient in every layer: {reached}")  # fmt: skip
+    if grad_err > MODEL_GRAD_RTOL or not all(map(all, reached.values())):
+        raise AssertionError("the gradients through K9Attention differ from the chunked "
+                             "attention's")
+    return dict(on_card=got, on_cpu=want, max_rel=rel, params_max_abs_err=param_err,
+                grad_max_rel=grad_err)  # fmt: skip
+
+
+def run_training_convergence() -> dict:
+    """``examples/torch_train_100m.py`` at its defaults on the card: 30 steps
+    of qwen3-100m on the arith stream with the fused context (K1 at G=1),
+    its own asserts (the loss falls, every step commits, the committed
+    checkpoint restores, the log survives a failover)."""
+    path = Path(__file__).resolve().parent / "examples" / "torch_train_100m.py"
+    spec = importlib.util.spec_from_file_location("torch_train_100m", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = example.main(["--steps", "30"])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"  launches: {launches}; losses {hist['loss']}")
+    require_launched("training example", launches, ["K9", "wirepath_round"])
+    return dict(wall_s=wall, first_loss=hist["loss"][0], last_loss=hist["loss"][-1],
+                launches={name: n for name, n in launches.items() if n})  # fmt: skip
+
+
+def run_training_checkpoints(dev) -> dict:
+    """Reduced qwen3-4b on the card with the staged context: a checkpoint at
+    step 3 committed through consensus, restored bit for bit, resumed to
+    step 6 with the uninterrupted run's losses; with acceptors 0 and 1
+    killed, a save stays invisible to ``latest_committed``."""
+    cfg = get_config("qwen3-4b").reduced()
+    start = state_to_numpy(train_loop.init_state(cfg, torch.Generator().manual_seed(SEED + 1)))
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, global_batch=4, seq_len=64, seed=SEED))
+    step = train_loop.make_train_step(cfg, OptConfig(**TRAIN_PARITY_OPT))
+    _, whole = run_loop(cfg, state_from_numpy(start, dev), iter(stream),
+                        loop=LoopConfig(steps=6), train_step=step)  # fmt: skip
+    ctx = train_paxos(dev)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, paxos_ctx=ctx)
+        state, first = run_loop(cfg, state_from_numpy(start, dev), iter(stream),
+                                loop=LoopConfig(steps=3, checkpoint_every=3), train_step=step,
+                                paxos_ctx=ctx, checkpoint_mgr=mgr)  # fmt: skip
+        path = mgr.latest_committed()
+        record = [p for _, p in ctx.delivered_log if p.startswith(b"ckpt:3:")]
+        if path is None or not Path(path, "COMMITTED").exists() or len(record) != 1:
+            raise AssertionError(f"the step-3 checkpoint did not commit: {path}, {record}")
+        restored, at = mgr.restore(state_from_numpy(start, dev))
+        same = at == 3 and all(
+            a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(lm_layers.tree_leaves(restored), lm_layers.tree_leaves(state))
+        )  # fmt: skip
+        rest = (stream.batch_at(i) for i in itertools.count(3))
+        _, resumed = run_loop(cfg, restored, rest, loop=LoopConfig(steps=3), train_step=step)
+    losses = first["loss"] + resumed["loss"]
+    resume_err = max(abs(a - b) for a, b in zip(losses, whole["loss"]))
+    dead = train_paxos(dev)
+    dead.hw.kill_acceptor(0)
+    dead.hw.kill_acceptor(1)
+    with tempfile.TemporaryDirectory() as d:
+        orphan = CheckpointManager(d, paxos_ctx=dead)
+        orphan.save(state, step=1)
+        invisible = orphan.latest_committed() is None and Path(d, "step_00000001").exists()
+    print(f"  checkpoint at step 3: {Path(path).name} committed ({record[0].decode()}); restored "
+          f"bit for bit: {same}; resumed losses {resumed['loss']} against the uninterrupted "
+          f"{whole['loss'][3:]} (max difference {resume_err}); with acceptors 0 and 1 killed "
+          f"the save is invisible: {invisible}")  # fmt: skip
+    if not same or resume_err > RESUME_ATOL or not invisible:
+        raise AssertionError("checkpoint commit, restore, resume or invisibility failed")
+    return dict(resume_max_abs_err=resume_err)
+
+
+def run_training(dev) -> dict:
+    print("training path: launch/train.py's path, qwen3-4b, PaxosContext(PaxosConfig("
+          "n_acceptors=3, n_instances=4096, batch=16)), staged")  # fmt: skip
+    full = run_training_full_width(dev)
+    print("training, card against CPU: reduced qwen3-4b, float32, TF32 off")
+    parity = run_training_parity(dev)
+    print("training convergence: examples/torch_train_100m.py --steps 30, fused context")
+    convergence = run_training_convergence()
+    print("training checkpoints: reduced qwen3-4b on the card")
+    checkpoints = run_training_checkpoints(dev)
+    return dict(full=full, parity=parity, convergence=convergence, checkpoints=checkpoints)
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 def time_walk(call, count: int, graph: bool, restore=lambda: None, reps: int = 5) -> float:
@@ -4077,6 +4417,7 @@ def run(dev: torch.device) -> None:
     lm_serve = run_lm_serving(dev, params16)
     del params16
     torch.cuda.empty_cache()
+    trained = run_training(dev)
 
     print(f"times on {CARD}")
     path_metrics = {}
@@ -4128,6 +4469,10 @@ def run(dev: torch.device) -> None:
                                            layers=LM_LAYERS, **lm)  # fmt: skip
     path_metrics["LM prefill against decode"] = dict(card=CARD, **lm_decode)
     path_metrics["LM serving"] = dict(card=CARD, **lm_serve)
+    path_metrics["training"] = dict(card=CARD, **trained["full"])
+    path_metrics["training, card against CPU"] = dict(card=CARD, **trained["parity"])
+    path_metrics["training example"] = dict(card=CARD, **trained["convergence"])
+    path_metrics["training checkpoints"] = dict(card=CARD, **trained["checkpoints"])
     for name, t in times.items():
         print(f"  {name} {json.dumps(t)}")
     row = times["Table 1"]

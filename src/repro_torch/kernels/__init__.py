@@ -8,7 +8,8 @@
 * ``acceptor``    — K7, one acceptor's Phase-2 vote (K2's lane body).
 * ``learner``     — K8, the learner's quorum, and its plain version.
 * ``flash_attention`` — K9, online-softmax GQA attention (causal, sliding
-  window), its plain version and the device router.
+  window), its plain version, the device router, and ``K9Attention``: K9
+  under autograd, its backward pass the models' chunked softmax's gradient.
 * ``ops``         — CPU tensors to the plain versions, CUDA tensors to the kernels.
 * ``_build``      — compiles ``csrc/*.cu`` with ``nvcc`` on first use and loads
   each library with ``ctypes``.

@@ -21,6 +21,17 @@ output laid out as q is (``torch.empty_like``), so a ``(B, H, S, D)``
 view permuted from the models' ``(B, S, H, D)`` tensors needs no copy.
 ``layout_problem`` says what it takes: the last dim contiguous, every other
 stride a multiple of 8 elements, the start 16-byte aligned.
+
+Under autograd: ``K9Attention`` takes the models' layout, launches K9 for
+the forward pass, and for the backward pass returns ``attention_vjp``: the
+gradient of the reference models' chunked online softmax
+(``models.layers._chunked_attention``), recomputed in PyTorch ops from the
+saved q, k and v.  That is the one place where the training path runs the
+attention in PyTorch ops on the card, and it is what the JAX package does
+too: its models never call the Pallas kernel, and training differentiates
+the chunked jnp attention, so the backward pass there runs outside any
+Pallas kernel as well.  There is no backward kernel to port.  The forward
+pass on the card is always K9.
 """
 
 from __future__ import annotations
@@ -200,3 +211,44 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, **kw)
     raise ValueError(f"flash_attention: no kernel or plain version for device {q.device}")
+
+
+class K9Attention(torch.autograd.Function):
+    """The models' attention on the card under autograd.  Takes q
+    ``(B, Sq, KVH, G, D)`` and k, v ``(B, Sk, KVH, D)`` and returns
+    ``(B, Sq, KVH, G, D)``.  The forward pass hands K9 ``(B, H, S, D)`` views
+    of the inputs, no copies; the backward pass is ``attention_vjp``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
+        b, sq, kvh, g, d = q.shape
+        # .contiguous() copies only a tensor that is not dense in its own
+        # (B, S, ., D) layout; the permutes are views
+        qh = q.contiguous().reshape(b, sq, kvh * g, d).permute(0, 2, 1, 3)
+        kh = k.contiguous().permute(0, 2, 1, 3)
+        vh = v.contiguous().permute(0, 2, 1, 3)
+        out = flash_attention(qh, kh, vh, window=window, causal=causal, softmax_scale=scale)
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, scale)
+        # (B, H, Sq, D), dense as (B, Sq, H, D): the reshape is a view
+        return out.permute(0, 2, 1, 3).reshape(b, sq, kvh, g, d)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*attention_vjp(q, k, v, dout, *ctx.args), None, None, None)
+
+
+def attention_vjp(q, k, v, dout, causal: bool, window: int, scale: float):
+    """``(dq, dk, dv)``: the gradient of the models' attention at q
+    ``(B, Sq, KVH, G, D)``, k, v ``(B, Sk, KVH, D)`` (query offset 0, the
+    models' 512-row chunks) for the output cotangent ``dout``, by autograd
+    through the reference's chunked online softmax recomputed in PyTorch ops:
+    ``jax.vjp`` of ``repro.models.layers.flash_attention``."""
+    # models.layers imports this module, so it is imported here, on first use
+    from repro_torch.models.layers import _chunked_attention
+
+    with torch.enable_grad():
+        inputs = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = _chunked_attention(*inputs, causal, window, 0, None, 512, 512, scale)
+        return torch.autograd.grad(out, inputs, dout)

@@ -3,5 +3,6 @@
 * ``layers``      — param specs, norms, rotary, attention (K9 on the card), MLP.
 * ``transformer`` — the dense transformer: specs, forward, prefill, decode.
 * ``registry``    — one interface per family (``dense`` only so far).
-* ``convert``     — the reference's parameter tree, as numpy, into the port's.
+* ``convert``     — the reference's parameter tree or train state, as numpy,
+  into the port's, and a train state back.
 """

@@ -4,21 +4,25 @@ The port of ``repro.models.layers``.  Params are nested dicts of tensors
 built from ``PSpec`` trees with the reference's keys and stacked shapes;
 every param carries logical axis names (a parallel tree).  ``shard`` is the
 identity: the sharding hook comes with ``launch/`` (``ROADMAP.md`` queue 1,
-item 9).  Inference only, so there is no ``checkpoint_fn``.
+item 9).  ``checkpoint_fn`` is the reference's remat policy on
+``torch.utils.checkpoint``.
 
-``flash_attention`` runs K9 (``kernels.flash_attention``) on a CUDA tensor
-and a plain twin of the reference's chunked online softmax on a CPU one.
-MoE (``moe_fwd``) waits for ``ROADMAP.md`` queue 1, item 8.
+``flash_attention`` runs K9 (``kernels.flash_attention``) on a CUDA tensor,
+under autograd through ``K9Attention``, and a plain twin of the reference's
+chunked online softmax on a CPU one.  MoE (``moe_fwd``) waits for
+``ROADMAP.md`` queue 1, item 8.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.kernels import flash_attention as _k9
 
@@ -44,18 +48,39 @@ class PSpec:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
+def _rebuild(tree: tuple, items) -> tuple:
+    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+
+
 def tree_map(fn, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a nested dict (``PSpec`` or tensor)."""
+    """Apply ``fn`` to every leaf of nested dicts and tuples (named tuples
+    keep their type); a leaf is anything else (``PSpec``, tensor, array)."""
     if isinstance(tree, dict):
         return {key: tree_map(fn, sub) for key, sub in tree.items()}
+    if isinstance(tree, tuple):
+        return _rebuild(tree, [tree_map(fn, sub) for sub in tree])
     return fn(tree)
 
 
 def tree_leaves(tree: Any) -> list:
-    """The leaves in the reference's flattening order (dict keys sorted)."""
+    """The leaves in ``jax.tree_util.tree_leaves`` order: dict keys sorted,
+    tuples (named tuples too) in order, depth first.  The one flattening of
+    the port: the gradient digest, checkpoints and the weight carry-over all
+    read leaves in this order."""
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, tuple):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
     return [tree]
+
+
+def tree_unflatten(like: Any, leaves: list) -> Any:
+    """``like``'s structure with ``leaves`` in ``tree_leaves`` order."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), like)
+    if next(it, it) is not it:
+        raise ValueError(f"more leaves than {type(like).__name__} holds")
+    return out
 
 
 _INIT_CHUNK = 1 << 26  # elements drawn at a time: 256 MiB of float32
@@ -94,6 +119,39 @@ def axes_tree(spec_tree) -> Any:
 def spec_shapes(spec_tree, dtype) -> Any:
     """Meta tensors of every param's shape and dtype (no allocation)."""
     return tree_map(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), spec_tree)
+
+
+# ---------------------------------------------------------------------------
+# Remat policy selection
+# ---------------------------------------------------------------------------
+# the matrix products' outputs, which ``jax.checkpoint_policies.checkpoint_dots``
+# saves: ``torch.einsum`` reaches them as these operators
+_PRODUCTS = {
+    torch.ops.aten.mm.default,
+    torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.baddbmm.default,
+}
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    policy = ckpt.CheckpointPolicy
+    return policy.MUST_SAVE if op in _PRODUCTS else policy.PREFER_RECOMPUTE
+
+
+def checkpoint_fn(body, cfg):
+    """Wrap a layer body with the configured rematerialization policy:
+    ``"full"`` keeps only the body's inputs and recomputes the rest in the
+    backward pass, ``"dots"`` also keeps the products' outputs.  With
+    gradients off (prefill, serving) there is no backward pass to save for,
+    so the body is returned as it is."""
+    if not cfg.remat or not torch.is_grad_enabled():
+        return body
+    kw = {}
+    if getattr(cfg, "remat_policy", "full") == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _save_products)  # fmt: skip
+    return functools.partial(ckpt.checkpoint, body, use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -143,14 +201,15 @@ def flash_attention(
     """Online-softmax attention that never materializes (Sq, Sk).
 
     On a CUDA tensor: K9 for the models' call (``q_offset == 0``, no
-    ``k_positions``, as every model of the reference makes it), handed
-    ``(B, H, S, D)`` views of the ``(B, S, H, D)`` tensors, no copies; its
-    output, laid out as q is, reshapes back for free.  Other offsets or key
+    ``k_positions``, as every model of the reference makes it), through
+    ``kernels.flash_attention.K9Attention``: K9 forward on ``(B, H, S, D)``
+    views of the ``(B, S, H, D)`` tensors, no copies, and under autograd
+    the gradient of the chunked softmax below.  Other offsets or key
     positions raise ``NotImplementedError`` there.  On a CPU tensor: the
     reference's chunked online softmax, padding and key-validity mask
-    included.
+    included, differentiated by autograd.
     """
-    b, sq, kvh, g, d = q.shape
+    d = q.shape[-1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cuda":
         if q_offset != 0 or k_positions is not None:
@@ -158,15 +217,7 @@ def flash_attention(
                 "flash_attention on the card takes q_offset 0 and no k_positions, the models' "
                 "call: K9 masks by row and column index (ROADMAP.md queue 1, item 8)"
             )
-        # .contiguous() copies only a tensor that is not dense in its own
-        # (B, S, ., D) layout; the permutes are views
-        qh = q.contiguous().reshape(b, sq, kvh * g, d).permute(0, 2, 1, 3)
-        kh = k.contiguous().permute(0, 2, 1, 3)
-        vh = v.contiguous().permute(0, 2, 1, 3)
-        out = _k9.flash_attention(
-            qh, kh, vh, window=int(window), causal=causal, softmax_scale=scale
-        )  # (B, H, Sq, D), dense as (B, Sq, H, D)
-        return out.permute(0, 2, 1, 3).reshape(b, sq, kvh, g, d)
+        return _k9.K9Attention.apply(q, k, v, causal, int(window), scale)
     return _chunked_attention(q, k, v, causal, int(window), int(q_offset), k_positions,
                               chunk_q, chunk_k, scale)  # fmt: skip
 

@@ -48,6 +48,11 @@ def model_specs(cfg: ModelConfig):
     return family_module(cfg).specs(cfg)
 
 
+def param_axes(cfg: ModelConfig):
+    """The logical axes of every param (the params' tree of axis-name tuples)."""
+    return L.axes_tree(model_specs(cfg))
+
+
 def param_shapes(cfg: ModelConfig, dtype=None):
     """Meta tensors of every param (no allocation)."""
     return L.spec_shapes(model_specs(cfg), _dtype(cfg, dtype))

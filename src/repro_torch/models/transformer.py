@@ -2,9 +2,11 @@
 
 The port of ``repro.models.transformer``.  Layers are stacked (a leading
 ``layers`` dim on every block param, the reference's parameter tree) and
-run by a Python loop over the layers where the reference scans.  Prefill's
-attention runs K9 on the card (``layers.flash_attention``); decode attends
-over the cache in plain PyTorch, as the reference does.
+run by a Python loop over the layers where the reference scans, each
+layer wrapped by ``layers.checkpoint_fn`` as the reference wraps its scan
+body.  Prefill's and training's attention runs K9 on the card
+(``layers.flash_attention``); decode attends over the cache in plain
+PyTorch, as the reference does.
 
 ``decode_step`` writes the new token's key and value into the cache in
 place and returns the same dict: the reference returns an updated copy, so
@@ -16,6 +18,7 @@ wait for ``ROADMAP.md`` queue 1, item 8: each raises ``NotImplementedError``.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -84,12 +87,23 @@ def _head(cfg, params) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
 def _ffn(blk, x, cfg):
     if cfg.n_experts:
         return L.moe_fwd(blk["moe"], x, cfg)
     return L.mlp_fwd(blk["mlp"], x)
+
+
+def _block(cfg, h, blk, win: int):
+    """One layer: attention, then the feed-forward, each on its normed
+    residual.  Returns the new residual and the layer's keys and values."""
+    a, (kk, vv) = L.attention_fwd(
+        blk["attn"], L.rms_norm(h, blk["ln1"], cfg.norm_eps), cfg, window=win
+    )
+    h = h + a
+    h = h + _ffn(blk, L.rms_norm(h, blk["ln2"], cfg.norm_eps), cfg)
+    return h, kk, vv
 
 
 def forward(
@@ -104,14 +118,10 @@ def forward(
             "the VLM patch prefix is not ported yet: ROADMAP.md queue 1, item 8"
         )
     h = params["embed"][batch["tokens"]]
+    body = L.checkpoint_fn(functools.partial(_block, cfg), cfg)
     ks, vs = [], []
     for i, win in enumerate(window_schedule(cfg)):
-        blk = _layer(params["blocks"], i)
-        a, (kk, vv) = L.attention_fwd(
-            blk["attn"], L.rms_norm(h, blk["ln1"], cfg.norm_eps), cfg, window=win
-        )
-        h = h + a
-        h = h + _ffn(blk, L.rms_norm(h, blk["ln2"], cfg.norm_eps), cfg)
+        h, kk, vv = body(h, _layer(params["blocks"], i), win)
         if collect_cache:
             ks.append(kk)
             vs.append(vv)

@@ -29,8 +29,11 @@ from repro_torch.serve.service import (  # noqa: F401
 
 
 def make_prefill_step(cfg) -> Callable:
+    """The prefill step, run with gradients off: no autograd history, and no
+    remat wrapper around the layers (``layers.checkpoint_fn``)."""
     mod = registry.family_module(cfg)
 
+    @torch.no_grad()
     def prefill_step(params, batch: dict[str, torch.Tensor]):
         logits, cache = mod.prefill(cfg, params, batch)
         return logits[:, -1], cache
@@ -41,6 +44,7 @@ def make_prefill_step(cfg) -> Callable:
 def make_serve_step(cfg) -> Callable:
     mod = registry.family_module(cfg)
 
+    @torch.no_grad()
     def serve_step(params, tokens, cache, pos):
         logits, cache = mod.decode_step(cfg, params, tokens, cache, pos)
         return logits.reshape(tokens.shape[0], -1), cache

@@ -1771,6 +1771,122 @@ def test_model_attention_runs_k9_on_the_card(full_f32):
     assert k_flash.launches == before + 1
 
 
+# K9's float32 tolerance (2e-5 on outputs of order 1) carried through the
+# layers above it into the gradients, relative to each gradient's largest
+# entry: the CPU path with noise of that size on every attention output moves
+# the reduced qwen3-4b's gradients by 1.2e-5 of their largest entry
+MODEL_GRAD_RTOL = 1e-4
+
+
+def _attention_grads(cfg, params, tokens, labels, plain: bool):
+    """The loss of ``transformer.forward`` and its gradient with respect to
+    every layer's ``wq``, ``wk`` and ``wv`` (None where none reaches one);
+    with ``plain`` the model's attention runs the chunked softmax
+    (``layers._chunked_attention``) under autograd on the card instead of
+    ``K9Attention``, so neither K9 nor ``attention_vjp`` is on that side."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers, transformer
+
+    def chunked(q, k, v, *, causal=True, window=0, q_offset=0, k_positions=None,
+                chunk_q=512, chunk_k=512, softmax_scale=None):  # fmt: skip
+        scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
+        return layers._chunked_attention(q, k, v, causal, int(window), int(q_offset),
+                                         k_positions, chunk_q, chunk_k, scale)  # fmt: skip
+
+    attn = params["blocks"]["attn"]
+    watched = {name: w.detach().requires_grad_() for name, w in attn.items()}
+    model = dict(params, blocks=dict(params["blocks"], attn=watched))
+    router = layers.flash_attention
+    if plain:
+        layers.flash_attention = chunked
+    try:
+        logits, _ = transformer.forward(cfg, model, {"tokens": tokens})
+        loss = F.cross_entropy(logits.reshape(-1, cfg.vocab).float(), labels.reshape(-1).long())
+        names = ("wq", "wk", "wv")
+        grads = torch.autograd.grad(loss, [watched[n] for n in names], allow_unused=True)
+    finally:
+        layers.flash_attention = router
+    return loss.detach(), dict(zip(names, grads, strict=True))
+
+
+def test_attention_on_the_card_carries_its_gradient(full_f32):
+    """One step's gradients of the reduced qwen3-4b (float32, remat on) on
+    the card: every layer's ``wq``, ``wk`` and ``wv`` get a non-zero
+    gradient through K9's attention (``K9Attention``: K9 forward,
+    ``attention_vjp`` backward), within ``MODEL_GRAD_RTOL`` of the same
+    model's with autograd through the chunked attention on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.models import registry
+    from repro_torch.models.layers import tree_map
+
+    cfg = get_config("qwen3-4b").reduced()
+    params = tree_map(lambda t: t.to(full_f32),
+                      registry.init_params(cfg, torch.Generator().manual_seed(0)))  # fmt: skip
+    toks = torch.from_numpy(np.random.default_rng(12).integers(0, cfg.vocab, (2, 97))).to(full_f32)
+    before = k_flash.launches
+    loss, got = _attention_grads(cfg, params, toks[:, :-1], toks[:, 1:], plain=False)
+    assert k_flash.launches - before >= cfg.n_layers
+    launched = k_flash.launches
+    want_loss, want = _attention_grads(cfg, params, toks[:, :-1], toks[:, 1:], plain=True)
+    assert k_flash.launches == launched
+    assert abs(float(loss) - float(want_loss)) <= 1e-5
+    for name, w in want.items():
+        g = got[name]
+        assert g is not None, f"no gradient reaches {name} through attention on the card"
+        assert bool(g.isfinite().all()), name
+        for layer in range(cfg.n_layers):
+            assert float(g[layer].abs().max()) > 0, (name, layer)
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   atol=MODEL_GRAD_RTOL * scale, err_msg=name)  # fmt: skip
+
+
+@pytest.mark.parametrize("window,causal", [(0, True), (40, True), (0, False)])
+def test_k9_attention_gradients_match_the_plain_route(full_f32, window, causal):
+    """``layers.flash_attention`` on the card under autograd (``K9Attention``):
+    one K9 launch, an output with a ``grad_fn`` within 2e-5 of the plain
+    version, and gradients for q, k and v within 2e-5 of their largest
+    entry of autograd through K9's plain version (the direct softmax) on the
+    same inputs; in bfloat16 too, the output keeps its ``grad_fn``."""
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(13)
+    b, s, kvh, g, d = 2, 300, 2, 2, 64
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(full_f32)
+
+    q, k, v = t((b, s, kvh, g, d)), t((b, s, kvh, d)), t((b, s, kvh, d))
+    dout = t((b, s, kvh, g, d))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = k_flash.launches
+    out = layers.flash_attention(*leaves, window=window, causal=causal)
+    assert k_flash.launches == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, dout)
+    assert k_flash.launches == before + 1  # the backward pass launches nothing
+
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    qh = plain[0].reshape(b, s, kvh * g, d).transpose(1, 2)
+    kh, vh = (x.transpose(1, 2) for x in plain[1:])
+    want_out = k_flash.flash_attention_plain(qh, kh, vh, window=window, causal=causal)
+    want_out = want_out.transpose(1, 2).reshape(b, s, kvh, g, d)
+    want = torch.autograd.grad(want_out, plain, dout)
+    np.testing.assert_allclose(out.detach().cpu().numpy(), want_out.detach().cpu().numpy(),
+                               atol=2e-5)  # fmt: skip
+    for name, a, w in zip("qkv", got, want, strict=True):
+        np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(),
+                                   atol=2e-5 * float(w.abs().max()), err_msg=name)  # fmt: skip
+
+    half = [x.to(torch.bfloat16).requires_grad_() for x in (q, k, v)]
+    out16 = layers.flash_attention(*half, window=window, causal=causal)
+    assert out16.grad_fn is not None and k_flash.launches == before + 2
+    grads16 = torch.autograd.grad(out16, half, dout.to(torch.bfloat16))
+    assert all(x.dtype == torch.bfloat16 and bool(x.isfinite().all()) for x in grads16)
+
+
 # ---------------------------------------------------------------------------
 # the replicated KV tier on the card
 # ---------------------------------------------------------------------------

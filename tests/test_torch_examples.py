@@ -1,9 +1,13 @@
 """The port's examples run on the CPU and assert their own invariants.
 
-``examples/torch_quickstart.py``, ``torch_failover_demo.py`` and
-``torch_replicated_kv.py`` each take ``--device`` (the card by default) and
-raise where there is no card unless ``--device cpu`` is given.  ``runpy``
-runs each file as ``python examples/<name> --device cpu`` would.
+``examples/torch_quickstart.py``, ``torch_failover_demo.py``,
+``torch_replicated_kv.py`` and ``torch_train_100m.py`` each take
+``--device`` (the card by default) and raise where there is no card unless
+``--device cpu`` is given.  ``runpy`` runs each file as ``python
+examples/<name> --device cpu`` would; the training example at 9 steps of
+batch 2 and 32 tokens (its own asserts: the loss falls over the run, every
+step commits, the committed checkpoint restores, the log survives a
+coordinator failover).
 """
 
 from __future__ import annotations
@@ -34,7 +38,19 @@ def test_example_runs_on_the_cpu(name, monkeypatch, capsys):
     assert LAST[name] in out.strip().splitlines()[-1]
 
 
-@pytest.mark.parametrize("name", NAMES)
+def test_training_example_runs_on_the_cpu(monkeypatch, capsys):
+    name = "torch_train_100m.py"
+    args = ["--steps", "9", "--batch", "2", "--seq", "32", "--device", "cpu"]
+    monkeypatch.setattr(sys, "argv", [name, *args])
+    runpy.run_path(str(EXAMPLES / name), run_name="__main__")
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith("model: qwen3-100m, ") and out[0].endswith("on cpu")
+    assert "committed 9/9 steps" in out[1]
+    assert out[2].startswith("restart OK from committed checkpoint at step 5")
+    assert out[-1].endswith("coordinator failover OK")
+
+
+@pytest.mark.parametrize("name", NAMES + ["torch_train_100m.py"])
 def test_example_means_the_card_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(sys, "argv", [name])
