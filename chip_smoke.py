@@ -93,10 +93,11 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    sharded part;
 11. K9, the attention kernel, against its plain version at the cases of
    ``tests/test_flash_kernel.py``, rows that see no key, ragged lengths,
-   head dims 16 to 256 and the LM path's shapes, on contiguous tensors and
-   on (B, H, S, D) views of (B, S, H, D) ones (float32 at 2e-5 with TF32
-   off, bfloat16 at 2e-2); the same model at a reduced width on the card
-   against the CPU;
+   head dims 16 to 256 and the LM and MoE paths' shapes, on contiguous
+   tensors and on (B, H, S, D) views of (B, S, H, D) ones (float32 at 2e-5
+   with TF32 off, bfloat16 at 2e-2); the reduced transformer models (dense
+   gemma3 and qwen3, MoE llama4-scout and dbrx, and internvl2 with seeded
+   patches) on the card against the CPU;
 12. LM serving at gemma3-27b's full width, its depth cut from 62 to 12
    layers (two 5:1 local:global superblocks), random weights from a seeded
    generator on the card (``lm_params``): ``make_prefill_step`` on 2 prompts
@@ -104,10 +105,23 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    q, k, v (no copies) and the plain attention never, its last logits
    against the same step on K9's plain version; the
    float32 prefill of one 1536-token prompt against teacher-forced
-   ``serve_step`` decode; ``ServeLoop`` answering 8 requests of 64-512
-   prompt tokens and 16 new ones at batch 4, twice alike, and two of them
-   alone as in the batch;
-13. training (``run_training``): ``launch/train.py``'s path at qwen3-4b's
+   ``serve_step`` decode, and again on the grouped ring cache
+   (``ring_local_cache=True``: 1024-slot rings on the local layers, which
+   the 1536 steps wrap), with the cache's bytes and the bf16 decode step at
+   B = 4 and S = 8192 with and without the rings; ``ServeLoop`` answering
+   8 requests of 64-512 prompt tokens and 16 new ones at batch 4, twice
+   alike, and two of them alone as in the batch;
+13. MoE serving at llama4-scout's full width (d_model 5120, 40 heads, 8 kv
+   heads, 16 experts of d_ff 8192, top-1 and a shared expert, vocab
+   202,048), its depth cut from 48 to 4 layers: the bf16 prefill of 2
+   prompts of 2048 tokens, K9 4 times a call (G = 5) and the plain
+   attention never, against the same step on K9's plain version, every
+   layer's routes recorded in both and the routes that differ counted; the
+   float32 prefill of one 512-token prompt against teacher-forced decode
+   at capacity factor 16 (no token dropped); ``ServeLoop`` on 8 requests
+   of 16-128 prompt tokens at batch 4, twice alike, two alone as in the
+   batch;
+14. training (``run_training``): ``launch/train.py``'s path at qwen3-4b's
    full width (d_model 2560, 32 heads, 8 kv heads, d_ff 9728, vocab
    151,936), its depth cut from 36 to 8 layers, bf16, remat on:
    ``init_state``, ``make_train_step`` and ``run_loop`` with the staged
@@ -124,7 +138,7 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    checkpoint committed through consensus at step 3, restored bit for bit,
    resumed with the uninterrupted run's losses, and with acceptors 0 and 1
    killed a save that stays invisible;
-14. times: each kernel by CUDA events at its path's shapes beside its bound
+15. times: each kernel by CUDA events at its path's shapes beside its bound
    and its plain version (K1, K5, K6, K2, K7 and K8 also beside the launch
    floor of their grid, an empty kernel, and their times at 64, 128 and
    256 threads a block, with the registers, spills and 128-bit load and
@@ -141,12 +155,15 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    MiB, and K3 beside its grid's floor, with K4's and K3's registers,
    spills and 128-bit loads, which must show no spill and 128-bit loads
    in K4; K9 also beside PyTorch's
-   ``scaled_dot_product_attention``, with its registers and spills and its
+   ``scaled_dot_product_attention``, also at the MoE path's shape, with its
+   registers and spills and its
    library's HGMMA and UTMALDG counts, which must not be 0), each consensus
    path's decided values/s
    and latency, the KV tier's ops/s, write and leased-get microseconds
-   and read:write ratio, and the LM path's prefill and decode times;
-15. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+   and read:write ratio, and the LM and MoE paths' prefill and decode times
+   and the MoE prefill's peak memory;
+16. the ``kernels`` JSON line (K9's launches: the LM and MoE prefill
+   paths'), then the ``ok`` JSON line last.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run, and
@@ -2483,17 +2500,25 @@ def run_kv_sharded(use_kernels: bool, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# LM serving: K9 and the dense transformer at gemma3-27b's width
+# LM serving: K9 and the transformer at gemma3-27b's and llama4-scout's widths
 # ---------------------------------------------------------------------------
 LM_ARCH, LM_LAYERS = "gemma3-27b", 12  # depth cut from 62 layers: two 5:1 superblocks
 K9_PATH = (2, 32, 16, 2048, 128)  # B, H, KVH, S, D of the LM path's prefill
 DECODE_LEN = 1536  # the prefill-against-decode prompt: longer than the window (1024)
+MOE_ARCH, MOE_LAYERS = "llama4-scout-17b-a16e", 4  # depth cut from 48 layers
+MOE_K9 = (2, 40, 8, 2048, 128)  # B, H, KVH, S, D of the MoE path's prefill: G = 5
+MOE_DECODE_LEN = 512  # the MoE prefill-against-decode prompt
+# at most this share of the bf16 MoE prefill's routing decisions may differ
+# between the run on K9 and the run on its plain version (run_moe_prefill)
+MOE_ROUTES_SHARE = 0.01
 # K9 against its plain version, the tolerances of tests/test_flash_kernel.py:
 # float32 sums in another order; bf16 rounds the output and p once each
 F32_ATOL, BF16_ATOL = 2e-5, 2e-2
 # last logits (under 1 in size) of the bf16 prefill on K9 against the same
 # step on K9's plain version: both round q.k's inputs and p to bf16, the
-# output to bf16 at other points of its sums, through 12 layers
+# output to bf16 at other points of its sums, through 12 layers (gemma3-27b)
+# or 4 (llama4-scout, on the rows whose last token took the same experts in
+# both runs: run_moe_prefill)
 PREFILL_BF16_ATOL = 2e-2
 # float32 prefill against teacher-forced decode, and the reduced models on
 # the card against the CPU: float32 sums in other orders through the layers
@@ -2529,6 +2554,9 @@ K9_CHECKS = [  # (b, h, kvh, sq, sk, d, window, causal, dtype[, "views"])
     (2, 32, 16, 2048, 2048, 128, 0, True, torch.bfloat16, "views"),
     (2, 32, 16, 2048, 2048, 128, 1024, True, torch.bfloat16, "views"),
     (1, 32, 16, 1536, 1536, 128, 1024, True, torch.float32, "views"),
+    # the MoE path's: llama4-scout's bf16 prefill and float32 prefill-against-decode
+    (2, 40, 8, 2048, 2048, 128, 0, True, torch.bfloat16, "views"),
+    (1, 40, 8, 512, 512, 128, 0, True, torch.float32, "views"),
     (1, 4, 2, 200, 333, 128, 0, True, torch.bfloat16, "views"),
     (1, 8, 8, 448, 1500, 64, 0, False, torch.bfloat16, "views"),
     (1, 2, 1, 8192, 8192, 128, 1024, True, torch.bfloat16, "views"),
@@ -2583,26 +2611,36 @@ def check_k9(dev) -> float:
     return worst
 
 
+SMALL_ARCHS = ["gemma3-27b", "qwen3-4b", "llama4-scout-17b-a16e", "dbrx-132b", "internvl2-76b"]
+
+
 def check_lm_small(dev) -> None:
-    """The reduced gemma3-27b and qwen3-4b on the card (K9 in float32 at
-    head dim 16) against the same models on the CPU (the chunked attention
-    that the CPU tests hold against the reference): prefill's last logits
-    within ``SMALL_ATOL`` and ``ServeLoop``'s tokens equal."""
-    for arch in ("gemma3-27b", "qwen3-4b"):
+    """The reduced transformer models on the card (K9 in float32 at head dim
+    16) against the same models on the CPU (the chunked attention that the
+    CPU tests hold against the reference): the dense gemma3-27b and
+    qwen3-4b, the MoE llama4-scout (top-1 and a shared expert) and dbrx
+    (top-2), and internvl2 with seeded patches in front of its tokens.
+    Prefill's last logits within ``SMALL_ATOL`` and ``ServeLoop``'s tokens
+    equal."""
+    for arch in SMALL_ARCHS:
         cfg = get_config(arch).reduced()
         on_cpu = lm_registry.init_params(cfg, torch.Generator().manual_seed(SEED))
         on_card = lm_layers.tree_map(lambda t: t.to(dev), on_cpu)
         rng = np.random.default_rng(SEED)
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))}
+        if cfg.n_patches:
+            shape = (2, cfg.n_patches, cfg.d_model)
+            batch["patches"] = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
         step = make_prefill_step(cfg)
-        got = step(on_card, {"tokens": tokens.to(dev)})[0].cpu()
-        err = (got - step(on_cpu, {"tokens": tokens})[0]).abs().max().item()
+        got = step(on_card, {key: t.to(dev) for key, t in batch.items()})[0].cpu()
+        err = (got - step(on_cpu, batch)[0]).abs().max().item()
         reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, n).astype(np.int32), max_new=6)
                 for i, n in enumerate([5, 12, 0, 9, 3])]  # fmt: skip
         want = ServeLoop(cfg, on_cpu, 4, 24, device="cpu").run(reqs)
         got = ServeLoop(cfg, on_card, 4, 24, device=dev).run(reqs)
-        print(f"  reduced {arch}, card against CPU: prefill logits max_abs_err {err}, "
-              f"ServeLoop tokens equal: {got == want}")  # fmt: skip
+        print(f"  reduced {arch}{' with patches' if cfg.n_patches else ''}, card against "
+              f"CPU: prefill logits max_abs_err {err}, ServeLoop tokens equal: "
+              f"{got == want}")  # fmt: skip
         if err > SMALL_ATOL or got != want:
             raise AssertionError(f"reduced {arch} differs between the card and the CPU")
 
@@ -2611,20 +2649,24 @@ def lm_config(dtype: str):
     return dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS, dtype=dtype)
 
 
-def lm_params(dev) -> tuple[dict, dict]:
-    """The 12-layer gemma3-27b's weights in float32 and their bf16 cast,
-    drawn on the card by ``registry.init_params`` from a seeded generator,
-    then ``wq`` and ``wk`` scaled by sqrt(heads / d_model).
+def moe_config(dtype: str, **kw):
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS, dtype=dtype, **kw)
+
+
+def lm_params(cfg, dev) -> tuple[dict, dict]:
+    """The weights of ``cfg`` (float32) and their bf16 cast, drawn on the
+    card by ``registry.init_params`` from a seeded generator, then ``wq``
+    and ``wk`` scaled by sqrt(heads / d_model).
 
     The reference's fan-in rule takes a (d_model, heads, head_dim) weight's
-    head count as its fan-in, which at this width gives q and k a spread of
-    about 13 and 18 and the scores one of about 240: near one-hot attention,
-    whose near-ties carry a difference in the last bits of any sum from
-    layer to layer until the logits differ entirely (a 12-layer model of
-    this kind at d_model 1024 gave float32 prefill and decode logits 0.48
-    apart, as large as the logits).  The scaling gives q and k unit spread,
-    so the comparisons below can tell a right kernel from a wrong one."""
-    cfg = lm_config("float32")
+    head count as its fan-in, which at gemma3-27b's width gives q and k a
+    spread of about 13 and 18 and the scores one of about 240: near one-hot
+    attention, whose near-ties carry a difference in the last bits of any
+    sum from layer to layer until the logits differ entirely (a 12-layer
+    model of this kind at d_model 1024 gave float32 prefill and decode
+    logits 0.48 apart, as large as the logits).  The scaling gives q and k
+    unit spread, so the comparisons below can tell a right kernel from a
+    wrong one."""
     params = lm_registry.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
     attn = params["blocks"]["attn"]
     for name in ("wq", "wk"):  # (layers, d_model, heads, head_dim)
@@ -2686,6 +2728,64 @@ class K9Layouts:
         lm_layers.flash_attention, k_flash.flash_attention = self._layer, self._k9
 
 
+class Routes:
+    """Records, while entered, the experts ``layers.moe_route`` chooses for
+    each (token, choice) of every MoE layer, a ``(g, tokens, top_k)`` tensor
+    a layer in call order."""
+
+    def __init__(self):
+        self.idx = []
+
+    def __enter__(self):
+        self._route = lm_layers.moe_route
+
+        def recorded(router, xt, k):
+            gate, idx = self._route(router, xt, k)
+            self.idx.append(idx)
+            return gate, idx
+
+        lm_layers.moe_route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        lm_layers.moe_route = self._route
+
+
+def timed_prefill(dev, step, params: dict, batch: dict, layers: int, calls: int):
+    """``calls`` calls of the prefill ``step`` on the host clock, with the
+    launch counts and the peak memory set to 0 just before them: K9 must
+    launch once a layer a call and the plain attention never.  Returns the
+    last call's logits and cache, the seconds a call, the launch counts and
+    the peak memory in GB."""
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    call_s = []
+    with PlainAttention() as plain:
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            last, cache = step(params, batch)
+            sync(dev)
+            call_s.append(time.perf_counter() - t0)
+    launches = read_launches()
+    if launches["K9"] != layers * calls or plain.calls:
+        raise AssertionError(f"the prefill did not run K9 once a layer: {launches}, "
+                             f"plain attention calls {plain.calls}")  # fmt: skip
+    if not bool(last.isfinite().all()):
+        raise AssertionError("the prefill's logits are not finite")
+    return last, cache, call_s, launches, torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def plain_prefill(step, params: dict, batch: dict, layers: int) -> torch.Tensor:
+    """The prefill ``step``'s last logits with every attention call on K9's
+    plain version (and no K9 launch)."""
+    before = k_flash.launches
+    with PlainAttention(route=True) as ref:
+        ref_last, _ = step(params, batch)
+    if ref.calls != layers or k_flash.launches != before:
+        raise AssertionError("the comparison prefill did not run on K9's plain version")
+    return ref_last
+
+
 def run_lm_prefill(dev, params: dict, calls: int = 5) -> dict:
     """``make_prefill_step`` on B=2 prompts of S=2048 tokens, bf16: one
     warm-up call, then ``calls`` timed calls with the launch counts set to 0
@@ -2704,50 +2804,110 @@ def run_lm_prefill(dev, params: dict, calls: int = 5) -> dict:
           f"of their storage, no copies: {all(map(all, layouts.k9_views))}")  # fmt: skip
     if len(layouts.k9_views) != LM_LAYERS or not all(map(all, layouts.k9_views)):
         raise AssertionError(f"the prefill copied q, k or v around K9: {layouts.k9_views}")
-    reset_launches()
-    call_s = []
-    with PlainAttention() as plain:
-        for _ in range(calls):
-            t0 = time.perf_counter()
-            last, cache = step(params, batch)
-            sync(dev)
-            call_s.append(time.perf_counter() - t0)
-    launches = read_launches()
-    if launches["K9"] != LM_LAYERS * calls or plain.calls:
-        raise AssertionError(f"the prefill did not run K9 once a layer: {launches}, "
-                             f"plain attention calls {plain.calls}")  # fmt: skip
+    last, cache, call_s, launches, peak_gb = timed_prefill(dev, step, params, batch, LM_LAYERS,
+                                                           calls)  # fmt: skip
     want_cache = (LM_LAYERS, b, s, kvh, hd)
     if tuple(last.shape) != (b, cfg.vocab) or tuple(cache["k"].shape) != want_cache:
         raise AssertionError(f"prefill shapes {tuple(last.shape)}, {tuple(cache['k'].shape)}")
-    if not bool(last.isfinite().all()):
-        raise AssertionError("the prefill's logits are not finite")
-    with PlainAttention(route=True) as ref:
-        ref_last, _ = step(params, batch)
-    if ref.calls != LM_LAYERS or k_flash.launches != launches["K9"]:
-        raise AssertionError("the comparison prefill did not run on K9's plain version")
+    ref_last = plain_prefill(step, params, batch, LM_LAYERS)
     err = (last.float() - ref_last.float()).abs().max().item()
     same = (last.argmax(-1) == ref_last.argmax(-1)).tolist()
-    print(f"  K9 launches {launches['K9']} in {calls} calls, plain attention calls "
-          f"{plain.calls}; last logits against the plain attention's: max_abs_err {err} "
+    print(f"  K9 launches {launches['K9']} in {calls} calls, plain attention calls 0; last "
+          f"logits against the plain attention's: max_abs_err {err} "
           f"(|logit| up to {ref_last.float().abs().max().item()}), argmax equal {same}")
     if err > PREFILL_BF16_ATOL:
         raise AssertionError(f"prefill on K9 differs from prefill on its plain version by {err}")
     p50, _ = percentiles(call_s)
     return dict(launches=launches, max_abs_err=err, argmax_equal=same, call_s=call_s,
                 prefill_ms_p50=p50, tokens_per_s=b * s / (p50 / 1e3),
+                max_memory_allocated_gb=peak_gb,
                 layer_inputs_dense=layouts.layer_dense[0])  # fmt: skip
 
 
-def run_prefill_against_decode(dev, params: dict) -> dict:
-    """Float32, B=1, S=1536: the prefill step's last logits against
-    teacher-forced ``serve_step`` decode's at the same position."""
-    cfg = lm_config("float32")
-    s = DECODE_LEN
-    tokens = torch.from_numpy(np.random.default_rng(SEED + 5).integers(0, cfg.vocab, (1, s)))
+def dropped(cfg, idx: torch.Tensor) -> int:
+    """(token, choice) pairs of one layer's routes ``idx`` (g, tokens, k)
+    over their expert's capacity in their dispatch group."""
+    cap = lm_layers.moe_capacity(cfg, idx.shape[1])
+    load = torch.stack([torch.bincount(row.flatten(), minlength=cfg.n_experts) for row in idx])
+    return int((load - cap).clamp(min=0).sum().item())
+
+
+def run_moe_prefill(dev, params: dict, calls: int = 5) -> dict:
+    """``make_prefill_step`` of llama4-scout at full width (``MOE_LAYERS``
+    layers) on B=2 prompts of S=2048 tokens, bf16, at the default capacity
+    factor: a warm-up call that records every layer's routes, then
+    ``calls`` timed calls with the launch counts set to 0 just before them
+    (K9 once a layer, the plain attention never), then one call on K9's
+    plain version, routes recorded, to compare.
+
+    At most ``MOE_ROUTES_SHARE`` of the routing decisions may differ
+    between the two (bf16 router logits tie and round: a last-bit
+    difference in attention moves a token to another expert, and so may
+    move which tokens its expert drops).  The last logits of a row are held
+    within ``PREFILL_BF16_ATOL`` where its last token took the same experts
+    in every layer in both runs; a row whose last token did not is printed
+    and not held (its own expert output differs by design), and at least
+    one row must be held."""
+    cfg = moe_config("bfloat16")
+    b, h, kvh, s, hd = MOE_K9
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 7).integers(0, cfg.vocab, (b, s)))
+    batch = {"tokens": tokens.to(dev)}
+    step = make_prefill_step(cfg)
+    with Routes() as routes:  # the warm-up call
+        last, _ = step(params, batch)
+    sync(dev)
+    timed_last, cache, call_s, launches, peak_gb = timed_prefill(dev, step, params, batch,
+                                                                 MOE_LAYERS, calls)  # fmt: skip
+    if tuple(timed_last.shape) != (b, cfg.vocab) or tuple(cache["k"].shape) != (
+        MOE_LAYERS, b, s, kvh, hd
+    ):
+        raise AssertionError(f"MoE prefill shapes {tuple(timed_last.shape)}, "
+                             f"{tuple(cache['k'].shape)}")  # fmt: skip
+    if not bool(last.isfinite().all()):
+        raise AssertionError("the MoE prefill's logits are not finite")
+    with Routes() as ref_routes:
+        ref_last = plain_prefill(step, params, batch, MOE_LAYERS)
+    if len(routes.idx) != MOE_LAYERS or len(ref_routes.idx) != MOE_LAYERS:
+        raise AssertionError(f"{len(routes.idx)} and {len(ref_routes.idx)} MoE layers routed")
+    differ = [int((x != y).sum().item()) for x, y in zip(routes.idx, ref_routes.idx)]
+    decisions = MOE_LAYERS * b * s * cfg.top_k
+    # a row's last token: the last of its s tokens in (batch, position) order
+    lasts = [r * s + s - 1 for r in range(b)]
+    alike = [all(bool((x[0, i] == y[0, i]).all()) for x, y in zip(routes.idx, ref_routes.idx))
+             for i in lasts]  # fmt: skip
+    errs = (last.float() - ref_last.float()).abs().amax(dim=-1).tolist()
+    same = (last.argmax(-1) == ref_last.argmax(-1)).tolist()
+    drops = [dropped(cfg, x) for x in routes.idx]
+    load = torch.bincount(routes.idx[0].flatten(), minlength=cfg.n_experts).tolist()
+    print(f"  K9 launches {launches['K9']} in {calls} calls, plain attention calls 0; routes "
+          f"that differ from the plain attention's run: {sum(differ)} of "
+          f"{decisions} (by layer {differ}); rows whose last token routed alike in every layer "
+          f"{alike}; last logits against the plain attention's by row: max_abs_err {errs} "
+          f"(|logit| up to {ref_last.float().abs().max().item()}), argmax equal {same}; "
+          f"tokens dropped by layer {drops} of {b * s} (capacity factor "
+          f"{cfg.capacity_factor}); layer 0's expert load {load}")  # fmt: skip
+    if sum(differ) > MOE_ROUTES_SHARE * decisions:
+        raise AssertionError(f"{sum(differ)} of {decisions} routes differ from the plain run")
+    held = [e for e, a in zip(errs, alike) if a]
+    if not held or max(held) > PREFILL_BF16_ATOL:
+        raise AssertionError(f"MoE prefill on K9 differs from its plain version: {errs}, {alike}")
+    p50, _ = percentiles(call_s)
+    return dict(launches=launches, max_abs_err=max(held), row_max_abs_err=errs,
+                rows_held=alike, argmax_equal=same, routes_differ=sum(differ),
+                routes_differ_by_layer=differ, routing_decisions=decisions,
+                dropped_by_layer=drops, call_s=call_s, prefill_ms_p50=p50,
+                tokens_per_s=b * s / (p50 / 1e3), max_memory_allocated_gb=peak_gb)  # fmt: skip
+
+
+def run_prefill_against_decode(dev, params: dict, cfg, s: int, seed: int) -> dict:
+    """Float32, B=1, ``s`` tokens: the prefill step's last logits against
+    teacher-forced ``serve_step`` decode's at the same position.  Returns
+    the tokens and the prefill's last logits too, for the ring phase."""
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (1, s)))
     tokens = tokens.to(dev)
     before = k_flash.launches
     last, _ = make_prefill_step(cfg)(params, {"tokens": tokens})
-    if k_flash.launches - before != LM_LAYERS:
+    if k_flash.launches - before != cfg.n_layers:
         raise AssertionError("the float32 prefill did not run K9 once a layer")
     cache = transformer.init_cache(cfg, 1, s, torch.float32, dev)
     step = make_serve_step(cfg)
@@ -2763,13 +2923,78 @@ def run_prefill_against_decode(dev, params: dict) -> dict:
           f"{last.abs().max().item()}), argmax equal {same}, decode {decode_s:.3f} s")
     if not (err <= PREFILL_DECODE_ATOL and same and bool(last.isfinite().all())):
         raise AssertionError(f"float32 prefill and decode differ: {err}, argmax equal {same}")
-    return dict(max_abs_err=err, argmax_equal=same, decode_steps=s, decode_s=decode_s)
+    return dict(max_abs_err=err, argmax_equal=same, decode_steps=s, decode_s=decode_s,
+                tokens=tokens, last=last)  # fmt: skip
 
 
-def run_lm_serving(dev, params: dict) -> dict:
+def nbytes(tensors: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors.values())
+
+
+def run_ring_decode(dev, params32: dict, params16: dict, flat: dict, steps: int = 24) -> dict:
+    """The grouped ring cache (``ring_local_cache=True``) on the 12-layer
+    gemma3-27b: float32 teacher-forced decode of ``flat``'s ``DECODE_LEN``
+    tokens, past the 1024-slot rings of the local layers (so each wraps),
+    whose last logits must be within ``PREFILL_DECODE_ATOL`` of the same
+    prompt's prefill (``flat['last']``); then the cache's bytes with and
+    without the rings at B = 4 and S = 8192 (bf16), and the bf16 decode
+    step at that size both ways, ``steps`` steps each, the first 4 left out."""
+    cfg = dataclasses.replace(lm_config("float32"), ring_local_cache=True)
+    tokens, last = flat["tokens"], flat["last"]
+    s = tokens.shape[1]
+    cache = transformer.init_cache(cfg, 1, s, torch.float32, dev)
+    if "lk" not in cache or cache["lk"].shape[3] != cfg.local_window or cfg.local_window >= s:
+        raise AssertionError(f"no ring that wraps: {({k: t.shape for k, t in cache.items()})}")
+    slots = cfg.local_window
+    step = make_serve_step(cfg)
+    sync(dev)
+    t0 = time.perf_counter()
+    for t in range(s):
+        logits, cache = step(params32, tokens[:, t : t + 1], cache, t)
+    sync(dev)
+    decode_s = time.perf_counter() - t0
+    err = (logits - last).abs().max().item()
+    same = bool(logits.argmax() == last.argmax())
+    oldest = int(cache["lkp"].min().item())  # the rings hold positions s - slots .. s - 1
+    wraps = oldest == s - slots
+    print(f"  ring cache, {s} decode steps through {slots}-slot rings (oldest position kept "
+          f"{oldest}): last logits against the prefill's max_abs_err "
+          f"{err}, argmax equal {same}, decode {decode_s:.3f} s")  # fmt: skip
+    if not (err <= PREFILL_DECODE_ATOL and same and wraps):
+        raise AssertionError(f"ring-cache decode differs from prefill: {err}, {same}, {wraps}")
+
+    b, max_len = 4, 8192
+    half = lm_config("bfloat16")
+    sizes = {name: nbytes(transformer.cache_specs(c, b, max_len, torch.bfloat16))
+             for name, c in (("ring", cfg), ("flat", half))}  # fmt: skip
+    ms = {}
+    rng = np.random.default_rng(SEED + 8)
+    for name, c in (("ring", dataclasses.replace(half, ring_local_cache=True)), ("flat", half)):
+        cache = transformer.init_cache(c, b, max_len, torch.bfloat16, dev)
+        step = make_serve_step(c)
+        step_s = []
+        for t in range(steps):
+            tok = torch.from_numpy(rng.integers(0, c.vocab, (b, 1))).to(dev)
+            t0 = time.perf_counter()
+            step(params16, tok, cache, t)
+            sync(dev)
+            step_s.append(time.perf_counter() - t0)
+        ms[name] = percentiles(step_s[4:])
+        del cache
+    print(f"  B={b}, S={max_len}, bf16: cache {sizes['ring'] / 1e9:.3f} GB with the rings, "
+          f"{sizes['flat'] / 1e9:.3f} GB without ({sizes['flat'] / sizes['ring']:.2f}x); decode "
+          f"step p50 {ms['ring'][0]:.3f} ms with the rings, {ms['flat'][0]:.3f} ms "
+          f"without")  # fmt: skip
+    return dict(decode_steps=s, ring_slots=slots, max_abs_err=err, argmax_equal=same,
+                decode_s=decode_s, cache_bytes_ring=sizes["ring"], cache_bytes_flat=sizes["flat"],
+                batch=b, max_len=max_len, step_ms_p50_ring=ms["ring"][0],
+                step_ms_p99_ring=ms["ring"][1], step_ms_p50_flat=ms["flat"][0],
+                step_ms_p99_flat=ms["flat"][1])  # fmt: skip
+
+
+def run_lm_serving(dev, params: dict, cfg) -> dict:
     """``ServeLoop`` at batch 4 on 8 requests of 64-512 prompt tokens and
-    16 new ones, bf16; again on the same requests; the two shortest alone."""
-    cfg = lm_config("bfloat16")
+    16 new ones; again on the same requests; the two shortest alone."""
     rng = np.random.default_rng(SEED + 6)
     lens = rng.integers(64, 513, 8)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, n).astype(np.int32), max_new=16)
@@ -3967,10 +4192,9 @@ def time_k9(dev) -> dict:
     on contiguous (B, H, S, D) tensors (the yardstick of earlier runs) and on
     the views of (B, S, H, D) tensors that the path hands it, its plain
     version and ``scaled_dot_product_attention`` (GQA, causal or the
-    window's boolean mask), each in a CUDA graph.  The bound counts 4*D
-    operations for each unmasked pair of this run's mask at the bf16
-    tensor-core rate, and q, k, v read once and the output written once.
-    Fails unless the bf16 kernel was built from wgmma and TMA loads."""
+    window's boolean mask), each in a CUDA graph, with its bound
+    (``k9_work``, on this run's mask).  Fails unless the bf16 kernel was
+    built from wgmma and TMA loads."""
     facts = k9_build_facts()
     print(f"  K9 build: {json.dumps(facts)}")
     if not (facts["sass"]["HGMMA"] and facts["sass"]["UTMALDG"]):
@@ -3979,15 +4203,9 @@ def time_k9(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 91)
     q, k, v = k9_inputs(gen, b, h, kvh, s, s, d, torch.bfloat16, dev)
     qv, kv_, vv = k9_inputs(gen, b, h, kvh, s, s, d, torch.bfloat16, dev, views=True)
-    pos = torch.arange(s, device=dev)
     out = {}
     for window in (0, 1024):
-        mask = pos[None, :] <= pos[:, None]
-        if window:
-            mask &= pos[None, :] > pos[:, None] - window
-        pairs = int(mask.sum().item()) * b * h
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        bms, by = bound_ms(nbytes, 4 * d * pairs, BF16_OPS_PER_S)
+        mask = k9_mask(s, s, dev, window=window)
 
         def kernel(i, window=window):
             k_flash.flash_attention(q, k, v, window=window)
@@ -4004,35 +4222,59 @@ def time_k9(dev) -> dict:
             return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
         lib_err = (library(0).float() - k_flash.flash_attention(q, k, v, window=window).float())
-        ms = time_walk(kernel, 20, True)
         out[window] = dict(
-            ms=ms,
-            tflop_per_s=4 * d * pairs / (ms * 1e-3) / 1e12,
+            k9_work(q, k, v, mask, time_walk(kernel, 20, True)),
             views_ms=time_walk(on_views, 20, True),
             plain_ms=time_walk(plain, 3, True),
             library_ms=time_walk(library, 20, True),
-            bound_ms=bms, bound_by=by, operations=4 * d * pairs, bytes=nbytes, window=window,
+            window=window,
             library_max_abs_diff=lib_err.abs().max().item(),
         )  # fmt: skip
     return dict(out[0], window_1024=out[1024], build=facts, other_shapes=time_k9_shapes(dev))
 
 
+def k9_mask(sq: int, sk: int, dev, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The (Sq, Sk) pairs K9 computes: every pair, or key j <= row i when
+    ``causal``, and j > i - ``window`` when windowed."""
+    qi, kj = torch.arange(sq, device=dev)[:, None], torch.arange(sk, device=dev)[None, :]
+    mask = kj <= qi if causal else torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    return mask & (kj > qi - window) if window else mask
+
+
+def k9_work(q, k, v, mask: torch.Tensor, ms: float) -> dict:
+    """K9's time ``ms`` on bf16 q (B, H, Sq, D), k and v (B, KVH, Sk, D)
+    under ``mask`` beside its bound: 4*D operations for each unmasked pair of
+    each head at the bf16 tensor-core rate, and q, k, v read once and the
+    output written once."""
+    b, h, _, d = q.shape
+    ops_ = 4 * d * int(mask.sum().item()) * b * h
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    bms, by = bound_ms(nbytes, ops_, BF16_OPS_PER_S)
+    return dict(ms=ms, tflop_per_s=ops_ / (ms * 1e-3) / 1e12, bound_ms=bms, bound_by=by,
+                operations=ops_, bytes=nbytes)  # fmt: skip
+
+
 def time_k9_shapes(dev) -> dict:
     """K9 (bf16, on views) beside ``scaled_dot_product_attention`` at shapes
-    off the path, in a CUDA graph: non-causal at the path's width with 128
-    keys (one k tile an item: the fixed cost of an item) and with 2048 (16
-    tiles an item), and head dim 256 (B=1, H=16, KVH=8, S=4096, causal)."""
+    off the gemma3 path, in a CUDA graph, each with its bound: the MoE
+    path's (llama4-scout: B=2, H=40, KVH=8, S=2048, causal, G = 5);
+    non-causal at the gemma3 path's width with 128 keys (one k tile an
+    item: the fixed cost of an item) and with 2048 (16 tiles an item), and
+    head dim 256 (B=1, H=16, KVH=8, S=4096, causal)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 92)
     b, h, kvh, s, d = K9_PATH
+    mb, mh, mkvh, ms_, md = MOE_K9
     out = {}
     for name, (shape, causal) in {
+        "llama4_scout": ((mb, mh, mkvh, ms_, ms_, md), True),
         "noncausal_sk128": ((b, h, kvh, s, 128, d), False),
         "noncausal_sk2048": ((b, h, kvh, s, s, d), False),
         "d256_causal_s4096": ((1, 16, 8, 4096, 4096, 256), True),
     }.items():
         q, k, v = k9_inputs(gen, *shape, torch.bfloat16, dev, views=True)
+        ms = time_walk(lambda i: k_flash.flash_attention(q, k, v, causal=causal), 20, True)
         out[name] = dict(
-            ms=time_walk(lambda i: k_flash.flash_attention(q, k, v, causal=causal), 20, True),
+            k9_work(q, k, v, k9_mask(shape[3], shape[4], dev, causal), ms),
             library_ms=time_walk(lambda i: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), 20, True),
         )  # fmt: skip
@@ -4404,18 +4646,45 @@ def run(dev: torch.device) -> None:
 
     print(f"LM weights: {LM_ARCH} at full width, {LM_LAYERS} of its 62 layers, random from a "
           f"seeded generator on the card, float32 and bfloat16")  # fmt: skip
-    params32, params16 = lm_params(dev)
+    params32, params16 = lm_params(lm_config("float32"), dev)
     print("LM prefill path: make_prefill_step(gemma3-27b, 12 layers) on 2 prompts of 2048 tokens, "
           "bfloat16")  # fmt: skip
     lm = run_lm_prefill(dev, params16)
     lm_launches = lm.pop("launches")
     require_launched("LM prefill path", lm_launches, ["K9"])
     print(f"LM prefill against decode: float32, 1 prompt of {DECODE_LEN} tokens, TF32 off")
-    lm_decode = run_prefill_against_decode(dev, params32)
+    lm_decode = run_prefill_against_decode(dev, params32, lm_config("float32"), DECODE_LEN,
+                                           SEED + 5)  # fmt: skip
+    print(f"LM ring cache: gemma3-27b, 12 layers, ring_local_cache=True, float32 decode of the "
+          f"same {DECODE_LEN} tokens; then the cache and the bf16 decode step at B=4, S=8192 with "
+          f"and without the rings")  # fmt: skip
+    ring = run_ring_decode(dev, params32, params16, lm_decode)
     del params32
     print("LM serving: ServeLoop(gemma3-27b, 12 layers, batch_size=4), bfloat16")
-    lm_serve = run_lm_serving(dev, params16)
+    lm_serve = run_lm_serving(dev, params16, lm_config("bfloat16"))
     del params16
+    torch.cuda.empty_cache()
+
+    print(f"MoE weights: {MOE_ARCH} at full width, {MOE_LAYERS} of its 48 layers, random from a "
+          f"seeded generator on the card, float32 and bfloat16")  # fmt: skip
+    moe32, moe16 = lm_params(moe_config("float32"), dev)
+    n_moe = sum(t.numel() for t in lm_layers.tree_leaves(moe16))
+    print(f"  {n_moe} params: {4 * n_moe / 1e9:.2f} GB in float32, {2 * n_moe / 1e9:.2f} GB in "
+          f"bf16")  # fmt: skip
+    print(f"MoE prefill path: make_prefill_step({MOE_ARCH}, {MOE_LAYERS} layers) on 2 prompts of "
+          f"2048 tokens, bfloat16")  # fmt: skip
+    moe = run_moe_prefill(dev, moe16)
+    moe_launches = moe.pop("launches")
+    require_launched("MoE prefill path", moe_launches, ["K9"])
+    moe_cf = moe_config("float32").n_experts / moe_config("float32").top_k
+    print(f"MoE prefill against decode: float32, 1 prompt of {MOE_DECODE_LEN} tokens, capacity "
+          f"factor {moe_cf} (no token dropped), TF32 off")  # fmt: skip
+    moe_cfg32 = moe_config("float32", capacity_factor=moe_cf)
+    moe_decode = run_prefill_against_decode(dev, moe32, moe_cfg32, MOE_DECODE_LEN, SEED + 9)
+    del moe32
+    print(f"MoE serving: ServeLoop({MOE_ARCH}, {MOE_LAYERS} layers, batch_size=4), bfloat16")
+    moe_serve = run_lm_serving(dev, moe16, moe_config("bfloat16"))
+    del moe16
     torch.cuda.empty_cache()
     trained = run_training(dev)
 
@@ -4467,8 +4736,20 @@ def run(dev: torch.device) -> None:
     lm.pop("call_s")
     path_metrics["LM prefill path"] = dict(card=CARD, batch=K9_PATH[0], prompt_tokens=K9_PATH[3],
                                            layers=LM_LAYERS, **lm)  # fmt: skip
-    path_metrics["LM prefill against decode"] = dict(card=CARD, **lm_decode)
+    path_metrics["LM prefill against decode"] = dict(
+        card=CARD, **{k: v for k, v in lm_decode.items() if k not in ("tokens", "last")}
+    )
+    path_metrics["LM ring cache"] = dict(card=CARD, **ring)
     path_metrics["LM serving"] = dict(card=CARD, **lm_serve)
+    moe.pop("call_s")
+    path_metrics["MoE prefill path"] = dict(card=CARD, arch=MOE_ARCH, layers=MOE_LAYERS,
+                                            params=n_moe, batch=MOE_K9[0],
+                                            prompt_tokens=MOE_K9[3], **moe)  # fmt: skip
+    path_metrics["MoE prefill against decode"] = dict(
+        card=CARD, capacity_factor=moe_cf,
+        **{k: v for k, v in moe_decode.items() if k not in ("tokens", "last")},
+    )  # fmt: skip
+    path_metrics["MoE serving"] = dict(card=CARD, **moe_serve)
     path_metrics["training"] = dict(card=CARD, **trained["full"])
     path_metrics["training, card against CPU"] = dict(card=CARD, **trained["parity"])
     path_metrics["training example"] = dict(card=CARD, **trained["convergence"])
@@ -4494,7 +4775,8 @@ def run(dev: torch.device) -> None:
         ("K5", "wirepath.cu", "src/repro/kernels/wirepath.py:524", dflt_launches),
         ("K6", "wirepath.cu", "src/repro/kernels/wirepath.py:780", sh_launches),
         ("K1-shard", "wirepath.cu", "src/repro/kernels/wirepath.py:706", sh_launches),
-        ("K9", "flash_attention.cu", "src/repro/kernels/flash_attention.py:96", lm_launches),
+        ("K9", "flash_attention.cu", "src/repro/kernels/flash_attention.py:96",
+         {"K9": lm_launches["K9"] + moe_launches["K9"]}),
     ]  # fmt: skip
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}", replaces=replaces,

@@ -1,4 +1,4 @@
-"""Layer library, the dense subset: param specs, norms, rotary, attention, MLP.
+"""Layer library: param specs, norms, rotary, attention, MLP, MoE.
 
 The port of ``repro.models.layers``.  Params are nested dicts of tensors
 built from ``PSpec`` trees with the reference's keys and stacked shapes;
@@ -9,8 +9,9 @@ item 9).  ``checkpoint_fn`` is the reference's remat policy on
 
 ``flash_attention`` runs K9 (``kernels.flash_attention``) on a CUDA tensor,
 under autograd through ``K9Attention``, and a plain twin of the reference's
-chunked online softmax on a CPU one.  MoE (``moe_fwd``) waits for
-``ROADMAP.md`` queue 1, item 8.
+chunked online softmax on a CPU one.  ``moe_fwd`` is the reference's
+capacity-based dispatch in PyTorch ops: the reference too computes the
+router, the scatter and the expert products outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -367,5 +368,83 @@ def mlp_fwd(p: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
 
 
-def moe_fwd(p, x, cfg):
-    raise NotImplementedError("MoE blocks (moe_fwd) are not ported yet: ROADMAP.md queue 1, item 8")
+# ---------------------------------------------------------------------------
+# MoE (capacity-based, sort-free dispatch)
+# ---------------------------------------------------------------------------
+def moe_specs(cfg) -> dict[str, Any]:
+    d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    sp: dict[str, Any] = {
+        "router": PSpec((d, e), ("embed", None)),
+        "wi": PSpec((e, d, f), ("expert", "embed", "expert_mlp")),
+        "wg": PSpec((e, d, f), ("expert", "embed", "expert_mlp")),
+        "wo": PSpec((e, f, d), ("expert", "expert_mlp", "embed")),
+    }
+    if cfg.shared_expert:
+        sp["shared"] = mlp_specs(cfg)
+    return sp
+
+
+def moe_capacity(cfg, tg: int) -> int:
+    """The slots each expert takes in a dispatch group of ``tg`` tokens:
+    ``max(int(tg * top_k / E * capacity_factor), 4)``, in Python floats as
+    the reference computes it."""
+    return max(int(tg * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 4)
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, k: int):
+    """Each token's ``k`` experts and their gates, ``(g, tg, k)`` each.
+
+    The router's logits are taken in the input's dtype and softmaxed in
+    float32.  The experts come in ``jax.lax.top_k``'s order: descending, the
+    lower index first on a tie (``torch.topk`` promises no order on a tie,
+    a stable sort does).  The gates are normalised by their sum."""
+    probs = torch.softmax(torch.einsum("gtd,de->gte", xt, router).float(), dim=-1)
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[..., :k], idx[..., :k]
+    return gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9), idx
+
+
+def moe_fwd(p: dict[str, Any], x: torch.Tensor, cfg) -> torch.Tensor:
+    """Capacity-based sort-free MoE dispatch (one-hot position ranking).
+
+    Tokens above an expert's capacity (``moe_capacity``) are dropped: their
+    choice goes to a pad slot and weighs 0.  With ``cfg.dispatch_groups`` =
+    G > 1 the T tokens are split into G groups of T/G, each with its own
+    capacity, ranked within the group.  A (token, choice) pair's rank is
+    the exclusive count of earlier pairs for the same expert in (token,
+    choice) order."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    g = max(cfg.dispatch_groups, 1)
+    if t % g:
+        raise ValueError(f"{t} tokens do not split into {g} dispatch groups")
+    tg = t // g
+    cap = moe_capacity(cfg, tg)
+    xt = x.reshape(g, tg, d)
+    gate, idx = moe_route(p["router"], xt, k)
+
+    eidx = idx.reshape(g, tg * k)
+    flat = F.one_hot(eidx, e)  # (g, tg*k, e)
+    rank = ((torch.cumsum(flat, dim=1) - flat) * flat).sum(-1)  # exclusive prefix
+    keep = rank < cap
+    slot = torch.where(keep, rank, cap)  # overflow -> pad slot
+
+    # scatter into (g, e, cap+1, d) buffers: each (expert, slot) below cap
+    # takes one pair; the pad slot may take several and is dropped
+    gi = torch.arange(g, device=x.device)[:, None]
+    tokens_rep = xt.reshape(g * tg, d).repeat_interleave(k, dim=0).reshape(g, tg * k, d)
+    buf = x.new_zeros((g, e, cap + 1, d))
+    buf[gi, eidx, slot] = tokens_rep
+    buf = buf[:, :, :cap]
+
+    hg = F.silu(torch.einsum("gecd,edf->gecf", buf, p["wg"]))
+    hi = torch.einsum("gecd,edf->gecf", buf, p["wi"])
+    out_buf = torch.einsum("gecf,efd->gecd", hg * hi, p["wo"])  # (g, e, cap, d)
+
+    out_tok = out_buf[gi, eidx, torch.clamp(slot, max=cap - 1)]  # (g, tg*k, d)
+    w = (gate.reshape(g, tg * k) * keep).to(out_tok.dtype)
+    out = (out_tok * w[..., None]).reshape(g, tg, k, d).sum(dim=2).reshape(t, d)
+    if cfg.shared_expert:
+        out = out + mlp_fwd(p["shared"], x).reshape(t, d)
+    return out.reshape(b, s, d)

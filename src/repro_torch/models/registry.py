@@ -2,12 +2,14 @@
 
 The port of ``repro.models.registry``.  Every family module exports
 ``specs``, ``forward``, ``prefill``, ``decode_step``, ``init_cache`` and
-``cache_specs``.  The port holds the dense family
-(``transformer``); ``family_module`` raises ``NotImplementedError`` for the
-others, naming the ``ROADMAP.md`` item that brings them.
+``cache_specs``.  The port holds the transformer families (``dense``,
+``moe`` and ``vlm``, all ``transformer``); ``family_module`` raises
+``NotImplementedError`` for the others, naming the ``ROADMAP.md`` item that
+brings them.
 
 ``input_specs`` gives meta tensors for every input of an (arch x shape)
-cell; ``make_inputs`` concrete ones, drawn from a ``torch.Generator``.
+cell, the VLM's patch embeddings (a stub frontend, as in the reference)
+among them; ``make_inputs`` concrete ones, drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -21,10 +23,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from . import layers as L
 from . import transformer
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer}
 _TODO = {
-    "moe": "MoE blocks (moe_fwd)",
-    "vlm": "the VLM patch prefix",
     "ssm": "rwkv6",
     "hybrid": "griffin (recurrentgemma)",
     "encdec": "whisper",
@@ -74,8 +74,8 @@ def count_params(cfg: ModelConfig) -> int:
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
     """Meta tensors for every input of the cell's step function.
 
-    train:   {tokens, labels}
-    prefill: {tokens}
+    train:   {tokens, labels [, patches]}
+    prefill: {tokens [, patches]}
     decode:  {tokens (B,1), cache, pos}
     """
     mod = family_module(cfg)
@@ -85,10 +85,15 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
     def meta(shp, dtype=torch.int32):
         return torch.empty(shp, dtype=dtype, device="meta")
 
+    def frontend() -> dict[str, Any]:
+        if cfg.family == "vlm":
+            return {"patches": meta((b, cfg.n_patches, cfg.d_model), dt)}
+        return {}
+
     if shape.kind == "train":
-        return {"tokens": meta((b, s)), "labels": meta((b, s))}
+        return {"tokens": meta((b, s)), "labels": meta((b, s)), **frontend()}
     if shape.kind == "prefill":
-        return {"tokens": meta((b, s))}
+        return {"tokens": meta((b, s)), **frontend()}
     if shape.kind == "decode":
         return {"tokens": meta((b, 1)), "cache": mod.cache_specs(cfg, b, s, dt), "pos": meta(())}
     raise ValueError(shape.kind)
@@ -96,7 +101,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
 
 def make_inputs(cfg: ModelConfig, shape: ShapeConfig, gen: torch.Generator) -> dict[str, Any]:
     """Concrete (small-scale) inputs matching ``input_specs``, on ``gen``'s
-    device."""
+    device: token ids uniform over the vocab, patch embeddings standard
+    normal in float32 cast to the model's dtype."""
     device = gen.device
     out: dict[str, Any] = {}
     for name, sp in input_specs(cfg, shape).items():
@@ -106,8 +112,11 @@ def make_inputs(cfg: ModelConfig, shape: ShapeConfig, gen: torch.Generator) -> d
             )
         elif name == "pos":
             out[name] = 0
-        else:
+        elif sp.dtype == torch.int32:
             out[name] = torch.randint(
                 0, cfg.vocab, sp.shape, generator=gen, dtype=torch.int32, device=device
             )
+        else:
+            x = torch.randn(sp.shape, generator=gen, dtype=torch.float32, device=device)
+            out[name] = x.to(sp.dtype)
     return out

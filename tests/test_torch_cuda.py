@@ -1536,7 +1536,8 @@ def full_f32(cuda):
 # head dims that fill no whole register tile; then ragged lengths across a
 # 128-row and a 128-key tile edge, a Whisper-shaped cross-attention, D=256 (64-key
 # tiles) ringing through many stages, and S=8192 at window 1024, where the K/V
-# ring wraps many times within an item and across items
+# ring wraps many times within an item and across items; last the MoE path's
+# shape, llama4-scout's G = 40/8 = 5 heads a kv head
 K9_CASES = [
     (1, 4, 2, 256, 256, 64, 0, True),
     (2, 4, 4, 128, 128, 128, 0, True),
@@ -1557,6 +1558,7 @@ K9_CASES = [
     (1, 8, 8, 448, 1500, 64, 0, False),
     (1, 4, 2, 1024, 1024, 256, 512, True),
     (1, 2, 1, 8192, 8192, 128, 1024, True),
+    (2, 40, 8, 2048, 2048, 128, 0, True),
 ]
 
 
@@ -1769,6 +1771,49 @@ def test_model_attention_runs_k9_on_the_card(full_f32):
     with pytest.raises(NotImplementedError, match="k_positions"):
         layers.flash_attention(*card, k_positions=torch.arange(100, device=full_f32))
     assert k_flash.launches == before + 1
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "dbrx-132b", "internvl2-76b"])
+def test_moe_and_vlm_prefill_on_the_card_equals_the_cpu(full_f32, arch):
+    """The reduced MoE and VLM models (internvl2 with seeded patches) in
+    float32: the prefill step on the card (K9 once a layer) against the CPU
+    within 1e-4 (float32 sums in other orders, logits of order 1), with the
+    same experts chosen in every layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.models import layers, registry
+    from repro_torch.serve.engine import make_prefill_step
+
+    cfg = get_config(arch).reduced()
+    on_cpu = registry.init_params(cfg, torch.Generator().manual_seed(3))
+    on_card = layers.tree_map(lambda t: t.to(full_f32), on_cpu)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))}
+    if cfg.n_patches:
+        shape = (2, cfg.n_patches, cfg.d_model)
+        batch["patches"] = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    routes = {"cpu": [], "cuda": []}
+    route = layers.moe_route
+
+    def recorded(router, xt, k):
+        gate, idx = route(router, xt, k)
+        routes[xt.device.type].append(idx.cpu())
+        return gate, idx
+
+    step = make_prefill_step(cfg)
+    layers.moe_route = recorded
+    try:
+        want, _ = step(on_cpu, batch)
+        before = k_flash.launches
+        got, _ = step(on_card, {key: t.to(full_f32) for key, t in batch.items()})
+        torch.cuda.synchronize()
+    finally:
+        layers.moe_route = route
+    assert k_flash.launches == before + cfg.n_layers
+    assert len(routes["cuda"]) == len(routes["cpu"]) == (cfg.n_layers if cfg.n_experts else 0)
+    for a, b in zip(routes["cuda"], routes["cpu"], strict=True):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
 
 
 # K9's float32 tolerance (2e-5 on outputs of order 1) carried through the

@@ -1,7 +1,8 @@
 """The port's examples run on the CPU and assert their own invariants.
 
 ``examples/torch_quickstart.py``, ``torch_failover_demo.py``,
-``torch_replicated_kv.py`` and ``torch_train_100m.py`` each take
+``torch_replicated_kv.py``, ``torch_train_100m.py`` and
+``torch_serve_batch.py`` each take
 ``--device`` (the card by default) and raise where there is no card unless
 ``--device cpu`` is given.  ``runpy`` runs each file as ``python
 examples/<name> --device cpu`` would; the training example at 9 steps of
@@ -50,7 +51,19 @@ def test_training_example_runs_on_the_cpu(monkeypatch, capsys):
     assert out[-1].endswith("coordinator failover OK")
 
 
-@pytest.mark.parametrize("name", NAMES + ["torch_train_100m.py"])
+def test_serve_batch_example_runs_on_the_cpu(monkeypatch, capsys):
+    """12 requests of 8 prompt tokens and 8 new ones at batch 4, served
+    twice alike (the example's own assert)."""
+    name = "torch_serve_batch.py"
+    monkeypatch.setattr(sys, "argv", [name, "--device", "cpu"])
+    runpy.run_path(str(EXAMPLES / name), run_name="__main__")
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith("served 12 requests / 96 tokens in ") and out[0].endswith("on cpu")
+    assert "45 decode steps" in out[0]  # three chunks of 4, 15 steps each
+    assert out[-1] == "deterministic across re-serve: OK"
+
+
+@pytest.mark.parametrize("name", NAMES + ["torch_train_100m.py", "torch_serve_batch.py"])
 def test_example_means_the_card_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(sys, "argv", [name])

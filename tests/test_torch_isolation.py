@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``repro_torch``, nor ``chip_smoke``,
-nor the port's examples (``examples/torch_*.py``, the training example
-too), imports ``jax`` or the reference package ``repro``; and the consensus
+nor the port's examples (``examples/torch_*.py``, the training and
+serving examples too), imports ``jax`` or the reference package ``repro``; and the consensus
 service and KV tier do not load the models.
 
 Checked in a fresh interpreter, because this test process has both loaded.
@@ -34,7 +34,7 @@ for path in examples:
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), [p.name for p in examples], leaked)
-assert len(examples) == 4, examples
+assert len(examples) == 5, examples
 assert not leaked, leaked
 for name in ("kernels.wirepath", "core.api", "core.fabric", "launch", "launch.mesh",
              "kernels.flash_attention", "models.transformer", "serve.engine", "configs",
