@@ -1,4 +1,5 @@
-"""Layer library: param specs, norms, rotary, attention, MLP, MoE.
+"""Layer library: param specs, norms, rotary and sinusoidal positions,
+attention, MLP, MoE.
 
 The port of ``repro.models.layers``.  Params are nested dicts of tensors
 built from ``PSpec`` trees with the reference's keys and stacked shapes;
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint as ckpt
 
+from repro_torch.core.device import resolve_device
 from repro_torch.kernels import flash_attention as _k9
 
 NEG_INF = -1e30
@@ -112,6 +114,24 @@ def materialize(spec_tree, gen: torch.Generator, dtype, device) -> Any:
     return _init_leaf(spec_tree, gen, dtype, device)
 
 
+def stacked(spec: PSpec, n: int) -> PSpec:
+    """``spec`` for ``n`` layers at once: a leading ``layers`` dim."""
+    return PSpec((n,) + spec.shape, ("layers",) + spec.axes, spec.init, spec.scale)
+
+
+def empty_cache(specs: dict[str, torch.Tensor], device=None) -> dict[str, torch.Tensor]:
+    """A decode cache of ``specs``' shapes and dtypes on ``device`` (``None``:
+    the card, as for ``ServeLoop``): zero keys, values and states, int32
+    positions -1."""
+    dev = resolve_device(device)
+    return {
+        name: torch.full(sp.shape, -1, dtype=sp.dtype, device=dev)
+        if sp.dtype == torch.int32
+        else torch.zeros(sp.shape, dtype=sp.dtype, device=dev)
+        for name, sp in specs.items()
+    }
+
+
 def axes_tree(spec_tree) -> Any:
     """Extract the logical-axes tree (same structure as params)."""
     return tree_map(lambda s: s.axes, spec_tree)
@@ -158,10 +178,16 @@ def checkpoint_fn(body, cfg):
 # ---------------------------------------------------------------------------
 # Normalization / rotary
 # ---------------------------------------------------------------------------
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """float32, or ``dtype`` where that is wider: the type the reference
+    takes norms and recurrences in (float32), kept float64 in a float64 run."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    x32 = x.float()
+    x32 = x.to(wide(x.dtype))
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return ((x32 * torch.rsqrt(var + eps)) * (1.0 + w.float())).to(x.dtype)
+    return ((x32 * torch.rsqrt(var + eps)) * (1.0 + w.to(x32.dtype))).to(x.dtype)
 
 
 def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
@@ -181,6 +207,15 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int, offset: int = 0, device=None) -> torch.Tensor:
+    """(seq, d) float32 sinusoidal embeddings of positions ``offset`` on:
+    the sines of the even dims' angles, then their cosines."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, :d]
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +241,10 @@ def flash_attention(
     ``kernels.flash_attention.K9Attention``: K9 forward on ``(B, H, S, D)``
     views of the ``(B, S, H, D)`` tensors, no copies, and under autograd
     the gradient of the chunked softmax below.  Other offsets or key
-    positions raise ``NotImplementedError`` there.  On a CPU tensor: the
+    positions raise ``NotImplementedError`` there.  q, k and v of mixed
+    dtypes (whisper's bf16 queries on float32 encoder keys) go to K9 in the
+    wider one, as the reference's products promote them, and the output
+    comes back in q's dtype.  On a CPU tensor: the
     reference's chunked online softmax, padding and key-validity mask
     included, differentiated by autograd.
     """
@@ -218,7 +256,9 @@ def flash_attention(
                 "flash_attention on the card takes q_offset 0 and no k_positions, the models' "
                 "call: K9 masks by row and column index (ROADMAP.md queue 1, item 8)"
             )
-        return _k9.K9Attention.apply(q, k, v, causal, int(window), scale)
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+        out = _k9.K9Attention.apply(q.to(dt), k.to(dt), v.to(dt), causal, int(window), scale)
+        return out.to(q.dtype)
     return _chunked_attention(q, k, v, causal, int(window), int(q_offset), k_positions,
                               chunk_q, chunk_k, scale)  # fmt: skip
 
@@ -321,8 +361,12 @@ def attention_fwd(
     window: int = 0,
     positions: torch.Tensor | None = None,  # (S,) absolute positions
     use_rope: bool = True,
+    kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,  # cross-attention
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence attention (prefill).  Returns (out, (k, v))."""
+    """Full-sequence attention (prefill).  Returns (out, (k, v)).
+
+    With ``kv_override`` the keys and values are taken as given, (B, Sk,
+    KVH, D): no projection and no rope, but ``qk_norm`` where set."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kv
@@ -332,14 +376,18 @@ def attention_fwd(
         pos = positions
 
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    kk = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    vv = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if kv_override is None:
+        kk = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+        vv = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    else:
+        kk, vv = kv_override
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         kk = rms_norm(kk, p["k_norm"], cfg.norm_eps)
     if use_rope:
         q = rope(q, pos, cfg.rope_theta)
-        kk = rope(kk, pos, cfg.rope_theta)
+        if kv_override is None:
+            kk = rope(kk, pos, cfg.rope_theta)
 
     qg = q.reshape(b, s, kv, g, hd)
     out = flash_attention(

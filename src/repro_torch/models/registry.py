@@ -1,15 +1,16 @@
 """Model registry: one uniform interface per architecture family.
 
 The port of ``repro.models.registry``.  Every family module exports
-``specs``, ``forward``, ``prefill``, ``decode_step``, ``init_cache`` and
-``cache_specs``.  The port holds the transformer families (``dense``,
-``moe`` and ``vlm``, all ``transformer``); ``family_module`` raises
-``NotImplementedError`` for the others, naming the ``ROADMAP.md`` item that
-brings them.
+``specs``, ``forward``, ``prefill``, ``decode_step``, ``init_cache``,
+``cache_specs``, ``CACHE_AXES`` and ``attention_calls``: ``transformer``
+for the ``dense``, ``moe`` and ``vlm`` families, ``rwkv6`` for ``ssm``,
+``griffin`` (recurrentgemma) for ``hybrid`` and ``whisper`` for
+``encdec``.
 
 ``input_specs`` gives meta tensors for every input of an (arch x shape)
-cell, the VLM's patch embeddings (a stub frontend, as in the reference)
-among them; ``make_inputs`` concrete ones, drawn from a ``torch.Generator``.
+cell, the VLM's patch and the audio model's frame embeddings (stub
+frontends, as in the reference) among them; ``make_inputs`` concrete ones,
+drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -20,24 +21,26 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 
+from . import griffin, rwkv6, transformer, whisper
 from . import layers as L
-from . import transformer
 
-_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer}
-_TODO = {
-    "ssm": "rwkv6",
-    "hybrid": "griffin (recurrentgemma)",
-    "encdec": "whisper",
+_FAMILY = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
+    "ssm": rwkv6,
+    "hybrid": griffin,
+    "encdec": whisper,
 }
 
 
 def family_module(cfg: ModelConfig):
-    if cfg.family in _TODO:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family ({_TODO[cfg.family]}) is not ported yet: "
-            "ROADMAP.md queue 1, item 8"
-        )
     return _FAMILY[cfg.family]
+
+
+def attention_calls(cfg: ModelConfig) -> int:
+    """Attention calls (K9 launches on the card) of one forward or prefill."""
+    return family_module(cfg).attention_calls(cfg)
 
 
 def _dtype(cfg: ModelConfig, dtype) -> torch.dtype:
@@ -74,8 +77,8 @@ def count_params(cfg: ModelConfig) -> int:
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
     """Meta tensors for every input of the cell's step function.
 
-    train:   {tokens, labels [, patches]}
-    prefill: {tokens [, patches]}
+    train:   {tokens, labels [, patches|frames]}
+    prefill: {tokens [, patches|frames]}
     decode:  {tokens (B,1), cache, pos}
     """
     mod = family_module(cfg)
@@ -88,6 +91,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
     def frontend() -> dict[str, Any]:
         if cfg.family == "vlm":
             return {"patches": meta((b, cfg.n_patches, cfg.d_model), dt)}
+        if cfg.family == "encdec":
+            return {"frames": meta((b, cfg.src_len, cfg.d_model), dt)}
         return {}
 
     if shape.kind == "train":
@@ -101,8 +106,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
 
 def make_inputs(cfg: ModelConfig, shape: ShapeConfig, gen: torch.Generator) -> dict[str, Any]:
     """Concrete (small-scale) inputs matching ``input_specs``, on ``gen``'s
-    device: token ids uniform over the vocab, patch embeddings standard
-    normal in float32 cast to the model's dtype."""
+    device: token ids uniform over the vocab, patch and frame embeddings
+    standard normal in float32 cast to the model's dtype."""
     device = gen.device
     out: dict[str, Any] = {}
     for name, sp in input_specs(cfg, shape).items():

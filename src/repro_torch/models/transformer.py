@@ -27,7 +27,6 @@ from typing import Any
 
 import torch
 
-from ..core.device import resolve_device
 from . import layers as L
 from .layers import PSpec
 
@@ -35,10 +34,6 @@ from .layers import PSpec
 # ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
-def _stack(spec: PSpec, n: int) -> PSpec:
-    return PSpec((n,) + spec.shape, ("layers",) + spec.axes, spec.init, spec.scale)
-
-
 def block_specs(cfg) -> dict[str, Any]:
     d = cfg.d_model
     sp: dict[str, Any] = {
@@ -55,7 +50,7 @@ def block_specs(cfg) -> dict[str, Any]:
 
 def specs(cfg) -> dict[str, Any]:
     d = cfg.d_model
-    blocks = L.tree_map(lambda s: _stack(s, cfg.n_layers), block_specs(cfg))
+    blocks = L.tree_map(lambda s: L.stacked(s, cfg.n_layers), block_specs(cfg))
     sp = {
         "embed": PSpec((cfg.vocab, d), ("vocab", "embed"), scale=1.0),
         "blocks": blocks,
@@ -147,6 +142,11 @@ def prefill(cfg, params, batch) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     return forward(cfg, params, batch, collect_cache=True)
 
 
+def attention_calls(cfg) -> int:
+    """Attention calls of one forward or prefill: one a layer."""
+    return cfg.n_layers
+
+
 # ---------------------------------------------------------------------------
 # KV cache / decode
 # ---------------------------------------------------------------------------
@@ -166,16 +166,6 @@ def cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16) -> dict[str
     }
 
 
-def _empty(specs_: dict[str, torch.Tensor], device) -> dict[str, torch.Tensor]:
-    """Zero keys and values, positions -1, on ``device``."""
-    return {
-        name: torch.full(sp.shape, -1, dtype=sp.dtype, device=device)
-        if sp.dtype == torch.int32
-        else torch.zeros(sp.shape, dtype=sp.dtype, device=device)
-        for name, sp in specs_.items()
-    }
-
-
 def init_cache(
     cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None
 ) -> dict[str, torch.Tensor]:
@@ -183,7 +173,7 @@ def init_cache(
     ``ServeLoop``): zero keys and values, positions -1."""
     if _grouped(cfg):
         return grouped_init_cache(cfg, batch, max_len, dtype, device)
-    return _empty(cache_specs(cfg, batch, max_len, dtype), resolve_device(device))
+    return L.empty_cache(cache_specs(cfg, batch, max_len, dtype), device)
 
 
 CACHE_AXES = {
@@ -289,7 +279,7 @@ def grouped_cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
 
 def grouped_init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
     """An empty grouped cache on ``device`` (``None``: the card)."""
-    return _empty(grouped_cache_specs(cfg, batch, max_len, dtype), resolve_device(device))
+    return L.empty_cache(grouped_cache_specs(cfg, batch, max_len, dtype), device)
 
 
 def _regroup_blocks(cfg, blocks):

@@ -1536,8 +1536,10 @@ def full_f32(cuda):
 # head dims that fill no whole register tile; then ragged lengths across a
 # 128-row and a 128-key tile edge, a Whisper-shaped cross-attention, D=256 (64-key
 # tiles) ringing through many stages, and S=8192 at window 1024, where the K/V
-# ring wraps many times within an item and across items; last the MoE path's
-# shape, llama4-scout's G = 40/8 = 5 heads a kv head
+# ring wraps many times within an item and across items; the MoE path's
+# shape, llama4-scout's G = 40/8 = 5 heads a kv head; griffin's (recurrentgemma:
+# G = 10, D = 256, window 2048, S past the window) and whisper's encoder (1500
+# frames, non-causal)
 K9_CASES = [
     (1, 4, 2, 256, 256, 64, 0, True),
     (2, 4, 4, 128, 128, 128, 0, True),
@@ -1559,6 +1561,8 @@ K9_CASES = [
     (1, 4, 2, 1024, 1024, 256, 512, True),
     (1, 2, 1, 8192, 8192, 128, 1024, True),
     (2, 40, 8, 2048, 2048, 128, 0, True),
+    (1, 10, 1, 2304, 2304, 256, 2048, True),
+    (1, 8, 8, 1500, 1500, 64, 0, False),
 ]
 
 
@@ -1813,6 +1817,98 @@ def test_moe_and_vlm_prefill_on_the_card_equals_the_cpu(full_f32, arch):
     assert len(routes["cuda"]) == len(routes["cpu"]) == (cfg.n_layers if cfg.n_experts else 0)
     for a, b in zip(routes["cuda"], routes["cpu"], strict=True):
         assert torch.equal(a, b)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b", "whisper-base"])
+def test_recurrent_and_encdec_models_on_the_card_equal_the_cpu(full_f32, arch):
+    """The reduced griffin, rwkv6 and whisper (seeded frames) in float32: the
+    prefill step on the card (K9 once an attention layer: griffin's 2
+    superblocks, whisper's 2 encoder and 2 x 4 decoder attentions, none in
+    rwkv6) against the CPU within 1e-4 (float32 sums in other orders,
+    logits of order 1), and ``ServeLoop``'s tokens equal, griffin's through
+    its 8-slot attention ring.  Griffin's and whisper's ``wq`` and ``wk`` at
+    unit spread, as their CPU tests take them."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.models import layers, registry
+    from repro_torch.serve.engine import Request, ServeLoop, make_prefill_step
+
+    cfg = get_config(arch).reduced()
+    on_cpu = registry.init_params(cfg, torch.Generator().manual_seed(5))
+
+    def unit_qk(tree):
+        if "wq" in tree and "wk" in tree:
+            for name in ("wq", "wk"):
+                tree[name].mul_(math.sqrt(tree[name].shape[-2] / cfg.d_model))
+        for sub in tree.values():
+            if isinstance(sub, dict):
+                unit_qk(sub)
+
+    unit_qk(on_cpu)
+    on_card = layers.tree_map(lambda t: t.to(full_f32), on_cpu)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))}
+    if cfg.family == "encdec":
+        shape = (2, cfg.src_len, cfg.d_model)
+        batch["frames"] = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    step = make_prefill_step(cfg)
+    want, _ = step(on_cpu, batch)
+    before = k_flash.launches
+    got, _ = step(on_card, {key: t.to(full_f32) for key, t in batch.items()})
+    torch.cuda.synchronize()
+    assert k_flash.launches == before + registry.attention_calls(cfg)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, n).astype(np.int32), max_new=6)
+            for i, n in enumerate([5, 12, 0, 9, 3])]  # fmt: skip
+    tokens = ServeLoop(cfg, on_card, 4, 24, device=full_f32).run(reqs)
+    assert tokens == ServeLoop(cfg, on_cpu, 4, 24, device="cpu").run(reqs)
+
+
+def test_model_attention_on_the_card_refuses_offsets_and_key_positions(cuda):
+    """The card route takes the models' call only (``q_offset`` 0, no key
+    positions), and says so, citing ``ROADMAP.md`` queue 1, item 8."""
+    from repro_torch.models import layers
+
+    q = torch.zeros((1, 8, 1, 2, 16), device=cuda)
+    k = torch.zeros((1, 8, 1, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        layers.flash_attention(q, k, k, q_offset=3)
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        layers.flash_attention(q, k, k, k_positions=torch.arange(8, device=cuda))
+
+
+def test_mixed_dtype_attention_runs_k9_in_the_wider_dtype(full_f32):
+    """whisper's bf16 queries on float32 encoder keys and values (float32
+    frames over bf16 weights): one K9 launch in float32 and a bf16 output
+    that equals the CPU path's (the reference's promotion) within bf16's
+    rounding of outputs of order 1 (2e-2); and the encoder on such frames
+    equals the CPU's within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.models import layers, registry, whisper
+
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.standard_normal((2, 20, 2, 2, 16)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 16, 2, 16)).astype(np.float32))
+            for _ in range(2))  # fmt: skip
+    q = q.to(torch.bfloat16)
+    want = layers.flash_attention(q, k, v, causal=False)
+    before = k_flash.launches
+    got = layers.flash_attention(q.to(full_f32), k.to(full_f32), v.to(full_f32), causal=False)
+    torch.cuda.synchronize()
+    assert k_flash.launches == before + 1 and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), atol=2e-2)
+
+    cfg = get_config("whisper-base").reduced()
+    on_cpu = registry.init_params(cfg, torch.Generator().manual_seed(6), torch.bfloat16)
+    on_card = layers.tree_map(lambda t: t.to(full_f32), on_cpu)
+    frames = torch.from_numpy(rng.standard_normal((2, cfg.src_len, cfg.d_model)).astype(np.float32))
+    want = whisper.encode(cfg, on_cpu, frames)
+    got = whisper.encode(cfg, on_card, frames.to(full_f32))
+    assert got.dtype == want.dtype == torch.float32
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
 
 

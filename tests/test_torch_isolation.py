@@ -40,7 +40,8 @@ for name in ("kernels.wirepath", "core.api", "core.fabric", "launch", "launch.me
              "kernels.flash_attention", "models.transformer", "serve.engine", "configs",
              "launch.serve", "serve.service", "serve.kv", "core.log", "core.baseline",
              "train.elastic", "train.optimizer", "train.data", "train.train_loop",
-             "train.checkpoint", "launch.train", "models.convert"):
+             "train.checkpoint", "launch.train", "models.convert", "models.griffin",
+             "models.rwkv6", "models.whisper"):
     assert "repro_torch." + name in names, names
 """
 

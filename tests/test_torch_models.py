@@ -1,10 +1,12 @@
-"""The port's transformer against the reference's, on the same weights.
+"""The port's models against the reference's, on the same weights.
 
 The reference's ``init_params`` draws the weights; ``params_from_numpy``
 carries them into the port.  ``forward``, ``prefill`` and ``decode_step``
-of the reduced transformer models (dense, MoE and the VLM backbone, with
-its patch prefix) run in float32 on the CPU in both packages, and so does
-decode on the grouped ring cache (``ring_local_cache``).
+of the reduced models of every family (dense, MoE and the VLM backbone,
+with its patch prefix; rwkv6, griffin and whisper, with seeded frames) run
+in float32 on the CPU in both packages, and so does decode on the grouped
+ring cache (``ring_local_cache``).  Griffin's and whisper's attention runs
+at unit q and k spread (``_unit_qk``).
 
 Tolerances, absolute: 1e-4 on logits (of order 1) and 5e-4 on the cached
 keys and values (of order 10 to 25).  Both are float32 sums taken in
@@ -40,29 +42,65 @@ CPU = torch.device("cpu")
 
 
 def _pair(arch: str, seed: int = 0):
-    """(port cfg, reference cfg, port params, reference params), reduced."""
+    """(port cfg, reference cfg, port params, reference params), reduced;
+    griffin's and whisper's at unit q and k spread (``_unit_qk``)."""
     jcfg = dataclasses.replace(jax_config(arch).reduced(), remat=False)
     cfg = dataclasses.replace(get_config(arch).reduced(), remat=False)
     jparams = jreg.init_params(jcfg, jax.random.PRNGKey(seed))
+    if arch in ("recurrentgemma-2b", "whisper-base"):
+        jparams, params = _unit_qk(cfg, jparams)
+        return cfg, jcfg, params, jparams
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), CPU)
     return cfg, jcfg, params, jparams
 
 
 def _unit_qk(cfg, jparams):
-    """The reference's params with every layer's ``wq`` and ``wk`` scaled by
-    sqrt(heads / d_model), so q and k have unit spread; the port's copy of
-    them.  The fan-in rule takes a (d_model, heads, head_dim) weight's head
-    count as its fan-in, which makes the reduced models' attention near
-    one-hot: then a float32 sum taken in another order grows about 6x a
-    layer (at 8 layers, or behind a prefix of unit-normal patches, both
-    packages end up 2e-3 from each other and from a wider run), and no
-    tolerance can tell a right port from a wrong one.  ``chip_smoke.py``'s
-    ``lm_params`` does the same at full width."""
-    attn = dict(jparams["blocks"]["attn"])
-    for name in ("wq", "wk"):
-        attn[name] = attn[name] * np.sqrt(attn[name].shape[2] / cfg.d_model)
-    jparams = dict(jparams, blocks=dict(jparams["blocks"], attn=attn))
-    return jparams, params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), CPU)
+    """The reference's params with every attention's ``wq`` and ``wk``
+    scaled by sqrt(heads / d_model), so q and k have unit spread; the port's
+    copy of them.  The fan-in rule takes a (d_model, heads, head_dim)
+    weight's head count as its fan-in, which makes the reduced models'
+    attention near one-hot: then a float32 sum taken in another order grows
+    about 6x a layer (at 8 layers, or behind a prefix of unit-normal
+    patches, both packages end up 2e-3 from each other and from a wider
+    run), and no tolerance can tell a right port from a wrong one.
+    ``chip_smoke.py``'s ``lm_params`` does the same at full width."""
+
+    def scaled(tree):
+        if not isinstance(tree, dict):
+            return tree
+        out = {key: scaled(sub) for key, sub in tree.items()}
+        if "wq" in tree and "wk" in tree:  # an attention's (..., d_model, heads, head_dim)
+            for name in ("wq", "wk"):
+                scale = np.sqrt(tree[name].shape[-2] / cfg.d_model)
+                out[name] = (tree[name] * scale).astype(tree[name].dtype)
+        return out
+
+    jparams = scaled(jax.tree_util.tree_map(np.asarray, jparams))
+    return jax.tree_util.tree_map(jnp.asarray, jparams), params_from_numpy(jparams, CPU)
+
+
+def _inputs(cfg, tokens: np.ndarray, seed: int = 8) -> tuple[dict, dict]:
+    """The reference's and the port's batch of ``tokens``, whisper's with
+    seeded frames."""
+    batch = {"tokens": tokens}
+    if cfg.family == "encdec":
+        shape = (tokens.shape[0], cfg.src_len, cfg.d_model)
+        batch["frames"] = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()})  # fmt: skip
+
+
+def _close_cache(cache: dict, jcache: dict) -> None:
+    """Every entry of a cache against the reference's: same keys, shapes and
+    dtypes, int32 positions exactly, the rest within ``CACHE_ATOL``."""
+    assert set(cache) == set(jcache)
+    for key, t in cache.items():
+        assert tuple(t.shape) == jcache[key].shape and str(t.dtype)[6:] == str(jcache[key].dtype)
+        if t.dtype == torch.int32:
+            np.testing.assert_array_equal(t.numpy(), np.asarray(jcache[key]), err_msg=key)
+        else:
+            np.testing.assert_allclose(t.numpy(), np.asarray(jcache[key]), atol=CACHE_ATOL,
+                                       err_msg=key)  # fmt: skip
 
 
 def _tokens(cfg, b: int, s: int, seed: int = 1) -> np.ndarray:
@@ -79,7 +117,7 @@ def test_configs_are_the_references():
         assert get_config(arch).n_params == jax_config(arch).n_params
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE_VLM)
+@pytest.mark.parametrize("arch", DENSE + MOE_VLM + OTHERS)
 def test_param_tree_and_count_match(arch):
     for cfg, jcfg in ((get_config(arch), jax_config(arch)),
                       (get_config(arch).reduced(), jax_config(arch).reduced())):  # fmt: skip
@@ -126,55 +164,87 @@ def test_window_schedule_matches(arch):
         assert transformer.window_schedule(cfg) == want
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE_VLM)
+@pytest.mark.parametrize("arch", DENSE + MOE_VLM + OTHERS)
 def test_forward_and_prefill_match(arch):
     cfg, jcfg, params, jparams = _pair(arch)
     tokens = _tokens(cfg, 2, 19)
+    jbatch, batch = _inputs(cfg, tokens)
     jmod = jreg.family_module(jcfg)
-    want, _ = jmod.forward(jcfg, jparams, {"tokens": jnp.asarray(tokens)})
+    want, _ = jmod.forward(jcfg, jparams, jbatch)
     mod = treg.family_module(cfg)
-    got, none = mod.forward(cfg, params, {"tokens": torch.from_numpy(tokens)})
+    got, none = mod.forward(cfg, params, batch)
     assert none is None
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LOGITS_ATOL)
 
-    jlogits, jcache = jmod.prefill(jcfg, jparams, {"tokens": jnp.asarray(tokens)})
-    logits, cache = transformer.prefill(cfg, params, {"tokens": torch.from_numpy(tokens)})
+    jlogits, jcache = jmod.prefill(jcfg, jparams, jbatch)
+    logits, cache = mod.prefill(cfg, params, batch)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=LOGITS_ATOL)
-    assert set(cache) == set(jcache) == {"k", "v", "kpos"}
-    for key in ("k", "v"):
-        np.testing.assert_allclose(cache[key].numpy(), np.asarray(jcache[key]), atol=CACHE_ATOL)
-    np.testing.assert_array_equal(cache["kpos"].numpy(), np.asarray(jcache["kpos"]))
+    if mod is transformer:
+        assert set(cache) == {"k", "v", "kpos"}
+    _close_cache(cache, jcache)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE_VLM)
+@pytest.mark.parametrize("arch", DENSE + MOE_VLM + OTHERS)
 def test_decode_steps_match(arch):
     """Teacher-forced decode past a ring wrap: a cache of 12 slots for 16
-    positions, so the last four steps evict the oldest keys."""
+    positions, so the last four steps evict the oldest keys (griffin's
+    attention ring holds ``min(12, local_window)`` = 8 slots; whisper's
+    cross cache is its prefill's, of seeded frames)."""
     cfg, jcfg, params, jparams = _pair(arch, seed=2)
     b, steps, slots = 2, 16, 12
     tokens = _tokens(cfg, b, steps, seed=3)
-    jmod = jreg.family_module(jcfg)
+    jmod, mod = jreg.family_module(jcfg), treg.family_module(cfg)
     jcache = jmod.init_cache(jcfg, b, slots, jnp.float32)
-    cache = transformer.init_cache(cfg, b, slots, torch.float32, CPU)
+    cache = mod.init_cache(cfg, b, slots, torch.float32, CPU)
+    if cfg.family == "encdec":
+        jbatch, batch = _inputs(cfg, tokens[:, :1])
+        _, jpre = jmod.prefill(jcfg, jparams, jbatch)
+        _, pre = mod.prefill(cfg, params, batch)
+        for key in ("cross_k", "cross_v"):
+            jcache[key] = jpre[key]
+            cache[key].copy_(pre[key])
     jstep = jax.jit(lambda p, t, c, pos: jmod.decode_step(jcfg, p, t, c, pos))
     for t in range(steps):
         want, jcache = jstep(jparams, jnp.asarray(tokens[:, t : t + 1]), jcache, jnp.int32(t))
-        got, cache = transformer.decode_step(cfg, params, torch.from_numpy(tokens[:, t : t + 1]),
-                                             cache, t)  # fmt: skip
+        got, cache = mod.decode_step(cfg, params, torch.from_numpy(tokens[:, t : t + 1]), cache, t)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LOGITS_ATOL,
                                    err_msg=str(t))  # fmt: skip
-    for key in ("k", "v"):
-        np.testing.assert_allclose(cache[key].numpy(), np.asarray(jcache[key]), atol=CACHE_ATOL)
-    np.testing.assert_array_equal(cache["kpos"].numpy(), np.asarray(jcache["kpos"]))
+    _close_cache(cache, jcache)
 
 
 @pytest.mark.parametrize("arch", OTHERS)
-def test_other_families_raise(arch):
+def test_every_family_maps_to_its_module(arch):
+    """rwkv6, griffin and whisper: the registry's module, its ``CACHE_AXES``
+    and ``init_params`` on the CPU in the reference's tree."""
+    from repro_torch.models import griffin, rwkv6, whisper
+
+    cfg, jcfg = get_config(arch).reduced(), jax_config(arch).reduced()
+    mod = treg.family_module(cfg)
+    assert mod is {"ssm": rwkv6, "hybrid": griffin, "encdec": whisper}[cfg.family]
+    assert mod.CACHE_AXES == jreg.family_module(jcfg).CACHE_AXES
+    params = treg.init_params(cfg, torch.Generator().manual_seed(0))
+    want = jax.tree_util.tree_map(lambda s: tuple(s.shape), jreg.param_shapes(jcfg))
+    assert tlayers.tree_map(lambda t: tuple(t.shape), params) == want
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE_VLM + OTHERS)
+def test_attention_calls_count_a_prefills_attention(arch, monkeypatch):
+    """``registry.attention_calls`` (K9's launches in a prefill on the card)
+    is the number of attention calls a prefill makes: one a transformer
+    layer, one a griffin superblock, none in rwkv6, one an encoder and two a
+    decoder layer in whisper."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        treg.family_module(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        treg.init_params(cfg, torch.Generator().manual_seed(0))
+    calls, plain = [], tlayers.flash_attention
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(tlayers, "flash_attention", counted)
+    params = treg.init_params(cfg, torch.Generator().manual_seed(0))
+    _, batch = _inputs(cfg, np.random.default_rng(0).integers(0, cfg.vocab, (1, 8)))
+    treg.family_module(cfg).prefill(cfg, params, batch)
+    assert len(calls) == treg.attention_calls(cfg)
 
 
 def test_init_cache_means_the_card_by_default():
@@ -260,10 +330,11 @@ def test_vlm_patch_prefix_matches():
                                    err_msg=str(t))  # fmt: skip
 
 
-@pytest.mark.parametrize("arch", ["internvl2-76b", "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("arch", ["internvl2-76b", "llama4-scout-17b-a16e"] + OTHERS)
 def test_moe_and_vlm_inputs_match_the_reference_specs(arch):
-    """Every cell's inputs, the VLM's patch embeddings among them; and
-    ``make_inputs`` draws them at those shapes and dtypes."""
+    """Every cell's inputs, the VLM's patch and whisper's frame embeddings
+    and each family's decode cache among them; and ``make_inputs`` draws
+    them at those shapes and dtypes."""
     from repro_torch.configs import SHAPES
 
     cfg, jcfg = get_config(arch), jax_config(arch)
@@ -276,12 +347,12 @@ def test_moe_and_vlm_inputs_match_the_reference_specs(arch):
     small = dataclasses.replace(SHAPES["train_4k"], seq_len=8, global_batch=2)
     made = treg.make_inputs(cfg.reduced(), small, torch.Generator().manual_seed(0))
     want = treg.input_specs(cfg.reduced(), small)
-    frontend = {"patches"} if cfg.n_patches else set()
+    frontend = {"vlm": {"patches"}, "encdec": {"frames"}}.get(cfg.family, set())
     assert set(made) == set(want) == {"tokens", "labels"} | frontend
     for name, t in made.items():
         assert t.shape == want[name].shape and t.dtype == want[name].dtype, name
-    if cfg.n_patches:
-        assert made["patches"].std().item() > 0.5
+    for name in frontend:
+        assert made[name].std().item() > 0.5
 
 
 def _ring_pair():
