@@ -151,7 +151,8 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    the float32 prefill against teacher-forced decode (whisper's from the
    prefill's cross cache), within 1e-4 (rwkv6's within its own bound,
    ``prefill_decode_atol``), and ``ServeLoop`` at batch 4 on 8 requests of
-   64-128 prompt tokens, twice alike, two alone as in the batch;
+   64-128 prompt tokens, twice alike, two alone as in the batch; the memory
+   still allocated before these phases and after each has freed its weights;
 16. times: each kernel by CUDA events at its path's shapes beside its bound
    and its plain version (K1, K5, K6, K2, K7 and K8 also beside the launch
    floor of their grid, an empty kernel, and their times at 64, 128 and
@@ -176,6 +177,12 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    and latency, the KV tier's ops/s, write and leased-get microseconds
    and read:write ratio, and the LM, MoE and other families' prefill and
    decode times and their prefills' peak memory, and rwkv6's WKV share;
+   then a roofline line for each model phase (each prefill, the training
+   step, each decode step): ``analysis.analytic``'s terms of the phase's
+   own cut config, B and S on one card, through ``analysis.roofline``'s
+   data-sheet rates (``t_compute``, ``t_memory``, ``dominant``,
+   ``t_bound``), beside the phase's measured p50 (``bound_share``,
+   ``mfu``).  Every kernel's bound comes from ``analysis.bounds``;
 17. the ``kernels`` JSON line (K9's launches: the LM, MoE, griffin and
    whisper prefill paths'), then the ``ok`` JSON line last.
 
@@ -192,6 +199,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import importlib.util
 import itertools
 import json
@@ -209,6 +217,31 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.analysis.analytic import MeshInfo, analytic_terms  # noqa: E402
+from repro_torch.analysis.bounds import (  # noqa: E402
+    bound_ms,
+    forwarding_bytes,
+    k1_bytes,
+    k1_cohort_bytes,
+    k1_operations,
+    k2_bytes,
+    k2_operations,
+    k3_bytes,
+    k3_operations,
+    k4_bytes,
+    k4_operations,
+    k5_bytes,
+    k5_operations,
+    k6_bytes,
+    k7_bytes,
+    k7_operations,
+    k8_bytes,
+    k8_operations,
+    k9_bytes,
+    k9_operations,
+    k9_pairs,
+)
+from repro_torch.analysis.roofline import PEAK_FLOPS, Roofline  # noqa: E402
 from repro_torch.core import FaultSpec, PaxosConfig, PaxosContext, SimNet  # noqa: E402
 from repro_torch.core import batched  # noqa: E402
 from repro_torch.core.bridge import export_state  # noqa: E402
@@ -219,7 +252,7 @@ from repro_torch.kernels import coordinator as k_coordinator  # noqa: E402
 from repro_torch.kernels import digest as k_digest  # noqa: E402
 from repro_torch.kernels import learner as k_learner  # noqa: E402
 from repro_torch.kernels import wirepath as k_wirepath  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
 from repro_torch.launch.mesh import make_group_mesh  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
@@ -250,9 +283,6 @@ from repro_torch.train.optimizer import OptConfig  # noqa: E402
 from repro_torch.train.train_loop import LoopConfig, run_loop  # noqa: E402
 
 SEED = 20160519
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-INT32_OPS_PER_S = 67e12  # no int32 row in the data sheet: the f32 non-tensor rate
-BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate (NVIDIA data sheet)
 
 CARD = ""  # "name, power limit" from nvidia-smi, set by main()
 
@@ -3139,10 +3169,10 @@ def run_lm_serving(dev, params: dict, cfg, longest: int = 512) -> dict:
     lens = rng.integers(64, longest + 1, 8)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, n).astype(np.int32), max_new=16)
             for i, n in enumerate(lens)]  # fmt: skip
-    max_len = int(lens.max()) + 16
+    batch, max_len = 4, int(lens.max()) + 16
 
     def loop():
-        return ServeLoop(cfg, params, batch_size=4, max_len=max_len, device=dev)
+        return ServeLoop(cfg, params, batch_size=batch, max_len=max_len, device=dev)
 
     first, step_s = loop(), []
     decode = first._decode
@@ -3171,7 +3201,7 @@ def run_lm_serving(dev, params: dict, cfg, longest: int = 512) -> dict:
     p50, p99 = percentiles(step_s)
     return dict(requests=len(reqs), generated_tokens=tokens, wall_s=wall, decode_steps=first.steps,
                 generated_tokens_per_s=tokens / wall, decode_step_ms_p50=p50,
-                decode_step_ms_p99=p99)  # fmt: skip
+                decode_step_ms_p99=p99, batch=batch, max_len=max_len)  # fmt: skip
 
 
 # ---------------------------------------------------------------------------
@@ -3306,7 +3336,15 @@ def run_family(dev, arch: str, seed: int) -> dict:
     serve = run_lm_serving(dev, params16, cfg16, FAMILY_LONGEST)
     del params16
     torch.cuda.empty_cache()
-    return dict(params=n, prefill=pre, decode=dec, serving=serve)
+    left = memory_left(dev, f"after {arch}'s weights are freed")
+    return dict(params=n, prefill=pre, decode=dec, serving=serve, memory_left=left)
+
+
+def memory_left(dev, where: str) -> int:
+    """Prints and returns the bytes still allocated on ``dev`` ``where``."""
+    allocated = torch.cuda.memory_allocated(dev)
+    print(f"  memory allocated {where}: {allocated / 1e9:.3f} GB")
+    return allocated
 
 
 # ---------------------------------------------------------------------------
@@ -3623,6 +3661,61 @@ def run_training(dev) -> dict:
     return dict(full=full, parity=parity, convergence=convergence, checkpoints=checkpoints)
 
 
+def roofline_line(cfg, kind: str, b: int, s: int, p50_ms: float) -> dict:
+    """A model phase's roofline on one card beside its measured p50:
+    ``analytic_terms`` of ``cfg`` (the phase's own cut config) at ``b``
+    sequences of ``s`` tokens (a decode step's context: its cache's
+    length) on ``MeshInfo(1, 1, 1, 1)``, fed into ``Roofline``.
+    ``bound_share`` is ``t_bound`` over the p50, ``mfu`` the model FLOPs
+    over the p50 at the bf16 peak.  Beside the reference's approximate
+    parameter counts (``n_params``, ``n_active_params``, which the terms
+    use), the count of the port's own leaves (``registry.count_params``)."""
+    one_card = MeshInfo(chips=1, dp=1, fsdp=1, tp=1)
+    terms = analytic_terms(cfg, ShapeConfig(kind, s, b, kind), one_card)
+    roof = Roofline(cfg.name, kind, "1 card", 1, terms["flops"], terms["hbm_bytes"], 0.0,
+                    terms["model_flops"])  # fmt: skip
+    return dict(
+        card=CARD, arch=cfg.name, layers=cfg.n_layers, kind=kind, batch=b, seq=s,
+        t_compute_ms=roof.t_compute * 1e3, t_memory_ms=roof.t_memory * 1e3,
+        t_collective_ms=roof.t_collective * 1e3, dominant=roof.dominant,
+        t_bound_ms=roof.t_bound * 1e3, p50_ms=p50_ms, bound_share=roof.t_bound * 1e3 / p50_ms,
+        mfu=roof.model_flops / (p50_ms * 1e-3 * PEAK_FLOPS), flops=roof.flops_dev,
+        hbm_bytes=roof.hbm_bytes_dev, model_flops=roof.model_flops,
+        useful_ratio=roof.useful_ratio, n_params=cfg.n_params,
+        n_active_params=cfg.n_active_params, count_params=lm_registry.count_params(cfg),
+    )  # fmt: skip
+
+
+def rooflines(lm, moe, families, trained, serving, ring) -> dict:
+    """``roofline_line`` of every model phase, on the phase's own cut config,
+    B and S: the prefills, the training step, and each decode step
+    (``ServeLoop``'s at batch 4 on its ``max_len`` cache; gemma3's also
+    at B = 4, S = 8192 with and without the ring cache)."""
+    lm16, moe16 = lm_config("bfloat16"), moe_config("bfloat16")
+    out = {
+        f"{LM_ARCH} prefill": roofline_line(lm16, "prefill", K9_PATH[0], K9_PATH[3],
+                                            lm["prefill_ms_p50"]),
+        f"{MOE_ARCH} prefill": roofline_line(moe16, "prefill", MOE_K9[0], MOE_K9[3],
+                                             moe["prefill_ms_p50"]),
+    }  # fmt: skip
+    for arch, fam in families.items():
+        pre = fam["prefill"]
+        out[f"{arch} prefill"] = roofline_line(
+            get_config(arch), "prefill", pre["batch"], pre["prompt_tokens"], pre["prefill_ms_p50"]
+        )
+    out["qwen3-4b training step"] = roofline_line(train_config(), "train", TRAIN_BATCH, TRAIN_SEQ,
+                                                  trained["step_ms_p50"])  # fmt: skip
+    configs = {LM_ARCH: lm16, MOE_ARCH: moe16, **{a: get_config(a) for a in FAMILY_ARCHS}}
+    for arch, srv in serving.items():
+        out[f"{arch} decode step"] = roofline_line(
+            configs[arch], "decode", srv["batch"], srv["max_len"], srv["decode_step_ms_p50"]
+        )
+    for cache, cfg in (("ring", dataclasses.replace(lm16, ring_local_cache=True)), ("flat", lm16)):
+        out[f"{LM_ARCH} decode step, {cache} cache"] = roofline_line(
+            cfg, "decode", ring["batch"], ring["max_len"], ring[f"step_ms_p50_{cache}"])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -3659,27 +3752,6 @@ def time_walk(call, count: int, graph: bool, restore=lambda: None, reps: int = 5
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / count)
     return float(np.median(times))
-
-
-def bound_ms(nbytes: float, ops_: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / ops_per_s
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def k1_bytes(a: int, b: int, v: int) -> int:
-    """The bytes one K1 launch reads and writes when every lane is accepted
-    by all A acceptors and is fresh, as on the main path with every acceptor
-    alive.  Reads: the promised rounds rnd (A*B*4), the learner's delivered
-    flag and instance (2*B*4), the burst (B*V*4), alive (A) and the
-    watermark and round (8).  Writes: rnd, vrnd and V value words of each
-    acceptor (A*B*(2+V)*4), the learner's flag, instance and value words
-    (B*(2+V)*4), and the outputs: the new watermark (4), inst and win
-    (2*B*4), fresh (B) and value (B*V*4).  vrnd, the acceptors' values and
-    the learner's values are written, never read, so they count once.  At
-    A=3, B=128, V=16: 10,763 B read + 46,212 B written = 56,975 B."""
-    read = a * b * 4 + 2 * b * 4 + b * v * 4 + a + 8
-    written = a * b * (2 + v) * 4 + b * (2 + v) * 4 + 4 + 2 * b * 4 + b + b * v * 4
-    return read + written
 
 
 def time_k1(dev) -> dict:
@@ -3736,10 +3808,7 @@ def time_k1(dev) -> dict:
     if not (accept.all() and fresh.all()):
         raise AssertionError("the timed walk must accept and deliver every lane")
     nbytes = k1_bytes(a, b, v)
-    # per lane: a compare, an and, a select and a max per acceptor; the
-    # agree count; the slot, the permit and the dedup test; the V selects
-    ops_ = b * (4 * a + 2 * a + 8 + v)
-    bms, by = bound_ms(nbytes, ops_)
+    bms, by = bound_ms(nbytes, k1_operations(a, b, v))
     out = dict(
         ms=time_walk(kernel, walk, True, restore),
         plain_ms=time_walk(plain, walk, True, restore),
@@ -3782,12 +3851,6 @@ def team_times(kernel, walk: int, restore, geo, dev) -> dict:
     )  # fmt: skip
 
 
-def k4_bytes(leaves: list[torch.Tensor]) -> int:
-    """K4 reads every word of every leaf once and writes one digest a
-    leaf: at the N/4 seal (16,384 + 262,144 words) 1,114,120 B."""
-    return 4 * sum(x.numel() for x in leaves) + 4 * len(leaves)
-
-
 L2_FLUSH_BYTES = 128 << 20  # more than twice the card's 50 MB L2
 
 
@@ -3810,13 +3873,14 @@ def time_seal(copies: list[list[torch.Tensor]], walk: int, dev) -> dict:
     n = len(copies)
     walk = max(walk, n)
     leaves = copies[0]
-    nbytes = k4_bytes(leaves)
+    words = [x.numel() for x in leaves]
+    nbytes = k4_bytes(words)
     for c in copies:
         if c[1].data_ptr() != c[0].data_ptr() + 4 * c[0].numel():
             raise AssertionError("a seal's leaves must lie in one buffer")
     wholes = [c[0].as_strided((sum(x.numel() for x in c),), (1,)) for c in copies]
     geo = seal_geometry(leaves)
-    bms, by = bound_ms(nbytes, 2 * nbytes // 4)
+    bms, by = bound_ms(nbytes, k4_operations(words))
     out = dict(
         mbytes=nbytes / 2**20, copies=n, grid=geo.grid[0],
         ms=time_walk(lambda k: k_digest.tree_digest(copies[k % n]), walk, True),
@@ -3853,40 +3917,6 @@ def time_k4(dev, n_leaf: int) -> dict:
         torch.cuda.empty_cache()
     out["sweep"] = sweep
     return out
-
-
-def k2_bytes(a: int, b: int, v: int) -> int:
-    """The bytes one K2 launch reads and writes when every lane is accepted
-    by all A acceptors (then ``st_vrnd`` is not read).  Reads: the batch's
-    msgtype, inst and rnd (3*B*4) and values (B*V*4), alive (A), and the
-    promised rounds (A*B*4).  Writes: rnd and vrnd (2*A*B*4) and the V value
-    words (A*B*V*4) of each acceptor's register, and the votes: type, inst,
-    rnd, vrnd and swid (5*A*B*4) and values (A*B*V*4).  At A=3, B=128,
-    V=16: 11,267 B read + 59,904 B written = 71,171 B."""
-    read = 3 * b * 4 + b * v * 4 + a + a * b * 4
-    written = 2 * a * b * 4 + a * b * v * 4 + 5 * a * b * 4 + a * b * v * 4
-    return read + written
-
-
-def k7_bytes(b: int, v: int) -> int:
-    """K2's bytes for one acceptor, without the alive mask: at B=128, V=16,
-    10,240 B read + 19,968 B written = 30,208 B."""
-    return k2_bytes(1, b, v) - 1
-
-
-def k3_bytes(b: int) -> int:
-    """K3 reads active (B bools), the watermark and the round (8), and writes
-    msgtype, inst, rnd, vrnd and swid (5*B*4) and the new watermark (4).  At
-    B=128: 2,700 B."""
-    return b + 8 + 5 * b * 4 + 4
-
-
-def k8_bytes(a: int, b: int, v: int, agreed: int) -> int:
-    """K8 reads every vote's type and vrnd (2*A*B*4) and, on each of the
-    ``agreed`` lanes where an acceptor agrees, the first such acceptor's
-    value (V*4); it writes deliver and win (2*B*4) and the values (B*V*4).
-    At A=3, B=128, V=16 with every lane agreed: 20,480 B."""
-    return 2 * a * b * 4 + agreed * v * 4 + 2 * b * 4 + b * v * 4
 
 
 def time_staged(dev) -> dict:
@@ -3948,23 +3978,23 @@ def time_staged(dev) -> dict:
             lambda k: k_coordinator.coordinator_sequence_window(bases[k], crnd_t, active),
             lambda k: batched.coordinator_sequence(
                 CoordinatorState(bases[k], crnd_t), msgs[k].value, active),
-            k3_bytes(b), 6 * b,
+            k3_bytes(b), k3_operations(b),
         ),
         "acceptor_vote_all": (
             lambda k: k_wirepath.acceptor_vote_all_window(
                 *vars(stack).values(), alive, *vote_args(k)),
             lambda k: batched.acceptor_phase2_all(stack, msgs[k], alive),
-            k2_bytes(a, b, v), 11 * a * b,
+            k2_bytes(a, b, v), k2_operations(a, b),
         ),
         "acceptor_phase2": (
             lambda k: k_acceptor.acceptor_phase2_window(*vars(file0).values(), 0, *vote_args(k)),
             lambda k: batched.acceptor_phase2(file0, msgs[k], 0),
-            k7_bytes(b, v), 11 * b,
+            k7_bytes(b, v), k7_operations(b),
         ),
         "learner_quorum": (
             lambda k: k_learner.learner_quorum_window(q, vote_type[k], vote_vrnd[k], vote_val[k]),
             lambda k: k_learner.learner_quorum_plain(q, vote_type[k], vote_vrnd[k], vote_val[k]),
-            k8_bytes(a, b, v, b), b * (6 * a + 2),
+            k8_bytes(a, b, v, b), k8_operations(a, b),
         ),
     }  # fmt: skip
     out = {}
@@ -4062,17 +4092,17 @@ def time_table1(dev) -> dict:
     vote_vrnd = torch.full((walk, a, b), crnd, **i32)
     vote_val = words(walk, a, b, v)
     runs = {  # name: (call, bytes, operations)
-        "forwarding": (lambda k: forwarded.copy_(packed[k]), 2 * b * (5 + v) * 4, 0),
+        "forwarding": (lambda k: forwarded.copy_(packed[k]), forwarding_bytes(b, v), 0),
         "coordinator_sequence": (
             lambda k: k_coordinator.coordinator_sequence_window(bases[k], crnd_t, active),
-            k3_bytes(b), 6 * b),
+            k3_bytes(b), k3_operations(b)),
         "acceptor_phase2": (
             lambda k: k_acceptor.acceptor_phase2_window(
                 *vars(file0).values(), 0, heads[k, 0], heads[k, 1], heads[k, 2], values[k]),
-            k7_bytes(b, v), 11 * b),
+            k7_bytes(b, v), k7_operations(b)),
         "learner_quorum": (
             lambda k: k_learner.learner_quorum_window(q, vote_type[k], vote_vrnd[k], vote_val[k]),
-            k8_bytes(a, b, v, b), b * (6 * a + 2)),
+            k8_bytes(a, b, v, b), k8_operations(a, b)),
     }  # fmt: skip
     out = dict(card=CARD, burst=b, value_words=v, ring=n, acceptors=a, quorum=q)
     for name, (call, nbytes, ops_) in runs.items():
@@ -4085,16 +4115,6 @@ def time_table1(dev) -> dict:
     out["learner_quorum"].update(variant=geo.variant, team=geo.team, grid=list(geo.grid))
     restore()
     return out
-
-
-def k1_cohort_bytes(a: int, b: int, v: int, c: int, nb: int) -> int:
-    """The bytes one cohort K1 launch reads and writes over ``c`` selected
-    groups in ``nb`` blocks when every lane is accepted by all A acceptors
-    and is fresh: ``k1_bytes``'s terms per group, less the watermark and
-    instance outputs the cohort entry does not write (4 + B*4), plus the
-    limit and enabled words it reads (8), plus one gsel word per block.  At
-    A=3, B=128, V=16: 56,467 B per group."""
-    return c * (k1_bytes(a, b, v) - 4 - b * 4 + 8) + 4 * nb
 
 
 def walk_state(rng, g: int, a: int, n: int, v: int, crnd: int, dev):
@@ -4167,7 +4187,7 @@ def time_k1_cohort(dev) -> dict:
                                        bursts[k, rows], enabled, limit, group_block=gb)  # fmt: skip
 
         nbytes = k1_cohort_bytes(a, b, v, c, len(gsel))
-        bms, by = bound_ms(nbytes, c * b * (4 * a + 2 * a + 8 + v))
+        bms, by = bound_ms(nbytes, k1_operations(a, b, v, c))
         out[name] = dict(
             ms=time_walk(kernel, walk, True, restore),
             plain_ms=time_walk(plain, walk, True, restore),
@@ -4177,15 +4197,6 @@ def time_k1_cohort(dev) -> dict:
         )  # fmt: skip
     restore()
     return dict(out["gb8"], gb1=out["gb1"])
-
-
-def k5_bytes(a: int, b: int, v: int, c: int, nb: int, k: int, g: int) -> int:
-    """The bytes one K5 launch of K rounds reads and writes over ``c``
-    selected groups in ``nb`` blocks when every lane is accepted by all A
-    acceptors and is fresh: K times ``k1_cohort_bytes`` plus the (K, G)
-    descriptor words ``wni`` and ``wen``.  At A=3, B=128, V=16, K=8, G=8:
-    3,614,432 B for eight groups, 452,280 B for one."""
-    return k * k1_cohort_bytes(a, b, v, c, nb) + 2 * k * g * 4
 
 
 def time_k5(dev) -> dict:
@@ -4235,7 +4246,7 @@ def time_k5(dev) -> dict:
                                              vals[w], limit, group_block=gb)  # fmt: skip
 
         nbytes = k5_bytes(a, b, v, c, len(gsel), k, g)
-        bms, by = bound_ms(nbytes, k * c * b * (4 * a + 2 * a + 8 + v))
+        bms, by = bound_ms(nbytes, k5_operations(a, b, v, c, k))
         ms = time_walk(kernel, walk, True, restore)
         geo = k_wirepath.wave_geometry(v, b, c, k, n, True)
         out[name] = dict(
@@ -4247,16 +4258,6 @@ def time_k5(dev) -> dict:
         )  # fmt: skip
     restore()
     return dict(out["gb8"], gb1=out["gb1"])
-
-
-def k6_bytes(a: int, b: int, v: int, c: int) -> int:
-    """The bytes one K6 launch of ``c`` enabled lanes reads and writes when
-    every lane is accepted by all A acceptors and is fresh: per lane,
-    ``k1_cohort_bytes`` of one group (whose next_inst, crnd, limit, enabled
-    and alive words are here the lane's table) with alive as A int32 words
-    instead of A bytes (+3A), plus the lane's seg word (+4).  At A=3,
-    B=128, V=16: 56,480 B per lane."""
-    return c * (k1_cohort_bytes(a, b, v, 1, 0) + 3 * a + 4)
 
 
 def time_k6(dev) -> dict:
@@ -4300,7 +4301,7 @@ def time_k6(dev) -> dict:
                                             en, lim)  # fmt: skip
 
         nbytes = k6_bytes(a, b, v, c)
-        bms, by = bound_ms(nbytes, c * b * (4 * a + 2 * a + 8 + v))
+        bms, by = bound_ms(nbytes, k1_operations(a, b, v, c))  # K1's body on each lane
         out[name] = dict(
             ms=time_walk(kernel, walk, True, restore),
             plain_ms=time_walk(plain, walk, True, restore),
@@ -4349,7 +4350,7 @@ def time_k1_shard(dev) -> dict:
         batched.shard_slab_round(off, bases[k], cr, alive, q, stack, lstate, bursts[k], en, lim)
 
     nbytes = k1_cohort_bytes(a, b, v, gl, 1)
-    bms, by = bound_ms(nbytes, gl * b * (4 * a + 2 * a + 8 + v))
+    bms, by = bound_ms(nbytes, k1_operations(a, b, v, gl))
     out = dict(
         ms=time_walk(kernel, walk, True, restore),
         plain_ms=time_walk(plain, walk, True, restore),
@@ -4498,7 +4499,7 @@ def time_k9(dev) -> dict:
 
         lib_err = (library(0).float() - k_flash.flash_attention(q, k, v, window=window).float())
         out[window] = dict(
-            k9_work(q, k, v, mask, time_walk(kernel, 20, True)),
+            k9_work(q, k, v, mask, time_walk(kernel, 20, True), window=window),
             views_ms=time_walk(on_views, 20, True),
             plain_ms=time_walk(plain, 3, True),
             library_ms=time_walk(library, 20, True),
@@ -4516,15 +4517,21 @@ def k9_mask(sq: int, sk: int, dev, causal: bool = True, window: int = 0) -> torc
     return mask & (kj > qi - window) if window else mask
 
 
-def k9_work(q, k, v, mask: torch.Tensor, ms: float) -> dict:
+def k9_work(
+    q, k, v, mask: torch.Tensor, ms: float, causal: bool = True, window: int = 0
+) -> dict:
     """K9's time ``ms`` on bf16 q (B, H, Sq, D), k and v (B, KVH, Sk, D)
-    under ``mask`` beside its bound: 4*D operations for each unmasked pair of
-    each head at the bf16 tensor-core rate, and q, k, v read once and the
-    output written once."""
-    b, h, _, d = q.shape
-    ops_ = 4 * d * int(mask.sum().item()) * b * h
-    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    bms, by = bound_ms(nbytes, ops_, BF16_OPS_PER_S)
+    beside its bound (``analysis.bounds``: ``k9_operations`` of the
+    ``causal``, ``window`` pairs at the bf16 tensor-core rate, ``k9_bytes``).
+    Fails unless ``k9_pairs`` counts the pairs of this run's ``mask``."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    pairs, unmasked = k9_pairs(sq, sk, causal, window), int(mask.sum().item())
+    if pairs != unmasked:
+        raise AssertionError(f"k9_pairs counts {pairs} pairs, the mask {unmasked}")
+    ops_ = k9_operations(b, h, sq, sk, d, causal, window)
+    nbytes = k9_bytes(b, h, kvh, sq, sk, d, q.element_size())
+    bms, by = bound_ms(nbytes, ops_, PEAK_FLOPS)
     return dict(ms=ms, tflop_per_s=ops_ / (ms * 1e-3) / 1e12, bound_ms=bms, bound_by=by,
                 operations=ops_, bytes=nbytes)  # fmt: skip
 
@@ -4544,7 +4551,7 @@ def time_k9_shape(dev, gen, shape: tuple, causal: bool, window: int = 0) -> dict
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
 
-    return dict(k9_work(q, k, v, mask, time_walk(kernel, 20, True)),
+    return dict(k9_work(q, k, v, mask, time_walk(kernel, 20, True), causal, window),
                 library_ms=time_walk(library, 20, True), window=window)  # fmt: skip
 
 
@@ -4939,6 +4946,9 @@ def run(dev: torch.device) -> None:
           f"stats {shd['stats']}")  # fmt: skip
 
     kvr = run_replicated_kv(dev)
+    # each ReplicatedKV and its KVSessions refer to each other, so the KV phase's four
+    # contexts (their (8, 3, 65,536, 16) slabs, 0.604 GB) wait for a collection
+    gc.collect()
 
     print(f"LM weights: {LM_ARCH} at full width, {LM_LAYERS} of its 62 layers, random from a "
           f"seeded generator on the card, float32 and bfloat16")  # fmt: skip
@@ -4983,6 +4993,7 @@ def run(dev: torch.device) -> None:
     del moe16
     torch.cuda.empty_cache()
     trained = run_training(dev)
+    memory_left(dev, "before the family phases")
     families = {arch: run_family(dev, arch, family_seed(arch)) for arch in FAMILY_ARCHS}
 
     print(f"times on {CARD}")
@@ -5066,6 +5077,10 @@ def run(dev: torch.device) -> None:
                       ("forwarding", "coordinator_sequence", "acceptor_phase2", "learner_quorum")))
     for name, m in path_metrics.items():
         print(f"  {name} {json.dumps(m)}")
+    serving = {LM_ARCH: lm_serve, MOE_ARCH: moe_serve,
+               **{arch: fam["serving"] for arch, fam in families.items()}}  # fmt: skip
+    for name, m in rooflines(lm, moe, families, trained["full"], serving, ring).items():
+        print(f"  roofline {name} {json.dumps(m)}")
 
     rows = [  # name, source, TPU kernel replaced, the path whose launches count
         ("wirepath_round", "wirepath.cu", "src/repro/kernels/wirepath.py:228", launches),

@@ -30,13 +30,16 @@ from repro_torch.serve.service import (  # noqa: F401
 
 def make_prefill_step(cfg) -> Callable:
     """The prefill step, run with gradients off: no autograd history, and no
-    remat wrapper around the layers (``layers.checkpoint_fn``)."""
+    remat wrapper around the layers (``layers.checkpoint_fn``).  It returns
+    a copy of the last position's logits, (B, V) in storage of its own, so
+    the (B, S, V) logits are freed with the step, as the reference's new
+    array lets them be."""
     mod = registry.family_module(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch: dict[str, torch.Tensor]):
         logits, cache = mod.prefill(cfg, params, batch)
-        return logits[:, -1], cache
+        return logits[:, -1].clone(), cache
 
     return prefill_step
 

@@ -82,6 +82,24 @@ def test_prefill_step_matches(arch):
     np.testing.assert_array_equal(last.numpy(), full[:, -1].numpy())
 
 
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma3-27b"] + MOE_VLM + OTHERS)
+def test_prefill_step_returns_logits_of_their_own(arch):
+    """The prefill step's last logits hold B·V elements in storage of their
+    own, not a view that keeps the whole (B, S, V) logits alive, and they
+    are the last row of the forward pass's logits bit for bit (the values
+    against the reference: ``test_prefill_step_matches``; the tokens:
+    ``test_serve_loop_gives_the_references_tokens``)."""
+    cfg, _, params, _ = _pair(arch, seed=0)
+    b, t = 2, 8
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (b, t)).astype(np.int32)
+    _, batch = _inputs(cfg, tokens)
+    last, _ = engine.make_prefill_step(cfg)(params, batch)
+    assert last.untyped_storage().nbytes() == b * cfg.vocab * last.element_size()
+    assert last.is_contiguous() and last.storage_offset() == 0
+    full, _ = treg.family_module(cfg).forward(cfg, params, batch)
+    np.testing.assert_array_equal(last.numpy(), full[:, -1].numpy())
+
+
 @pytest.mark.parametrize("arch", ["qwen3-4b", "gemma3-27b"] + MOE_VLM + OTHERS)
 def test_serve_step_decode_matches_prefill(arch):
     """Teacher-forced ``serve_step`` reproduces the prefill's logits at
