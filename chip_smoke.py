@@ -8,7 +8,13 @@ It needs one CUDA card and the CUDA toolkit (``nvcc``), and builds the
 kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
-2. the kernels' build time;
+2. the kernels' build time, then the contracts phase (``run_contracts``):
+   the port's contract checker (``analysis.contracts``) with every
+   ``ctypes`` binding made on the libraries just built and held against its
+   ``extern "C"`` entry, STATE-INPLACE through every state entry on the
+   card at the paper's deployment (A=3, N=65,536, V=16, B=128, G=8), and
+   each kernel against its oracle in ``kernels.ref``, on one line with its
+   counts and seconds;
 3. the kernel phase: each kernel against its plain PyTorch version on the
    card, at its path's shapes and at adversarial windows, bit for bit; the
    round kernel K1 at one group and in its cohort and multi-group forms, and
@@ -197,7 +203,6 @@ Any failure raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import dataclasses
 import gc
 import importlib.util
@@ -217,6 +222,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.analysis import contracts  # noqa: E402
 from repro_torch.analysis.analytic import MeshInfo, analytic_terms  # noqa: E402
 from repro_torch.analysis.bounds import (  # noqa: E402
     bound_ms,
@@ -251,6 +257,7 @@ from repro_torch.kernels import acceptor as k_acceptor  # noqa: E402
 from repro_torch.kernels import coordinator as k_coordinator  # noqa: E402
 from repro_torch.kernels import digest as k_digest  # noqa: E402
 from repro_torch.kernels import learner as k_learner  # noqa: E402
+from repro_torch.kernels import ref as k_ref  # noqa: E402
 from repro_torch.kernels import wirepath as k_wirepath  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
@@ -295,6 +302,111 @@ def card_line() -> str:
         text=True,
     ).stdout.strip()
     return out.splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# contracts phase: the port's contract checker on the built libraries
+# ---------------------------------------------------------------------------
+PAPER = dict(a=3, n=65536, v=16, b=128, g=8)  # the paper's deployment, G=8 for groups
+
+
+def same_ints(what: str, got, want) -> int:
+    """``max_abs_err`` of int32 outputs that must also agree in dtype."""
+    for x, y in zip(got, want, strict=True):
+        if x.dtype != torch.int32 or y.dtype != torch.int32:
+            raise AssertionError(f"{what}: outputs {x.dtype} and {y.dtype}, not int32")
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"{what} disagrees with kernels.ref: max_abs_err={err}")
+    return err
+
+
+def check_ref_kernels(dev) -> dict[str, float]:
+    """Each kernel-level function of ``kernels.ref`` (the reference's oracle
+    names and signatures) against its kernel on the card, at the paper's
+    deployment A=3, N=65,536, V=16, B=128 on a window that wraps the ring's
+    end, a dead acceptor; the kernels on clones, the oracles left their
+    inputs as they were.  K9 at one of gemma3's prefill shapes, float32 at
+    2e-5 and bfloat16 at 2e-2."""
+    a, n, v, b = PAPER["a"], PAPER["n"], PAPER["v"], PAPER["b"]
+    rng = np.random.default_rng(SEED + 33)
+
+    def ints(*shape, lo=-(2**31), hi=2**31 - 1):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int32, endpoint=True)).to(dev)
+
+    def copies(xs):
+        return [x.clone() for x in xs]
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    base = n - b // 2
+    inst = (base + torch.arange(b, **i32)) % n
+    one = [ints(n, lo=0, hi=8), ints(n, lo=-1, hi=8), ints(n, v)]
+    stack = [ints(a, n, lo=0, hi=8), ints(a, n, lo=-1, hi=8), ints(a, n, v)]
+    learner = [ints(n, lo=0, hi=1), ints(n, lo=-1, hi=n), ints(n, v)]
+    msgtype = torch.from_numpy(rng.choice([0, 1, 3, 3, 3, 4, 7], b).astype(np.int32)).to(dev)
+    msg_rnd, msg_val = ints(b, lo=-1, hi=10), ints(b, v)
+    alive = torch.tensor([True, False, True], device=dev)
+    inputs = copies([*one, *stack, *learner, msgtype, msg_rnd, msg_val])
+    errs = {}
+    got = k_acceptor.acceptor_phase2_window(*copies(one), 1, msgtype, inst, msg_rnd, msg_val)
+    want = k_ref.acceptor_phase2_window(*one, base, 1, msgtype, msg_rnd, msg_val)
+    errs["acceptor_phase2"] = same_ints("K7", [*got[:4], *got[5:]], want)
+    got = k_wirepath.acceptor_vote_all_window(*copies(stack), alive, msgtype, inst, msg_rnd,
+                                              msg_val)  # fmt: skip
+    want = k_ref.acceptor_vote_all_window(*stack, base, alive, msgtype, msg_rnd, msg_val)
+    errs["acceptor_vote_all"] = same_ints("K2", [*got[:4], *got[5:]], want)
+    votes = (want[3], want[5], want[7])  # (A, B) type and vrnd, (A, B, V) value
+    errs["learner_quorum"] = same_ints("K8", k_learner.learner_quorum_window(2, *votes),
+                                       k_ref.learner_quorum_window(2, *votes))  # fmt: skip
+    ni, crnd = torch.tensor(base, **i32), torch.tensor(5, **i32)
+    active = torch.from_numpy(rng.random(b) < 0.8).to(dev)
+    got = k_coordinator.coordinator_sequence_window(ni, crnd, active)
+    want = k_ref.coordinator_sequence_window(ni, crnd, active)
+    errs["coordinator_sequence"] = same_ints("K3", [*got[:4], got[5]], want)
+    values = ints(b, v)
+    got = k_wirepath.wirepath_round(ni, crnd, 2, alive, *copies(stack), *copies(learner), values)
+    want = k_ref.wirepath_round(ni, crnd, 2, alive, *stack, *learner, values)
+    errs["wirepath_round"] = same_ints("K1", [*got[:6], got[8].to(torch.int32), *got[9:]], want)
+    for x in (stack[2], stack[2].view(torch.float32)):
+        errs["digest"] = same_ints("K4", [k_digest.digest(x)], [k_ref.digest(x)])
+    for x, y in zip([*one, *stack, *learner, msgtype, msg_rnd, msg_val], inputs, strict=True):
+        if not torch.equal(x, y):
+            raise AssertionError("a kernels.ref oracle changed its inputs on the card")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        q, k, v_ = k9_inputs(gen, 1, 32, 16, 512, 512, 128, dtype, dev)
+        kw = dict(window=0, causal=True, softmax_scale=None)
+        err = float((k_flash.flash_attention_kernel(q, k, v_, **kw).float()
+                     - k_ref.flash_attention(q, k, v_, **kw).float()).abs().max())  # fmt: skip
+        if not err <= atol:
+            raise AssertionError(f"K9 {dtype} disagrees with kernels.ref: max_abs_err={err}")
+        errs[f"K9 {str(dtype).removeprefix('torch.')}"] = err
+    return errs
+
+
+def run_contracts(dev) -> None:
+    """The port's contract checker with BIND-ARITY on the libraries just
+    built (every ``argtypes`` list set on the real ``ctypes`` function),
+    STATE-INPLACE through every registered state entry on the card at the
+    paper's deployment, and ``kernels.ref`` against each kernel.  Fails the
+    run on any violation."""
+    t0 = time.perf_counter()
+    violations = contracts.check_repo(library=_build.library)
+    counts = contracts.summary(library=_build.library)
+    inplace, ran = contracts.check_inplace(dev, **PAPER)
+    violations += inplace
+    errs = check_ref_kernels(dev)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    for v in violations:
+        print(f"  {v}")
+    print(f"contracts: {counts['registered']} registered entries, {counts['guarded']} guarded "
+          f"methods, {counts['bound']} C entries bound right on the built libraries, "
+          f"STATE-INPLACE on {ran} entries at {PAPER}, kernels.ref against "
+          f"{len({name.split()[0] for name in errs})} kernels "
+          f"(max_abs_err {errs}), {len(violations)} violations, {seconds:.3f} s")  # fmt: skip
+    if violations:
+        raise AssertionError(f"the contracts phase failed: {len(violations)} violations")
 
 
 # ---------------------------------------------------------------------------
@@ -3825,9 +3937,7 @@ def time_launch_floor(geo, walk: int, dev) -> float:
     """``csrc/wirepath.cu``'s empty kernel on ``geo``'s grid (1-, 2- or
     3-D) and block, ``walk`` launches in one CUDA graph, as ``time_walk``
     times each kernel: the floor under a launch of that shape."""
-    fn = _build.library("wirepath").launch_floor
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = k_wirepath.launch_floor()
     gx, gy, gz = (*geo.grid, 1, 1)[:3]
 
     def launch(k):
@@ -4702,6 +4812,9 @@ def run(dev: torch.device) -> None:
     print(f"build: {build_s:.3f} s for {', '.join(_build.sources())}")
     for name in _build.sources():
         print(f"--- nvcc {name} ---\n{_build.build_log(name).strip()}")
+
+    run_contracts(dev)
+    reset_launches()
 
     print("kernel phase: each kernel against its plain version on the card")
     errs = {"wirepath_round": check_k1(dev), "digest": check_k4(dev)}

@@ -50,6 +50,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..analysis.contracts import mirror_guard
 from ..kernels import ops as kops
 from . import batched
 from . import plan as plan_mod
@@ -148,6 +149,7 @@ class HardwareDataplane(RingReclamationMixin):
         self._reclaim_guard(0, base, b)
 
     # -- fused fast path: the whole Phase-2 round in one device program ------
+    @mirror_guard
     def pipeline(self, values: np.ndarray, active: np.ndarray):
         """One dispatch: sequence + all acceptor votes + quorum + dedup.
         Returns host ``(fresh, inst, value)``, ``fresh`` masking the
@@ -197,6 +199,7 @@ class HardwareDataplane(RingReclamationMixin):
         self.stack.value[aid] = 0
 
     # -- staged path (votes surface as messages) -----------------------------
+    @mirror_guard
     def sequence(self, values: np.ndarray, active: np.ndarray) -> MsgBatch:
         """Bind a burst to the next instance window, one dispatch."""
         self._guard_capacity(self._next_inst_host, values.shape[0])
@@ -451,6 +454,7 @@ class MultiGroupDataplane(RingReclamationMixin):
         return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(self.device)
 
     # -- fused fast path: all groups advance one round in one dispatch ------
+    @mirror_guard
     def pipeline(self, values: np.ndarray, active: np.ndarray, enabled: list[bool] | None = None):
         """One dispatch for all G groups.  ``values`` is ``(G, B, V)``,
         ``active`` ``(G, B)``.  A disabled group (frozen, vacant, or masked
@@ -504,6 +508,7 @@ class MultiGroupDataplane(RingReclamationMixin):
         inst = np.stack([np.arange(marks[gid], marks[gid] + be, dtype=np.int32) for gid in gids])
         return gids, member, self.use_kernels, inst
 
+    @mirror_guard
     def pipeline_cohort(self, gids, values: np.ndarray, active: np.ndarray, defer: bool = False):
         """Advance exactly the cohort ``gids`` one ``BE``-sized round.
 
@@ -567,6 +572,7 @@ class MultiGroupDataplane(RingReclamationMixin):
             return be
         return plan_mod.wire_block(be)
 
+    @mirror_guard
     def pipeline_persistent(self, gids, values: np.ndarray, active: np.ndarray, defer=False):
         """Advance the cohort ``gids`` K back-to-back full rounds in one
         dispatch: the persistent wave.  ``values`` is ``(K, len(gids), BE,
@@ -645,6 +651,7 @@ class MultiGroupDataplane(RingReclamationMixin):
         handle = _DeferredRound(dfresh, dvalue, inst, rows=rows, axis=1)
         return handle if defer else handle.resolve()
 
+    @mirror_guard
     def burn_forward(self, gid: int, target: int) -> None:
         """Advance a group's watermark to ``target`` without proposing
         anything: the skipped instances are NOP holes, never decided and
@@ -683,6 +690,7 @@ class MultiGroupDataplane(RingReclamationMixin):
         self.stack.vrnd[row, aid] = NO_ROUND
         self.stack.value[row, aid] = 0
 
+    @mirror_guard
     def freeze_group(self, gid: int) -> None:
         """Park a group's hardware round at NO_ROUND while a software
         coordinator owns it: the shared dispatch decides nothing for it."""
@@ -690,6 +698,7 @@ class MultiGroupDataplane(RingReclamationMixin):
         self.cstate.crnd[gid] = NO_ROUND
         self.crnd_host[gid] = NO_ROUND
 
+    @mirror_guard
     def restore_group(self, gid: int, next_inst: int, crnd: int) -> None:
         """Hand a group back to the hardware sequencer at the watermark and
         round the software coordinator reached.  With ``use_kernels`` the
@@ -735,6 +744,7 @@ class MultiGroupDataplane(RingReclamationMixin):
         self.lstate.inst[row] = -1
         self.lstate.value[row] = 0
 
+    @mirror_guard
     def create_group(self) -> int:
         """Claim the lowest free slot: fresh rings, watermark and round 0,
         every acceptor alive.  Raises at capacity."""
@@ -750,6 +760,7 @@ class MultiGroupDataplane(RingReclamationMixin):
             self.reclaimed_host[gid] = 0
         return gid
 
+    @mirror_guard
     def adopt_group(self, watermark: int) -> int:
         """Claim a free slot for a tenant bootstrapping from a transferred
         snapshot: sequencer and reclamation watermarks start at the
@@ -898,6 +909,7 @@ class ShardedMultiGroupDataplane(MultiGroupDataplane):
         return fn
 
     # -- fused fast path: every shard advances its slab in one dispatch -------
+    @mirror_guard
     def pipeline(self, values: np.ndarray, active: np.ndarray, enabled: list[bool] | None = None):
         """``MultiGroupDataplane.pipeline``'s contract and results, run
         shard by shard over the slot-ordered slabs."""
@@ -932,6 +944,7 @@ class ShardedMultiGroupDataplane(MultiGroupDataplane):
         return fresh.cpu().numpy()[inv], inst[inv], value.cpu().numpy()[inv]
 
     # -- cohort dispatch, packed per shard ---------------------------------------
+    @mirror_guard
     def pipeline_cohort(self, gids, values: np.ndarray, active: np.ndarray, defer: bool = False):
         """The unsharded ``pipeline_cohort``'s contract and results, run as
         one packed dispatch: each shard advances ``C`` lanes (the cohort's
@@ -1001,6 +1014,7 @@ class ShardedMultiGroupDataplane(MultiGroupDataplane):
             return _DeferredRound.resolved(fresh, value, inst)
         return fresh, inst, value
 
+    @mirror_guard
     def _cohort_full_width(self, gids, member, use_k, inst, values, active, defer: bool):
         """Full-width execution of a saturated cohort: non-members ride the
         dispatch inert (NOP sentinel rows, membership-masked rounds), the
@@ -1056,6 +1070,7 @@ class ShardedMultiGroupDataplane(MultiGroupDataplane):
             return _DeferredRound.resolved(fresh, value, inst)
         return fresh, inst, value
 
+    @mirror_guard
     def burn_forward(self, gid: int, target: int) -> None:
         """Host-scalar realignment burn: the new watermark reaches the
         owning shard with the next dispatch."""
@@ -1084,11 +1099,13 @@ class ShardedMultiGroupDataplane(MultiGroupDataplane):
         self.alive[gid][aid] = True
         self.alive_mask[gid, aid] = 1
 
+    @mirror_guard
     def freeze_group(self, gid: int) -> None:
         self._check_gid(gid)
         self.crnd_host[gid] = NO_ROUND
         self._sync_cstate()
 
+    @mirror_guard
     def restore_group(self, gid: int, next_inst: int, crnd: int) -> None:
         self._check_gid(gid)
         if self.use_kernels:
@@ -1099,6 +1116,7 @@ class ShardedMultiGroupDataplane(MultiGroupDataplane):
         self._sync_cstate()
 
     # -- live slab migration -------------------------------------------------------
+    @mirror_guard
     def migrate_group(self, gid: int, dst_shard: int) -> None:
         """Move a live tenant's slab to ``dst_shard`` between waves.
 
@@ -1778,6 +1796,7 @@ class PaxosContext:
         self.hw.freeze_group(gid)
         return res
 
+    @mirror_guard
     def restore_hardware_coordinator(self, group: int = 0) -> None:
         self._check_group(group)
         if self.grouped:

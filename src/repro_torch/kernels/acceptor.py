@@ -30,6 +30,8 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis.contracts import Binding
+
 from . import _build
 from . import wirepath as _wirepath
 
@@ -41,17 +43,24 @@ witness_launches = 0
 _fns: dict = {}  # entry name -> its ctypes function
 
 
-def _kernel(entry: str):
+def _bind(lib, entry: str):
     """``acceptor_phase2`` (with its launch shape) or
     ``acceptor_phase2_witness``, both of ``csrc/vote.cu``."""
+    fn = getattr(lib, entry)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    shape = [i, i, i] if entry == "acceptor_phase2" else []
+    fn.argtypes = [i, i, i, i, *[p] * 13, *shape, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+BINDINGS = tuple(Binding("vote", e, _bind) for e in ("acceptor_phase2", "acceptor_phase2_witness"))
+
+
+def _kernel(entry: str):
     fn = _fns.get(entry)
     if fn is None:
-        fn = getattr(_build.library("vote"), entry)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        shape = [i, i, i] if entry == "acceptor_phase2" else []
-        fn.argtypes = [i, i, i, i, *[p] * 13, *shape, p]
-        fn.restype = ctypes.c_int
-        _fns[entry] = fn
+        fn = _fns[entry] = next(b for b in BINDINGS if b.entry == entry).load(_build.library)
     return fn
 
 

@@ -18,6 +18,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.analysis.contracts import Binding
+
 from . import _build
 
 THREADS = 128  # threads a block at most
@@ -45,14 +47,21 @@ def sequence_geometry(b: int) -> SequenceGeometry:
     return SequenceGeometry(block, (-(-b // block),))
 
 
+def _bind(lib, entry: str):
+    fn = getattr(lib, entry)
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, p, ctypes.c_int, p, p, ctypes.c_int, ctypes.c_int, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+BINDINGS = (Binding("coordinator", "coordinator_sequence", _bind),)
+
+
 def _kernel():
     global _fn
     if _fn is None:
-        fn = _build.library("coordinator").coordinator_sequence
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_int, p, p, ctypes.c_int, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = BINDINGS[0].load(_build.library)
     return _fn
 
 

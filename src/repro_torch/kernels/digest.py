@@ -26,6 +26,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.analysis.contracts import Binding
+
 from . import _build
 
 _DTYPES = (torch.int32, torch.float32)
@@ -123,17 +125,23 @@ def digest_geometry(lengths: Sequence[int], align: Sequence[int], sm_count: int)
     return DigestGeometry(tuple(leaves), THREADS, (first,))
 
 
+def _bind(lib, entry: str):
+    if lib.tree_digest_leaf_bytes() != ctypes.sizeof(_Leaf):
+        raise RuntimeError("csrc/digest.cu's Leaf record differs from kernels.digest._Leaf")
+    fn = getattr(lib, entry)
+    p = ctypes.c_void_p
+    fn.argtypes = [p, ctypes.c_int, p, p, ctypes.c_int, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+BINDINGS = (Binding("digest", "tree_digest", _bind),)
+
+
 def _kernel():
     global _fn
     if _fn is None:
-        lib = _build.library("digest")
-        if lib.tree_digest_leaf_bytes() != ctypes.sizeof(_Leaf):
-            raise RuntimeError("csrc/digest.cu's Leaf record differs from kernels.digest._Leaf")
-        fn = lib.tree_digest
-        p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_int, p, p, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = BINDINGS[0].load(_build.library)
     return _fn
 
 

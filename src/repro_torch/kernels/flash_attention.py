@@ -40,7 +40,10 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis.contracts import Binding, dataplane_contract
+
 from . import _build
+from . import ref as _ref
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,14 +58,21 @@ _fn = None
 _STRIDE_UNIT = 8  # elements: 16-byte rows in bf16, as TMA needs
 
 
+def _bind(lib, entry: str):
+    fn = getattr(lib, entry)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [i, i, i, i, i, i, i, i, i, f, p, p, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+BINDINGS = (Binding("flash_attention", "flash_attention", _bind),)
+
+
 def _kernel():
     global _fn
     if _fn is None:
-        fn = _build.library("flash_attention").flash_attention
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, i, i, i, i, i, i, i, i, f, p, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = BINDINGS[0].load(_build.library)
     return _fn
 
 
@@ -194,6 +204,11 @@ def flash_attention_plain(
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
+@dataplane_contract(
+    oracle=_ref.flash_attention,
+    plain=flash_attention_plain,
+    jax_oracle="repro.kernels.ref.flash_attention",
+)
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,

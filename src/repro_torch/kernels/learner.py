@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis.contracts import Binding
 from repro_torch.core.types import MSG_P2B, NO_ROUND
 
 from . import _build
@@ -44,14 +45,21 @@ launches = 0
 _fn = None
 
 
+def _bind(lib, entry: str):
+    fn = getattr(lib, entry)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i, i, i, i, p, p, p, p, p, p, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+BINDINGS = (Binding("learner", "learner_quorum", _bind),)
+
+
 def _kernel():
     global _fn
     if _fn is None:
-        fn = _build.library("learner").learner_quorum
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, i, i, p, p, p, p, p, p, i, i, i, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = BINDINGS[0].load(_build.library)
     return _fn
 
 

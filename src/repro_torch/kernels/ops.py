@@ -14,6 +14,7 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import dataplane_contract
 from repro_torch.core import batched as _batched
 from repro_torch.core.batched import LearnerState
 from repro_torch.core.types import AcceptorState, CoordinatorState, MsgBatch
@@ -22,6 +23,7 @@ from . import acceptor as _acceptor
 from . import coordinator as _coordinator
 from . import digest as _digest
 from . import learner as _learner
+from . import ref as _ref
 from . import wirepath as _wirepath
 
 
@@ -34,6 +36,11 @@ def _route(t: torch.Tensor, what: str) -> bool:
     raise ValueError(f"{what}: no kernel or plain version for device {t.device}")
 
 
+@dataplane_contract(
+    oracle=_batched.coordinator_sequence,
+    plain=_batched.coordinator_sequence,
+    jax_oracle="repro.core.batched.coordinator_sequence",
+)
 def coordinator_sequence(
     cstate: CoordinatorState, values: torch.Tensor, active: torch.Tensor
 ) -> tuple[CoordinatorState, MsgBatch]:
@@ -48,6 +55,12 @@ def coordinator_sequence(
     return CoordinatorState(next_inst=next_inst, crnd=cstate.crnd), out
 
 
+@dataplane_contract(
+    oracle=_batched.acceptor_phase2,
+    plain=_batched.acceptor_phase2,
+    jax_oracle="repro.core.batched.acceptor_phase2",
+    state_args=("astate",),
+)
 def acceptor_phase2(
     astate: AcceptorState, msgs: MsgBatch, aid: int = 0
 ) -> tuple[AcceptorState, MsgBatch]:
@@ -62,6 +75,12 @@ def acceptor_phase2(
     return astate, MsgBatch(*votes)
 
 
+@dataplane_contract(
+    oracle=_batched.acceptor_phase2_all,
+    plain=_batched.acceptor_phase2_all,
+    jax_oracle="repro.core.batched.acceptor_phase2_all",
+    state_args=("stack",),
+)
 def acceptor_phase2_all(
     stack: AcceptorState, msgs: MsgBatch, alive: torch.Tensor
 ) -> tuple[AcceptorState, MsgBatch]:
@@ -76,6 +95,11 @@ def acceptor_phase2_all(
     return stack, MsgBatch(*votes)
 
 
+@dataplane_contract(
+    oracle=_batched.learner_quorum,
+    plain=_learner.learner_quorum_plain,
+    jax_oracle="repro.core.batched.learner_quorum",
+)
 def learner_quorum(
     vote_msgtype: torch.Tensor,
     vote_inst: torch.Tensor,
@@ -97,6 +121,12 @@ def learner_quorum(
     return deliver.bool(), vote_inst[0], win, value
 
 
+@dataplane_contract(
+    oracle=_batched.fused_round,
+    plain=_batched.fused_round,
+    jax_oracle="repro.core.batched.fused_round",
+    state_args=("stack", "lstate"),
+)
 def fused_round(
     cstate: CoordinatorState,
     stack: AcceptorState,
@@ -140,6 +170,13 @@ def fused_round(
     return new_c, stack, lstate, fresh, inst, win, value
 
 
+@dataplane_contract(
+    oracle=_batched.multigroup_fused_round,
+    plain=_batched.multigroup_fused_round,
+    jax_oracle="repro.core.batched.multigroup_fused_round",
+    state_args=("stack", "lstate"),
+    extra=("group_block",),
+)
 def multigroup_fused_round(
     cstate: CoordinatorState,
     stack: AcceptorState,
@@ -198,6 +235,16 @@ def multigroup_fused_round(
     return CoordinatorState(cstate.next_inst + b, crnd), stack, lstate, fresh, inst, win, value
 
 
+@dataplane_contract(
+    oracle=_batched.cohort_fused_round,
+    plain=_batched.cohort_fused_round,
+    jax_oracle="repro.core.batched.multigroup_fused_round",
+    state_args=("stack", "lstate"),
+    reason=(
+        "the reference has no standalone oracle: its parity path is the full-width "
+        "multigroup_fused_round over scatter-expanded cohort rows"
+    ),
+)
 def cohort_fused_round(
     stack: AcceptorState,
     lstate: LearnerState,
@@ -247,6 +294,17 @@ def cohort_fused_round(
     return stack, lstate, fresh, win, value
 
 
+@dataplane_contract(
+    oracle=_batched.shard_slab_round,
+    plain=_batched.shard_slab_round,
+    jax_oracle="repro.kernels.wirepath.shard_slab_round",
+    state_args=("stack", "lstate"),
+    extra=("group_block",),
+    reason=(
+        "the reference has no ops entry or jnp oracle for the shard slice: its kernel entry "
+        "takes the state as leaves, and the port's tests hold this entry against it"
+    ),
+)
 def shard_slab_round(
     group_offset: int,
     next_inst: torch.Tensor,
@@ -296,6 +354,13 @@ def shard_slab_round(
     return stack, lstate, fresh, win, value
 
 
+@dataplane_contract(
+    oracle=_batched.packed_multigroup_round,
+    plain=_batched.packed_multigroup_round,
+    jax_oracle="repro.core.batched.packed_multigroup_round",
+    state_args=("stack", "lstate"),
+    extra=("block_b", "lanes_host"),
+)
 def packed_shard_round(
     stack: AcceptorState,
     lstate: LearnerState,
@@ -360,6 +425,15 @@ def packed_shard_round(
     return stack, lstate, fresh, win, value
 
 
+@dataplane_contract(
+    oracle=_batched.persistent_multigroup_rounds,
+    plain=_batched.persistent_cohort_rounds,
+    jax_oracle="repro.core.batched.persistent_multigroup_rounds",
+    state_args=("stack", "lstate"),
+    extra=("gsel", "wni", "wen", "crnd", "group_block", "block_b"),
+    oracle_extra=("cstate", "active", "enabled_rounds"),
+    strict_order=False,
+)
 def persistent_cohort_rounds(
     stack: AcceptorState,
     lstate: LearnerState,
@@ -414,11 +488,23 @@ def persistent_cohort_rounds(
     return stack, lstate, fresh, win, value
 
 
+@dataplane_contract(
+    oracle=_ref.digest, plain=_digest.digest_plain, jax_oracle="repro.kernels.ref.digest"
+)
 def digest(x: torch.Tensor) -> torch.Tensor:
     """The weighted fold of one array: K4 on the card, plain on the CPU."""
     return _digest.digest(x) if _route(x, "digest") else _digest.digest_plain(x)
 
 
+@dataplane_contract(
+    plain=_digest.tree_digest_plain,
+    jax_oracle="repro.kernels.ref.digest",
+    reason=(
+        "leaf-wise composition of ``digest``: ref.digest on each leaf, folded by "
+        "``digest.combine``; it takes the leaves in order (`leaves`) where the reference "
+        "flattens a pytree (`tree`): the port's callers hold their leaves as a list"
+    ),
+)
 def tree_digest(leaves: Sequence[torch.Tensor]) -> int:
     """Digest a sequence of arrays, combining leaf digests in order: on the
     card one K4 launch for every leaf (at most ``MAX_LEAVES``) and one

@@ -74,6 +74,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..analysis.contracts import Binding
 from ..core.plan import DEFAULT_BLOCK_B
 from . import _build
 
@@ -96,11 +97,78 @@ vote_all_launches = 0
 vector_launches = 0
 scalar_launches = 0
 
-_fn = None
-_cohort_fn = None
-_packed_fn = None
-_persistent_fn = None
-_vote_fn = None
+
+def _bind_round(lib, entry: str):
+    fn = getattr(lib, entry)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, *[i] * 6, *[p] * 12, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_cohort(lib, entry: str):
+    fn = getattr(lib, entry)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, i, *[p] * 5, *[i] * 6, *[p] * 10, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_packed(lib, entry: str):
+    fn = getattr(lib, entry)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [*[p] * 6, *[i] * 7, *[p] * 10, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_persistent(lib, entry: str):
+    fn = getattr(lib, entry)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, i, p, p, p, p, p, *[i] * 7, *[p] * 10, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_floor(lib, entry: str):
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_vote(lib, entry: str):
+    fn = getattr(lib, entry)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, i, i, i, *[p] * 13, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+BINDINGS = (
+    Binding("wirepath", "wirepath_round", _bind_round),
+    Binding("wirepath", "cohort_wirepath_round", _bind_cohort),
+    Binding("wirepath", "packed_shard_round", _bind_packed),
+    Binding("wirepath", "persistent_wirepath_round", _bind_persistent),
+    Binding("wirepath", "launch_floor", _bind_floor),
+    Binding("vote", "acceptor_vote_all", _bind_vote),
+)
+
+_fns: dict = {}  # entry name -> its typed ctypes function
+
+
+def _kernel(entry: str):
+    fn = _fns.get(entry)
+    if fn is None:
+        fn = _fns[entry] = next(b for b in BINDINGS if b.entry == entry).load(_build.library)
+    return fn
+
+
+def launch_floor():
+    """``csrc/wirepath.cu``'s empty kernel, typed: ``launch_floor(gx, gy,
+    gz, threads, stream)`` launches it on that grid and block, the floor
+    under a launch of that shape that ``chip_smoke.py`` times."""
+    return _kernel("launch_floor")
 
 
 @dataclass(frozen=True)
@@ -195,17 +263,6 @@ def vote_io(
     return [*fields, torch.empty((*lead, b, v), dtype=torch.int32, device=dev)]
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.library("wirepath").wirepath_round
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, *[i] * 6, *[p] * 12, i, i, i, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, dev: torch.device):
     _build.require("wirepath_round", name, t, dtype, shape, dev)
 
@@ -256,7 +313,7 @@ def wirepath_round(
     fresh = torch.empty((b,), dtype=torch.bool, device=dev)
     win = torch.empty((b,), dtype=i32, device=dev)
     value = torch.empty((b, v), dtype=i32, device=dev)
-    fn = _kernel()
+    fn = _kernel("wirepath_round")
     geo = _lanes(v, b, 1, st_val, lval, values, value)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -272,17 +329,6 @@ def wirepath_round(
     _launched(geo, rc, "wirepath_round launch")
     launches += 1
     return st_rnd, st_vrnd, st_val, ldel, linst, lval, next_out, inst, fresh, win, value
-
-
-def _cohort_kernel():
-    global _cohort_fn
-    if _cohort_fn is None:
-        fn = _build.library("wirepath").cohort_wirepath_round
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, *[p] * 5, *[i] * 6, *[p] * 10, i, i, i, p]
-        fn.restype = ctypes.c_int
-        _cohort_fn = fn
-    return _cohort_fn
 
 
 def _host_gsel(gsel, n_blocks: int) -> np.ndarray:
@@ -394,7 +440,7 @@ def _cohort_launch(
     fresh = torch.empty((c, b), dtype=torch.bool, device=dev)
     win = torch.empty((c, b), dtype=torch.int32, device=dev)
     value = torch.empty((c, b, v), dtype=torch.int32, device=dev)
-    fn = _cohort_kernel()
+    fn = _kernel("cohort_wirepath_round")
     geo = _lanes(v, b, c, st_val, lval, values, value)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -480,17 +526,6 @@ def shard_slab_round(
     )  # fmt: skip
     shard_launches += 1
     return out
-
-
-def _packed_kernel():
-    global _packed_fn
-    if _packed_fn is None:
-        fn = _build.library("wirepath").packed_shard_round
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [*[p] * 6, *[i] * 7, *[p] * 10, i, i, i, p]
-        fn.restype = ctypes.c_int
-        _packed_fn = fn
-    return _packed_fn
 
 
 def _host(x) -> np.ndarray:
@@ -605,7 +640,7 @@ def _packed_launch(
     fresh = torch.empty((c, b), dtype=torch.bool, device=dev)
     win = torch.empty((c, b), dtype=torch.int32, device=dev)
     value = torch.empty((c, b, v), dtype=torch.int32, device=dev)
-    fn = _packed_kernel()
+    fn = _kernel("packed_shard_round")
     geo = _lanes(v, b, c, st_val, lval, values, value)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -620,17 +655,6 @@ def _packed_launch(
         )  # fmt: skip
     _launched(geo, rc, "packed_shard_round launch")
     return st_rnd, st_vrnd, st_val, ldel, linst, lval, fresh, win, value
-
-
-def _persistent_kernel():
-    global _persistent_fn
-    if _persistent_fn is None:
-        fn = _build.library("wirepath").persistent_wirepath_round
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, p, p, p, p, p, *[i] * 7, *[p] * 10, i, i, i, p]
-        fn.restype = ctypes.c_int
-        _persistent_fn = fn
-    return _persistent_fn
 
 
 def _host_wave(wni, wen, b: int, rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -742,7 +766,7 @@ def _persistent_launch(
     fresh = torch.empty((k, c, b), dtype=torch.bool, device=dev)
     win = torch.empty((k, c, b), dtype=torch.int32, device=dev)
     value = torch.empty((k, c, b, v), dtype=torch.int32, device=dev)
-    fn = _persistent_kernel()
+    fn = _kernel("persistent_wirepath_round")
     geo = wave_geometry(v, b, c, k, n, _aligned(st_val, lval, values, value))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -758,17 +782,6 @@ def _persistent_launch(
     _launched(geo, rc, "persistent_wirepath_round launch")
     persistent_launches += 1
     return st_rnd, st_vrnd, st_val, ldel, linst, lval, fresh, win, value
-
-
-def _vote_kernel():
-    global _vote_fn
-    if _vote_fn is None:
-        fn = _build.library("vote").acceptor_vote_all
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, i, i, *[p] * 13, i, i, i, p]
-        fn.restype = ctypes.c_int
-        _vote_fn = fn
-    return _vote_fn
 
 
 def acceptor_vote_all_window(
@@ -796,7 +809,7 @@ def acceptor_vote_all_window(
     _build.require(what, "st_rnd", st_rnd, torch.int32, (a, n), dev)
     _build.require(what, "st_vrnd", st_vrnd, torch.int32, (a, n), dev)
     _build.require(what, "st_val", st_val, torch.int32, (a, n, v), dev)
-    fn = _vote_kernel()
+    fn = _kernel("acceptor_vote_all")
     geo = _lanes(v, b, a, msg_val, st_val, votes[5])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

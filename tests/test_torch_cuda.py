@@ -2095,3 +2095,22 @@ def test_replicated_kv_on_the_card_equals_the_cpu(cuda):
     for key, arr in want["state"].items():
         np.testing.assert_array_equal(got["state"][key], arr, err_msg=key)
     assert got["stats"]["leased_gets"] and got["stats"]["read_index_gets"] >= 6
+
+
+def test_contracts_hold_on_the_card(cuda):
+    """BIND-ARITY on the built libraries (every binding made on the real
+    ``ctypes`` functions, 12 entries bound right) and STATE-INPLACE through
+    every state entry on the card, each launching its kernel."""
+    from repro_torch.analysis import contracts
+    from repro_torch.kernels import _build
+
+    violations, bound = contracts.check_bindings(contracts._default_root(), _build.library)
+    assert violations == [] and bound == 12, violations
+    names = ("launches", "cohort_launches", "shard_launches", "packed_launches",
+             "persistent_launches", "vote_all_launches")  # fmt: skip
+    before = [getattr(k_wirepath, n) for n in names] + [k_acceptor.launches]
+    violations, ran = contracts.check_inplace(cuda, a=3, n=4096, v=16, b=128, g=8)
+    torch.cuda.synchronize()
+    assert violations == [] and ran == 8, violations
+    after = [getattr(k_wirepath, n) for n in names] + [k_acceptor.launches]
+    assert all(x > y for x, y in zip(after, before, strict=True)), (before, after)

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``repro_torch``, nor ``chip_smoke``,
 nor the port's examples (``examples/torch_*.py``, the training and
-serving examples too), imports ``jax`` or the reference package ``repro``; and the consensus
+serving examples too), nor its contract checker
+(``tools/check_contracts_torch.py``), imports ``jax`` or the reference
+package ``repro``; and the consensus
 service and KV tier do not load the models.
 
 Checked in a fresh interpreter, because this test process has both loaded.
@@ -32,6 +34,8 @@ examples = sorted(Path("examples").glob("torch_*.py"))
 for path in examples:
     spec = importlib.util.spec_from_file_location(path.stem, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
+tool = importlib.util.spec_from_file_location("tool", "tools/check_contracts_torch.py")
+tool.loader.exec_module(importlib.util.module_from_spec(tool))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), [p.name for p in examples], leaked)
 assert len(examples) == 5, examples
@@ -41,7 +45,7 @@ for name in ("kernels.wirepath", "core.api", "core.fabric", "launch", "launch.me
              "launch.serve", "serve.service", "serve.kv", "core.log", "core.baseline",
              "train.elastic", "train.optimizer", "train.data", "train.train_loop",
              "train.checkpoint", "launch.train", "models.convert", "models.griffin",
-             "models.rwkv6", "models.whisper"):
+             "models.rwkv6", "models.whisper", "kernels.ref", "analysis.contracts"):
     assert "repro_torch." + name in names, names
 """
 
