@@ -146,7 +146,18 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    checkpoint committed through consensus at step 3, restored bit for bit,
    resumed with the uninterrupted run's losses, and with acceptors 0 and 1
    killed a save that stays invisible;
-15. the other families at full width and full depth, random weights from a
+15. the mesh phase (``run_mesh``): four of those training steps on
+   ``make_host_mesh()``, a (1, 1) ``(data, model)`` mesh over NCCL in a
+   world of one, the state and batches placed as DTensors by
+   ``launch.sharding.BASE_RULES`` and its activation sharder installed,
+   against the same four steps unmeshed from the same state: the losses'
+   relative gap under 1e-3, ``shard`` calls and K9 launches (through
+   ``local_map``) inside the meshed steps, each side's step times apart;
+   then ``python -m
+   repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k --mesh
+   single`` in a subprocess (a fake group of 256 ranks, meta tensors, no
+   card), whose record must be ``ok``;
+16. the other families at full width and full depth, random weights from a
    seeded generator (``run_family``), each phase's weights freed before the
    next: recurrentgemma-2b (26 layers, 2.89 G params) on 2 prompts of 4096
    tokens in bf16, K9 8 times a call (window 2048, G = 10, D = 256), and
@@ -159,7 +170,7 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    ``prefill_decode_atol``), and ``ServeLoop`` at batch 4 on 8 requests of
    64-128 prompt tokens, twice alike, two alone as in the batch; the memory
    still allocated before these phases and after each has freed its weights;
-16. times: each kernel by CUDA events at its path's shapes beside its bound
+17. times: each kernel by CUDA events at its path's shapes beside its bound
    and its plain version (K1, K5, K6, K2, K7 and K8 also beside the launch
    floor of their grid, an empty kernel, and their times at 64, 128 and
    256 threads a block, with the registers, spills and 128-bit load and
@@ -189,8 +200,9 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    data-sheet rates (``t_compute``, ``t_memory``, ``dominant``,
    ``t_bound``), beside the phase's measured p50 (``bound_share``,
    ``mfu``).  Every kernel's bound comes from ``analysis.bounds``;
-17. the ``kernels`` JSON line (K9's launches: the LM, MoE, griffin and
-   whisper prefill paths'), then the ``ok`` JSON line last.
+18. the ``kernels`` JSON line (K9's launches: the LM, MoE, griffin and
+   whisper prefill paths' and the mesh phase's), then the ``ok`` JSON line
+   last.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run, and
@@ -209,6 +221,7 @@ import importlib.util
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -3760,6 +3773,102 @@ def run_training_checkpoints(dev) -> dict:
     return dict(resume_max_abs_err=resume_err)
 
 
+MESH_STEPS = 4  # the first warms up; the p50 step time is over the others
+MESH_GAP = 1e-3  # the meshed losses' largest relative gap from the unmeshed ones
+
+
+def run_mesh(dev) -> dict:
+    """``launch/``'s path on the card: ``MESH_STEPS`` train steps of qwen3-4b
+    at the training phase's width and depth on ``make_host_mesh()``, a (1, 1)
+    ``(data, model)`` mesh over NCCL in a world of one, the state and each
+    batch placed as DTensors by ``BASE_RULES`` and the activation sharder
+    installed, against the same steps unmeshed from the same state and
+    batches, each side's steps timed alone (the card synchronised around
+    each, the host's clock; the p50 over the steps after the first); then
+    ``launch.dryrun``'s qwen3-4b ``train_4k`` cell on the (16, 16)
+    production mesh, a subprocess on a fake group of 256 ranks (it never
+    meets the NCCL group)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    cfg = train_config()
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, global_batch=TRAIN_BATCH,
+                                        seq_len=TRAIN_SEQ, seed=SEED))  # fmt: skip
+    opt = OptConfig(total_steps=TRAIN_STEPS)
+
+    def steps(place=lambda t: t, place_batch=lambda b: b):
+        state = place(train_loop.init_state(cfg, torch.Generator(device=dev).manual_seed(SEED)))
+        step, out, ms = train_loop.make_train_step(cfg, opt), [], []
+        for batch in itertools.islice(batches(stream, 0, dev), MESH_STEPS):
+            batch = place_batch(batch)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            out.append((float(m["loss"]), int(m["digest"])))
+        return out, ms
+
+    unmeshed, unmeshed_ms = steps()
+    gc.collect()
+    torch.cuda.empty_cache()
+    owned = not dist.is_initialized()
+    mesh = make_host_mesh(device=dev)
+    rules = sh.BASE_RULES
+    state_sh = sh.tree_shardings(train_loop.state_shapes(cfg), train_loop.state_axes(cfg), rules,
+                                 mesh)  # fmt: skip
+    shape = ShapeConfig("mesh", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch_sh = sh.batch_shardings(lm_registry.input_specs(cfg, shape), cfg, rules, mesh)
+    sh.calls = 0
+    reset_launches()
+    with sh.use_rules(mesh, rules):
+        meshed, meshed_ms = steps(
+            lambda s: sh.place_tree(s, state_sh),
+            lambda b: {k: batch_sh[k].place(v) for k, v in b.items()},
+        )
+    launches, calls = read_launches(), sh.calls
+    if owned:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gap = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(meshed, unmeshed, strict=True))
+    step_s = time.perf_counter() - t0
+    p50 = {"meshed": float(np.median(meshed_ms[1:])), "unmeshed": float(np.median(unmeshed_ms[1:]))}
+    print(f"  {cfg.name}, {cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+          f"{MESH_STEPS} steps on a {tuple(mesh.shape)} {mesh.mesh_dim_names} mesh over "
+          f"{mesh.device_type}: (loss, digest) meshed {meshed}, unmeshed {unmeshed}; largest "
+          f"relative loss gap {gap}; shard calls {calls}; launches {launches}; step ms meshed "
+          f"{meshed_ms}, unmeshed {unmeshed_ms}; p50 after the first {p50}")  # fmt: skip
+    if gap >= MESH_GAP or not calls or not launches["K9"]:
+        raise AssertionError(f"the meshed steps' loss gap {gap} is not under {MESH_GAP}, or the "
+                             f"sharder ({calls}) or K9 ({launches['K9']}) never ran")  # fmt: skip
+
+    t1 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), CUDA_VISIBLE_DEVICES="")
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen3-4b", "--shape",
+               "train_4k", "--mesh", "single", "--out", d]  # fmt: skip
+        out = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        print("  " + "\n  ".join(out.stdout.strip().splitlines()))
+        files = list(Path(d).glob("*.json"))
+        rec = json.loads(files[0].read_text()) if files else {}
+    dry_s = time.perf_counter() - t1
+    print(f"  dry run record: {json.dumps({k: v for k, v in rec.items() if k != 'traceback'})}")
+    if out.returncode or rec.get("ok") is not True:
+        raise AssertionError(f"the dry run failed (exit {out.returncode}): "
+                             f"{rec.get('traceback', out.stderr[-3000:])}")  # fmt: skip
+    return dict(layers=cfg.n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=MESH_STEPS,
+                mesh=list(mesh.shape), meshed=meshed, unmeshed=unmeshed, loss_gap=gap,
+                shard_calls=calls, k9_launches=launches["K9"], steps_s=step_s,
+                meshed_step_ms=meshed_ms, unmeshed_step_ms=unmeshed_ms,
+                meshed_p50_ms=p50["meshed"], unmeshed_p50_ms=p50["unmeshed"], dryrun_s=dry_s,
+                dryrun=rec)  # fmt: skip
+
+
 def run_training(dev) -> dict:
     print("training path: launch/train.py's path, qwen3-4b, PaxosContext(PaxosConfig("
           "n_acceptors=3, n_instances=4096, batch=16)), staged")  # fmt: skip
@@ -5106,6 +5215,9 @@ def run(dev: torch.device) -> None:
     del moe16
     torch.cuda.empty_cache()
     trained = run_training(dev)
+    print("mesh phase: make_host_mesh() over NCCL in a world of one, BASE_RULES, qwen3-4b "
+          "train steps; then the dry run of qwen3-4b train_4k on a fake (16, 16) group")
+    meshed = run_mesh(dev)
     memory_left(dev, "before the family phases")
     families = {arch: run_family(dev, arch, family_seed(arch)) for arch in FAMILY_ARCHS}
 
@@ -5175,6 +5287,7 @@ def run(dev: torch.device) -> None:
     path_metrics["training, card against CPU"] = dict(card=CARD, **trained["parity"])
     path_metrics["training example"] = dict(card=CARD, **trained["convergence"])
     path_metrics["training checkpoints"] = dict(card=CARD, **trained["checkpoints"])
+    path_metrics["mesh"] = dict(card=CARD, **{k: v for k, v in meshed.items() if k != "dryrun"})
     family_k9 = 0
     for arch, fam in families.items():
         pre = {k: v for k, v in fam["prefill"].items() if k not in ("launches", "call_s")}
@@ -5208,7 +5321,7 @@ def run(dev: torch.device) -> None:
         ("K6", "wirepath.cu", "src/repro/kernels/wirepath.py:780", sh_launches),
         ("K1-shard", "wirepath.cu", "src/repro/kernels/wirepath.py:706", sh_launches),
         ("K9", "flash_attention.cu", "src/repro/kernels/flash_attention.py:96",
-         {"K9": lm_launches["K9"] + moe_launches["K9"] + family_k9}),
+         {"K9": lm_launches["K9"] + moe_launches["K9"] + family_k9 + meshed["k9_launches"]}),
     ]  # fmt: skip
     kernels = [
         dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}", replaces=replaces,

@@ -1,7 +1,24 @@
-"""The ``groups`` mesh of the groups-sharded dataplane.
+"""Meshes: the ``(data, model)`` host and production meshes on
+``torch.distributed``'s ``DeviceMesh``, and the ``groups`` mesh of the
+groups-sharded dataplane.
 
-The counterpart of ``repro.launch.mesh.make_group_mesh``.  The reference's
-sharded round has no collective: groups share no state, and every per-group
+``make_host_mesh`` and ``make_production_mesh`` are the counterparts of
+``repro.launch.mesh``'s, with the reference's shapes and axis names:
+
+  * host:       (n // mp, mp)  axes (data, model)
+  * single-pod: (16, 16)       axes (data, model)       256 ranks
+  * multi-pod:  (2, 16, 16)    axes (pod, data, model)  512 ranks
+
+One rank is one process and one device: NCCL over the cards (``device``
+``None`` or ``"cuda"``), gloo over CPU processes (``device="cpu"``).  Under
+``torchrun`` the process group comes from its environment; with no process
+group and no such environment a world of one starts on a local store, so
+one process on one card (and the tests) gets a (1, 1) mesh.  A world whose
+size is not the mesh's raises ``ValueError``, as ``jax.make_mesh`` refuses.
+
+``make_group_mesh`` is the counterpart of
+``repro.launch.mesh.make_group_mesh``.  The reference's sharded round has
+no collective: groups share no state, and every per-group
 scalar is host-authoritative and enters each dispatch replicated.  So its
 ``shard_map`` is a single-controller loop over shards, and the port writes
 it as one (``core.fabric``).  A ``GroupMesh`` says how many shards the G
@@ -23,8 +40,11 @@ over a free-list within it and never re-shard.
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 
 import torch
+import torch.distributed as dist
 
 _MULTI_CARD = "ROADMAP.md queue 1, item 6 (meshes over several cards)"
 
@@ -65,3 +85,61 @@ def make_group_mesh(n_shards: int = 0, device: torch.device | str | None = None)
             )
         n_shards = 1
     return GroupMesh(n_shards=n_shards, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# (data, model) meshes on torch.distributed
+# ---------------------------------------------------------------------------
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def ensure_process_group(device: torch.device) -> int:
+    """The world size, after starting a process group where there is none:
+    from ``torchrun``'s environment where it is set, else a world of one on
+    a local store.  NCCL on the card, gloo on the CPU."""
+    if not dist.is_initialized():
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        if all(k in os.environ for k in _TORCHRUN_ENV):
+            if device.type == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+            dist.init_process_group(backend, init_method="env://")
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    return dist.get_world_size()
+
+
+def _device_mesh(shape: tuple[int, ...], names: tuple[str, ...], device):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ..core.device import resolve_device
+
+    dev = resolve_device(device)
+    world = ensure_process_group(dev)
+    need = math.prod(shape)
+    if world != need:
+        raise ValueError(
+            f"a {shape} mesh over {names} needs a world of {need} ranks, this one has {world}"
+        )
+    return init_device_mesh(dev.type, shape, mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: torch.device | str | None = None):
+    """The (16, 16) ``(data, model)`` mesh, or (2, 16, 16) ``(pod, data,
+    model)`` with ``multi_pod``: 256 or 512 ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _device_mesh(shape, axes, device)
+
+
+def make_host_mesh(
+    n_devices: int = 0, model_parallel: int = 1, device: torch.device | str | None = None
+):
+    """A ``(n // mp, mp)`` ``(data, model)`` mesh over the world's ranks
+    (``n_devices=0``: all of them)."""
+    from ..core.device import resolve_device
+
+    n = n_devices or ensure_process_group(resolve_device(device))
+    mp = model_parallel
+    if mp < 1 or n % mp:
+        raise ValueError(f"model_parallel {mp} does not divide {n} devices")
+    return _device_mesh((n // mp, mp), ("data", "model"), device)

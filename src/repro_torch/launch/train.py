@@ -4,11 +4,22 @@
     python -m repro_torch.launch.train --arch qwen3-4b --steps 20 \\
         --batch 4 --seq 2048 --ckpt-dir ckpt --ckpt-every 10
 
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch qwen3-4b --smoke \
+        --device cpu --steps 4 --batch 8 --seq 16
+
 The port of ``repro.launch.train``: the same flags, plus ``--device``.
 Fault-tolerance path: consensus-committed checkpoints, quorum step-commit
 through a staged ``PaxosContext`` on the same device, restart from the
-latest committed step.  ``--mesh host`` is the one device; the TPU meshes
-(``--mesh prod``, ``prod-multi``) wait for ``ROADMAP.md`` queue 1, item 9.
+latest committed step.
+
+``--mesh host`` builds ``make_host_mesh()`` over the world's ranks (one
+process without ``torchrun`` is a world of one: a (1, 1) mesh), ``prod``
+and ``prod-multi`` the (16, 16) and (2, 16, 16) production meshes, which
+need a world of 256 or 512 ranks.  Each rank is one process on one device
+(NCCL on the cards, gloo with ``--device cpu``).  The state and each batch
+are placed as DTensors by ``BASE_RULES`` (``launch.sharding``), which is
+also installed as the activation sharder.  Every rank draws the same
+initial state and batches from ``--seed``; only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -17,10 +28,15 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import PaxosConfig, PaxosContext
 from repro_torch.core.device import resolve_device
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.models import registry
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train import data as data_mod
 from repro_torch.train import optimizer as opt_mod
@@ -48,13 +64,31 @@ def main(argv: list[str] | None = None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the TPU meshes are not ported yet: ROADMAP.md queue 1, item 9"
-        )
     dev = resolve_device(args.device)
+    owns_group = not dist.is_initialized()
+    try:
+        if args.mesh == "host":
+            mesh = make_host_mesh(device=dev)
+        else:
+            mesh = make_production_mesh(multi_pod=args.mesh == "prod-multi", device=dev)
+        rules = sh.BASE_RULES
+        with sh.use_rules(mesh, rules):
+            _train(args, cfg, dev, mesh, rules)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _train(args, cfg, dev: torch.device, mesh, rules) -> None:
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
     state = train_loop.init_state(cfg, torch.Generator(device=dev).manual_seed(args.seed))
+    state_sh = sh.tree_shardings(
+        train_loop.state_shapes(cfg), train_loop.state_axes(cfg), rules, mesh
+    )
+    state = sh.place_tree(state, state_sh)
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    batch_sh = sh.batch_shardings(registry.input_specs(cfg, shape), cfg, rules, mesh)
     opt_cfg = opt_mod.OptConfig(lr=args.lr, total_steps=max(args.steps, 10))
     step_fn = train_loop.make_train_step(cfg, opt_cfg, grad_accum=args.grad_accum)
 
@@ -75,8 +109,9 @@ def main(argv: list[str] | None = None) -> None:
     if args.ckpt_dir:
         mgr = ckpt_mod.CheckpointManager(args.ckpt_dir, paxos_ctx=paxos)
         if args.resume and mgr.latest_committed():
-            state, start_step = mgr.restore(state)
-            print(f"resumed from committed step {start_step}")
+            state, start_step = mgr.restore(state, shardings=state_sh)
+            if dist.get_rank() == 0:
+                print(f"resumed from committed step {start_step}")
 
     loop_cfg = train_loop.LoopConfig(
         steps=args.steps,
@@ -93,15 +128,17 @@ def main(argv: list[str] | None = None) -> None:
         paxos_ctx=paxos,
         checkpoint_mgr=mgr,
         rng_seed=args.seed,
+        batch_shardings=batch_sh,
     )
     dt = time.time() - t0
     committed = sum(hist["committed"])
-    print(
-        f"{args.steps} steps in {dt:.1f}s ({dt / max(args.steps, 1) * 1e3:.1f} ms/step) "
-        f"loss {hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f} "
-        f"committed={committed}/{args.steps} "
-        f"consensus_delivered={paxos.stats['delivered']}"
-    )
+    if dist.get_rank() == 0:
+        print(
+            f"{args.steps} steps in {dt:.1f}s ({dt / max(args.steps, 1) * 1e3:.1f} ms/step) "
+            f"loss {hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f} "
+            f"committed={committed}/{args.steps} "
+            f"consensus_delivered={paxos.stats['delivered']}"
+        )
 
 
 if __name__ == "__main__":

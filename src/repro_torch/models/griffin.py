@@ -169,7 +169,7 @@ def _rg_lru(u: torch.Tensor, p, h0: torch.Tensor | None = None):
 def _rec_mixer(p, x, cfg, conv_state=None, h0=None):
     """x: (B, T, D) normalized input.  Returns (out, (conv_state', h_T))."""
     gate = _gelu(torch.einsum("btd,dr->btr", x, p["w_gate"]))
-    u = torch.einsum("btd,dr->btr", x, p["w_x"])
+    u = L.shard(torch.einsum("btd,dr->btr", x, p["w_x"]), ("batch", "act_seq", "rnn"))
     u, conv_state = _causal_conv(u, p["conv"] + _conv_id(p["conv"]), conv_state)
     h, h_last = _rg_lru(u, p, h0)
     out = torch.einsum("btr,rd->btd", gate * h, p["w_o"])
@@ -177,10 +177,12 @@ def _rec_mixer(p, x, cfg, conv_state=None, h0=None):
 
 
 def _conv_id(kernel: torch.Tensor) -> torch.Tensor:
-    """Identity-init helper: zero-initialized kernel + delta at the last tap."""
-    ident = torch.zeros_like(kernel)
-    ident[-1] = 1.0
-    return ident
+    """Identity-init helper: zero-initialized kernel + delta at the last tap.
+    A (W, 1) column that broadcasts over the channels, built out of place
+    (a DTensor kernel has no in-place fill)."""
+    w = kernel.shape[0]
+    taps = torch.arange(w, device=kernel.device)
+    return L.replicated_like((taps == w - 1).to(kernel.dtype)[:, None], kernel)
 
 
 def _rec_block(blk, x, cfg, state=None):
@@ -205,7 +207,7 @@ def _attn_block(blk, x, cfg):
 
 def _at(tree, *idx) -> Any:
     """The params at ``idx`` of every stacked leaf: views, no copies."""
-    return L.tree_map(lambda x: x[idx], tree)
+    return L.layer(tree, *idx)
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +223,7 @@ def _super_block(cfg, x, blk):
         x, st = _rec_block(_at(blk["rec"], r), x, cfg)
         states.append(st)
     x, (kk, vv) = _attn_block(blk["attn"], x, cfg)
+    x = L.shard(x, ("batch", "act_seq", None))
     conv = torch.stack([s["conv"] for s in states])
     return x, conv, torch.stack([s["h"] for s in states]), kk, vv
 
@@ -235,7 +238,7 @@ def forward(cfg, params, batch, *, collect_cache: bool = False):
     tokens = batch["tokens"]
     b = tokens.shape[0]
     n_super, n_rem = _layout(cfg)
-    h = params["embed"][tokens]
+    h = L.shard(L.embed_lookup(params["embed"], tokens), ("batch", "act_seq", None))
 
     body = L.checkpoint_fn(lambda x, blk: _super_block(cfg, x, blk), cfg)
     outs, rem_outs = [], []
@@ -254,12 +257,13 @@ def forward(cfg, params, batch, *, collect_cache: bool = False):
 
     h = L.rms_norm(h, params["ln_f"], cfg.norm_eps)
     logits = torch.einsum("btd,dv->btv", h, params["embed"].T.to(h.dtype))
+    logits = L.shard(logits, ("batch", "act_seq", "vocab"))
 
     cache = None
     if collect_cache:
         conv, hs, kk, vv = (torch.stack(ys) for ys in zip(*outs, strict=True))
         s = kk.shape[2]
-        kpos = torch.arange(s, dtype=torch.int32, device=kk.device)
+        kpos = L.replicated_like(torch.arange(s, dtype=torch.int32, device=kk.device), kk)
         cache = {
             "rec_conv": conv,
             "rec_h": hs,
@@ -352,7 +356,7 @@ def _attn_step(cfg, blk, x, kc, vc, kp, pos: int) -> torch.Tensor:
     kk = L.rope(kk, posv, cfg.rope_theta)
     kc[:, slot] = kk[:, 0].to(kc.dtype)
     vc[:, slot] = vv[:, 0].to(vc.dtype)
-    kp[:, slot] = pos
+    kp[:, slot].fill_(pos)
     out = L.decode_attention(q.reshape(b, 1, kvh, g, hd), kc, vc, kp, pos, window=cfg.local_window)
     out = torch.einsum("bshk,hkd->bsd", out.reshape(b, 1, cfg.n_heads, hd), p["wo"])
     x = x + out
@@ -365,7 +369,7 @@ def decode_step(cfg, params, tokens, cache, pos):
     pos = int(pos)
     n_super, n_rem = _layout(cfg)
     n_rec_per = cfg.block_pattern.count("rec")
-    h = params["embed"][tokens]  # (B, 1, D)
+    h = L.embed_lookup(params["embed"], tokens)  # (B, 1, D)
     for i in range(n_super):
         blk = _at(params["super"], i)
         for r in range(n_rec_per):

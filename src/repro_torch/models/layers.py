@@ -3,10 +3,14 @@ attention, MLP, MoE.
 
 The port of ``repro.models.layers``.  Params are nested dicts of tensors
 built from ``PSpec`` trees with the reference's keys and stacked shapes;
-every param carries logical axis names (a parallel tree).  ``shard`` is the
-identity: the sharding hook comes with ``launch/`` (``ROADMAP.md`` queue 1,
-item 9).  ``checkpoint_fn`` is the reference's remat policy on
-``torch.utils.checkpoint``.
+every param carries logical axis names (a parallel tree) that
+``launch/sharding.py`` maps onto mesh axes.  Model code annotates
+activations with ``shard`` calls: the identity on a plain tensor or with no
+sharder installed, and under ``launch.sharding.install`` a redistribution
+of a DTensor activation to its resolved placements.  Tensors the layers
+make themselves (positions, rotary angles, masks) meet DTensor activations
+through ``replicated_like``.  ``checkpoint_fn`` is the reference's remat
+policy on ``torch.utils.checkpoint``.
 
 ``flash_attention`` runs K9 (``kernels.flash_attention``) on a CUDA tensor,
 under autograd through ``K9Attention``, and a plain twin of the reference's
@@ -20,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from collections.abc import Callable
 from typing import Any
 
 import torch
@@ -31,10 +36,142 @@ from repro_torch.kernels import flash_attention as _k9
 
 NEG_INF = -1e30
 
+# ---------------------------------------------------------------------------
+# Activation sharding hook (installed by launch/sharding.py)
+# ---------------------------------------------------------------------------
+_ACTIVATION_SHARDER: Callable[[torch.Tensor, tuple], torch.Tensor] | None = None
+_FSDP_AXES: tuple[str, ...] = ()  # mesh axes whose param splits ``layer`` gathers
+
+
+def set_activation_sharder(fn: Callable | None, fsdp_axes: tuple[str, ...] = ()) -> None:
+    """Install ``fn`` as ``shard``'s sharder (``None``: none), and the mesh
+    axes that split params FSDP-wise, which ``layer`` gathers."""
+    global _ACTIVATION_SHARDER, _FSDP_AXES
+    _ACTIVATION_SHARDER = fn
+    _FSDP_AXES = tuple(fsdp_axes)
+
 
 def shard(x: torch.Tensor, axes: tuple) -> torch.Tensor:
-    """Annotate an activation with logical axes: the identity without a mesh."""
-    return x
+    """Annotate an activation with logical axes (no-op without a sharder)."""
+    if _ACTIVATION_SHARDER is None:
+        return x
+    return _ACTIVATION_SHARDER(x, axes)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t``, made alike on every rank, as a replicated DTensor on ``ref``'s
+    mesh where ``ref`` is a DTensor; else ``t`` itself."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def gathered(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` whole along ``dim`` on every rank: a DTensor split there is
+    gathered (its other splits kept); a plain tensor is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    dim %= x.dim()
+    return x.redistribute(placements=[Replicate() if p == Shard(dim) else p for p in x.placements])
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """The full tensor of a DTensor, the same on every rank; else ``x``."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def settled(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its partial sums reduced (``Partial`` made
+    ``Replicate``); else ``x``."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(placements=[Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def shard_box(shape, placements, mesh, coord) -> tuple[tuple[int, ...], tuple[int, ...], bool]:
+    """Where the rank at mesh coordinate ``coord`` holds a tensor of
+    ``shape`` placed by ``placements`` (no ``Partial``) on ``mesh``: the
+    global index of its shard's first element and the shard's shape, split
+    major to minor over the mesh dims as DTensor splits (every split even),
+    and whether its copy is the one counted, coordinate 0 on every mesh dim
+    that does not split the tensor."""
+    size, off = list(shape), [0] * len(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            n = mesh.size(i)
+            if size[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not split {n} ways evenly")
+            size[p.dim] //= n
+            off[p.dim] += coord[i] * size[p.dim]
+    counted = all(c == 0 for c, p in zip(coord, placements, strict=True) if not p.is_shard())
+    return tuple(off), tuple(size), counted
+
+
+def layer(tree: Any, *idx) -> Any:
+    """The params at ``idx`` of every stacked leaf: views, no copies.  A
+    DTensor's split over the FSDP axes that the installed sharder named is
+    gathered, as FSDP gathers a layer's weights before running it (its
+    gradient is then scattered back); its other splits stay."""
+
+    def at(x):
+        x = x[idx]
+        if not is_dtensor(x):
+            return x
+        from torch.distributed.tensor import Replicate
+
+        names = x.device_mesh.mesh_dim_names
+        keep = [Replicate() if n in _FSDP_AXES else p
+                for n, p in zip(names, x.placements, strict=True)]  # fmt: skip
+        return x.redistribute(placements=keep)
+
+    return tree_map(at, tree)
+
+
+def split_last(x: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``x`` with its last dim cut into ``shape``.  A DTensor split of that
+    dim which ``shape[0]`` does not divide is gathered first: DTensor cannot
+    cut a split dim unevenly."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Shard
+
+        last = Shard(x.dim() - 1)
+        ways = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements) if p == last)
+        if shape[0] % ways:
+            x = gathered(x, -1)
+    return x.reshape(*x.shape[:-1], *shape)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  A DTensor table is gathered whole and each rank
+    looks up its own tokens (``local_map``): DTensor's own strategies for a
+    lookup into a split table and for its gradient differ between torch
+    releases and fail on some.  The rows come out split as the tokens are,
+    and the table's gradient is a partial sum over the mesh dims that split
+    the tokens."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    whole_table = (Replicate(),) * table.device_mesh.ndim
+    rows = tuple(tokens.placements)
+    grad = tuple(Replicate() if p == Replicate() else Partial() for p in rows)
+    fn = local_map(lambda t, i: t[i], out_placements=(rows,), in_placements=(whole_table, rows),
+                   in_grad_placements=(grad, rows), redistribute_inputs=True)  # fmt: skip
+    return fn(table, tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -78,9 +215,19 @@ def tree_leaves(tree: Any) -> list:
 
 
 def tree_unflatten(like: Any, leaves: list) -> Any:
-    """``like``'s structure with ``leaves`` in ``tree_leaves`` order."""
+    """``like``'s structure with ``leaves`` in ``tree_leaves`` order (a
+    dict's leaves filled in its sorted keys' order, whatever its own)."""
     it = iter(leaves)
-    out = tree_map(lambda _: next(it), like)
+
+    def build(tree):
+        if isinstance(tree, dict):
+            filled = {key: build(tree[key]) for key in sorted(tree)}
+            return {key: filled[key] for key in tree}
+        if isinstance(tree, tuple):
+            return _rebuild(tree, [build(sub) for sub in tree])
+        return next(it)
+
+    out = build(like)
     if next(it, it) is not it:
         raise ValueError(f"more leaves than {type(like).__name__} holds")
     return out
@@ -203,7 +350,7 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     else:
         ang = pos[..., None].float() * freqs  # (B, S, half)
         ang = ang[:, :, None, :]  # (B, S, 1, half)
-    sin, cos = torch.sin(ang), torch.cos(ang)
+    sin, cos = replicated_like(torch.sin(ang), x), replicated_like(torch.cos(ang), x)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -246,9 +393,13 @@ def flash_attention(
     wider one, as the reference's products promote them, and the output
     comes back in q's dtype.  On a CPU tensor: the
     reference's chunked online softmax, padding and key-validity mask
-    included, differentiated by autograd.
+    included, differentiated by autograd.  On a ``meta`` tensor (the dry
+    run's trace) the whole sequence is one chunk: the same products, as
+    every block is computed, in far fewer operations to trace.
     """
     d = q.shape[-1]
+    if q.device.type == "meta":
+        chunk_q, chunk_k = q.shape[1], k.shape[1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cuda":
         if q_offset != 0 or k_positions is not None:
@@ -261,6 +412,75 @@ def flash_attention(
         return out.to(q.dtype)
     return _chunked_attention(q, k, v, causal, int(window), int(q_offset), k_positions,
                               chunk_q, chunk_k, scale)  # fmt: skip
+
+
+def _grouped_attention(q, k, v, kv: int, **kw) -> torch.Tensor:
+    """``flash_attention`` of (B, S, H, D) queries over (B, Sk, KV, D) keys
+    and values, grouped as the reference groups them (H = KV x G, head
+    ``j`` on key head ``j // G``); returns (B, S, H, D).
+
+    On DTensors it runs through ``local_map``: K9 on the card, or the plain
+    route on the CPU, sees each rank's local batch and heads.  A mesh dim
+    that shards q's batch (dim 0) or heads (dim 2) keeps that split, the
+    keys' batch alike; any other split is gathered first.  Where the heads
+    take a mesh dim the key heads could not (KV indivisible, so the keys
+    are whole on every rank), each rank's query heads meet their own key
+    heads: the slice of them its heads use, or, where its heads straddle a
+    group's edge, one key head a query head.  Their gradients are then
+    partial sums over that mesh dim."""
+    if not is_dtensor(q):
+        return _local_gqa(q, k, v, None, 0, **kw)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    g = q.shape[2] // kv
+    head0 = None
+    qp, kp, kgrad = [], [], []
+    for i, (pq, pk) in enumerate(zip(q.placements, k.placements, strict=True)):
+        if pq == Shard(0) or (pq == Shard(2) and pk == Shard(2)):
+            qp.append(pq)
+            kp.append(pq)
+            kgrad.append(pq)
+        elif pq == Shard(2):
+            qp.append(pq)
+            kp.append(Replicate())
+            kgrad.append(Partial())
+            head0 = mesh.get_local_rank(i) * (q.shape[2] // mesh.size(i))
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+            kgrad.append(Replicate())
+    qp, kp, kgrad = tuple(qp), tuple(kp), tuple(kgrad)
+    fn = local_map(
+        functools.partial(_local_gqa, head0=head0, g=g, **kw),
+        out_placements=(qp,),
+        in_placements=(qp, kp, kp),
+        in_grad_placements=(qp, kgrad, kgrad),
+        redistribute_inputs=True,
+    )
+    return fn(q, k, v)
+
+
+def _local_gqa(q, k, v, head0: int | None, g: int, **kw) -> torch.Tensor:
+    """One rank's grouped attention.  ``head0`` is the global index of its
+    first query head where its keys are every key head (``g`` heads a
+    group), ``None`` where its keys are exactly its heads' groups."""
+    b, s, hl, hd = q.shape
+    if head0 is None:
+        lo, n = 0, k.shape[2]
+    else:
+        lo, hi = head0 // g, (head0 + hl - 1) // g + 1
+        n = hi - lo
+    if head0 is None or (head0 % g == 0 and hl == n * g) or n == 1:
+        if head0 is not None:
+            k, v = k[:, :, lo : lo + n], v[:, :, lo : lo + n]
+        qg = q.reshape(b, s, n, hl // n, hd)
+    else:
+        idx = torch.arange(head0, head0 + hl, device=q.device) // g
+        k, v = k[:, :, idx], v[:, :, idx]
+        qg = q.reshape(b, s, hl, 1, hd)
+    return flash_attention(qg, k, v, **kw).reshape(b, s, hl, hd)
 
 
 def _chunked_attention(q, k, v, causal, window, q_offset, k_positions, chunk_q, chunk_k, scale):
@@ -367,9 +587,7 @@ def attention_fwd(
 
     With ``kv_override`` the keys and values are taken as given, (B, Sk,
     KVH, D): no projection and no rope, but ``qk_norm`` where set."""
-    b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    g = h // kv
+    s = x.shape[1]
     if positions is None:
         pos = torch.arange(s, dtype=torch.int32, device=x.device)
     else:
@@ -388,15 +606,16 @@ def attention_fwd(
         q = rope(q, pos, cfg.rope_theta)
         if kv_override is None:
             kk = rope(kk, pos, cfg.rope_theta)
+    q = shard(q, ("batch", None, "heads", None))
+    kk = shard(kk, ("batch", None, "kv_heads", None))
+    vv = shard(vv, ("batch", None, "kv_heads", None))
 
-    qg = q.reshape(b, s, kv, g, hd)
-    out = flash_attention(
-        qg, kk, vv, causal=causal, window=window,
+    out = _grouped_attention(
+        q, kk, vv, cfg.n_kv_heads, causal=causal, window=window,
         q_offset=int(pos[0]) if positions is not None else 0,
     )  # fmt: skip
-    out = out.reshape(b, s, h, hd)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return out, (kk, vv)
+    return shard(out, ("batch", None, "embed_act")), (kk, vv)
 
 
 # ---------------------------------------------------------------------------
@@ -413,6 +632,7 @@ def mlp_specs(cfg, d_ff: int | None = None) -> dict[str, PSpec]:
 
 def mlp_fwd(p: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     h = F.silu(torch.einsum("bsd,df->bsf", x, p["wg"])) * torch.einsum("bsd,df->bsf", x, p["wi"])
+    h = shard(h, ("batch", None, "mlp_act"))
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
 
 
@@ -469,7 +689,7 @@ def moe_fwd(p: dict[str, Any], x: torch.Tensor, cfg) -> torch.Tensor:
         raise ValueError(f"{t} tokens do not split into {g} dispatch groups")
     tg = t // g
     cap = moe_capacity(cfg, tg)
-    xt = x.reshape(g, tg, d)
+    xt = shard(x.reshape(g, tg, d), ("batch", None, None))
     gate, idx = moe_route(p["router"], xt, k)
 
     eidx = idx.reshape(g, tg * k)
@@ -484,11 +704,12 @@ def moe_fwd(p: dict[str, Any], x: torch.Tensor, cfg) -> torch.Tensor:
     tokens_rep = xt.reshape(g * tg, d).repeat_interleave(k, dim=0).reshape(g, tg * k, d)
     buf = x.new_zeros((g, e, cap + 1, d))
     buf[gi, eidx, slot] = tokens_rep
-    buf = buf[:, :, :cap]
+    buf = shard(buf[:, :, :cap], ("batch", "expert", None, None))
 
     hg = F.silu(torch.einsum("gecd,edf->gecf", buf, p["wg"]))
     hi = torch.einsum("gecd,edf->gecf", buf, p["wi"])
-    out_buf = torch.einsum("gecf,efd->gecd", hg * hi, p["wo"])  # (g, e, cap, d)
+    hh = shard(hg * hi, ("batch", "expert", None, "expert_mlp"))
+    out_buf = torch.einsum("gecf,efd->gecd", hh, p["wo"])  # (g, e, cap, d)
 
     out_tok = out_buf[gi, eidx, torch.clamp(slot, max=cap - 1)]  # (g, tg*k, d)
     w = (gate.reshape(g, tg * k) * keep).to(out_tok.dtype)

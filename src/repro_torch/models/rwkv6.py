@@ -94,6 +94,31 @@ def _wkv_scan(r, k, v, w, u, s0):
     return torch.stack(ys, dim=1), s
 
 
+def _wkv(r, k, v, w, u, s0):
+    """``_wkv_scan``; on DTensors each rank scans its own batch rows and
+    heads (``local_map``), every other split gathered first, so the loop
+    over time runs on local tensors."""
+    if not L.is_dtensor(r):
+        return _wkv_scan(r, k, v, w, u, s0)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    placed = []  # on each mesh dim: r, k, v, w; u; u's gradient; the states
+    for p in r.placements:
+        if p == Shard(0):  # batch rows: the bonus's gradient sums over them
+            placed.append((p, Replicate(), Partial(), p))
+        elif p == Shard(2):  # heads
+            placed.append((p, Shard(0), Shard(0), Shard(1)))
+        else:
+            placed.append((Replicate(),) * 4)
+    seq, uu, ug, state = (tuple(x) for x in zip(*placed, strict=True))
+    fn = local_map(_wkv_scan, out_placements=(seq, state),
+                   in_placements=(seq, seq, seq, seq, uu, state),
+                   in_grad_placements=(seq, seq, seq, seq, ug, state),
+                   redistribute_inputs=True)  # fmt: skip
+    return fn(r, k, v, w, u, s0)
+
+
 def _time_mix(p, x, xprev, cfg, s0):
     """x: (B, T, D); xprev: token-shifted x; s0: (B,H,hd,hd)."""
     b, t, _ = x.shape
@@ -113,13 +138,13 @@ def _time_mix(p, x, xprev, cfg, s0):
     acc = L.wide(x.dtype)  # float32, as the reference's casts (float64 in a float64 run)
     w = torch.exp(-torch.exp(wlog.to(acc)))
 
-    shp = (b, t, h, hd)
-    y, s = _wkv_scan(
-        r.reshape(shp).to(acc),
-        k.reshape(shp).to(acc),
-        v.reshape(shp).to(acc),
-        w.reshape(shp),
-        (1.0 + p["u"].to(acc)).reshape(h, hd),
+    shp = (h, hd)
+    y, s = _wkv(
+        L.split_last(r, shp).to(acc),
+        L.split_last(k, shp).to(acc),
+        L.split_last(v, shp).to(acc),
+        L.split_last(w, shp),
+        L.split_last(1.0 + p["u"].to(acc), shp),
         s0,
     )
     y = y.reshape(b, t, h * hd)
@@ -180,20 +205,21 @@ def _block(cfg, x, blk):
     x_mid_last = x[:, -1]
     xn = L.rms_norm(x, blk["ln2"], cfg.norm_eps)
     x = x + _channel_mix(blk["cm"], xn, _shift(xn))
-    return x, s, x_in_last, x_mid_last
+    return L.shard(x, ("batch", "act_seq", None)), s, x_in_last, x_mid_last
 
 
 def forward(cfg, params, batch, *, collect_cache: bool = False):
     """batch = {tokens: (B, T)}.  Returns (logits (B, T, V), cache or None)."""
-    h = params["embed"][batch["tokens"]]
+    h = L.shard(L.embed_lookup(params["embed"], batch["tokens"]), ("batch", "act_seq", None))
     body = L.checkpoint_fn(lambda x, blk: _block(cfg, x, blk), cfg)
     caches = []
     for i in range(cfg.n_layers):
-        h, *ys = body(h, L.tree_map(lambda a, i=i: a[i], params["blocks"]))
+        h, *ys = body(h, L.layer(params["blocks"], i))
         if collect_cache:
             caches.append(ys)
     h = L.rms_norm(h, params["ln_f"], cfg.norm_eps)
     logits = torch.einsum("btd,dv->btv", h, params["head"].to(h.dtype))
+    logits = L.shard(logits, ("batch", "act_seq", "vocab"))
 
     cache = None
     if collect_cache:
@@ -214,9 +240,9 @@ def attention_calls(cfg) -> int:
 def decode_step(cfg, params, tokens, cache, pos):
     """One-token step (tokens (B, 1)): an O(1) state update a layer, no KV
     cache.  ``pos`` is unused, as in the reference."""
-    h = params["embed"][tokens[:, 0]]  # (B, D)
+    h = L.embed_lookup(params["embed"], tokens[:, 0])  # (B, D)
     for i in range(cfg.n_layers):
-        blk = L.tree_map(lambda a, i=i: a[i], params["blocks"])
+        blk = L.layer(params["blocks"], i)
         s, x_tm, x_cm = cache["s"][i], cache["x_tm"][i], cache["x_cm"][i]
         xn = L.rms_norm(h, blk["ln1"], cfg.norm_eps)
         xp = L.rms_norm(x_tm, blk["ln1"], cfg.norm_eps)

@@ -73,7 +73,7 @@ def window_schedule(cfg) -> list[int]:
 
 def _layer(blocks: dict[str, Any], i: int) -> dict[str, Any]:
     """Layer ``i``'s params: views into the stacked block params."""
-    return L.tree_map(lambda x: x[i], blocks)
+    return L.layer(blocks, i)
 
 
 def _head(cfg, params) -> torch.Tensor:
@@ -97,12 +97,12 @@ def _block(cfg, h, blk, win: int):
     )
     h = h + a
     h = h + _ffn(blk, L.rms_norm(h, blk["ln2"], cfg.norm_eps), cfg)
-    return h, kk, vv
+    return L.shard(h, ("batch", "act_seq", None)), kk, vv
 
 
 def _embed_inputs(cfg, params, batch) -> tuple[torch.Tensor, int]:
     """Token (+ modality-prefix) embedding.  Returns (h, n_prefix)."""
-    h = params["embed"][batch["tokens"]]
+    h = L.embed_lookup(params["embed"], batch["tokens"])
     if cfg.n_patches and "patches" in batch:
         patches = batch["patches"]
         return torch.cat([patches.to(h.dtype), h], dim=1), patches.shape[1]
@@ -119,6 +119,7 @@ def forward(
     tokens (B, S, V), cache or None).
     """
     h, n_prefix = _embed_inputs(cfg, params, batch)
+    h = L.shard(h, ("batch", "act_seq", None))
     body = L.checkpoint_fn(functools.partial(_block, cfg), cfg)
     ks, vs = [], []
     for i, win in enumerate(window_schedule(cfg)):
@@ -128,12 +129,13 @@ def forward(
             vs.append(vv)
     h = L.rms_norm(h, params["ln_f"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", h, _head(cfg, params).to(h.dtype))
+    logits = L.shard(logits, ("batch", "act_seq", "vocab"))
 
     cache = None
     if collect_cache:
         kk, vv = torch.stack(ks), torch.stack(vs)
         b, s = kk.shape[1], kk.shape[2]
-        kpos = torch.arange(s, dtype=torch.int32, device=kk.device)
+        kpos = L.replicated_like(torch.arange(s, dtype=torch.int32, device=kk.device), kk)
         cache = {"k": kk, "v": vv, "kpos": kpos.repeat(cfg.n_layers, b, 1)}
     return logits[:, n_prefix:], cache
 
@@ -211,7 +213,7 @@ def _decode_layer(cfg, blk, h, kc, vc, kp, pos: int, win: int):
     kk = L.rope(kk, posv, cfg.rope_theta)
     kc[:, slot] = kk[:, 0].to(kc.dtype)
     vc[:, slot] = vv[:, 0].to(vc.dtype)
-    kp[:, slot] = pos
+    kp[:, slot].fill_(pos)
     out = L.decode_attention(q.reshape(b, 1, kvh, g, hd), kc, vc, kp, pos, window=win)
     out = torch.einsum("bshk,hkd->bsd", out.reshape(b, 1, cfg.n_heads, hd), p["wo"])
     h = h + out
@@ -229,7 +231,7 @@ def decode_step(
     pos = int(pos)
     if _grouped(cfg):
         return _decode_step_grouped(cfg, params, tokens, cache, pos)
-    h = params["embed"][tokens]
+    h = L.shard(L.embed_lookup(params["embed"], tokens), ("batch", None, None))
     for i, win in enumerate(window_schedule(cfg)):
         h = _decode_layer(cfg, _layer(params["blocks"], i), h, cache["k"][i], cache["v"][i],
                           cache["kpos"][i], pos, win)  # fmt: skip
@@ -302,13 +304,13 @@ def _decode_step_grouped(cfg, params, tokens, cache, pos: int):
     layers; every cache slice written in place."""
     n_super, ge, rem = _grouped_layout(cfg)
     w = cfg.local_window
-    h = params["embed"][tokens]
+    h = L.shard(L.embed_lookup(params["embed"], tokens), ("batch", None, None))
     loc, glob, rems = _regroup_blocks(cfg, params["blocks"])
     lk, lv, lkp = cache["lk"], cache["lv"], cache["lkp"]
     gk, gv, gkp = cache["gk"], cache["gv"], cache["gkp"]
     for i in range(n_super):
         for j in range(ge - 1):
-            blk = L.tree_map(lambda x: x[i, j], loc)
+            blk = L.layer(loc, i, j)
             h = _decode_layer(cfg, blk, h, lk[i, j], lv[i, j], lkp[i, j], pos, w)
         h = _decode_layer(cfg, _layer(glob, i), h, gk[i], gv[i], gkp[i], pos, 0)
     for r in range(rem):

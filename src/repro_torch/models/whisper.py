@@ -41,6 +41,7 @@ def _gelu_mlp_specs(cfg) -> dict[str, PSpec]:
 
 def _gelu_mlp(p, x):
     h = F.gelu(torch.einsum("bsd,df->bsf", x, p["wi"]), approximate="tanh")
+    h = L.shard(h, ("batch", None, "mlp_act"))
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
 
 
@@ -94,11 +95,12 @@ def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
     dtype JAX promotes the frames and the weights to."""
     _, f, d = frames.shape
     h = frames.to(params["ln_enc"].dtype)
-    h = h + L.sinusoidal_pos(f, d, device=frames.device).to(frames.dtype)
+    h = h + L.replicated_like(L.sinusoidal_pos(f, d, device=frames.device).to(frames.dtype), h)
+    h = L.shard(h, ("batch", None, None))
     enc = L.tree_map(lambda t: _promoted(t, h.dtype), params["enc"])
     body = L.checkpoint_fn(lambda x, blk: _enc_block(cfg, x, blk), cfg)
     for i in range(cfg.n_enc_layers):
-        h = body(h, L.tree_map(lambda a, i=i: a[i], enc))
+        h = body(h, L.layer(enc, i))
     return L.rms_norm(h, params["ln_enc"], cfg.norm_eps)
 
 
@@ -127,21 +129,23 @@ def forward(cfg, params, batch, *, collect_cache: bool = False):
     enc_out = encode(cfg, params, batch["frames"])
     tokens = batch["tokens"]
     b, s = tokens.shape
-    h = params["embed"][tokens]
-    h = h + L.sinusoidal_pos(s, cfg.d_model, device=h.device).to(h.dtype)
+    h = L.embed_lookup(params["embed"], tokens)
+    h = h + L.replicated_like(L.sinusoidal_pos(s, cfg.d_model, device=h.device).to(h.dtype), h)
+    h = L.shard(h, ("batch", "act_seq", None))
     body = L.checkpoint_fn(lambda x, blk: _dec_block(cfg, x, blk, enc_out), cfg)
     caches = []
     for i in range(cfg.n_layers):
-        h, *ys = body(h, L.tree_map(lambda a, i=i: a[i], params["dec"]))
+        h, *ys = body(h, L.layer(params["dec"], i))
         if collect_cache:
             caches.append(ys)
     h = L.rms_norm(h, params["ln_f"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", h, params["embed"].T.to(h.dtype))
+    logits = L.shard(logits, ("batch", "act_seq", "vocab"))
 
     cache = None
     if collect_cache:
         kk, vv, ck, cv = (torch.stack(ys) for ys in zip(*caches, strict=True))
-        kpos = torch.arange(s, dtype=torch.int32, device=kk.device)
+        kpos = L.replicated_like(torch.arange(s, dtype=torch.int32, device=kk.device), kk)
         cache = {
             "k": kk,
             "v": vv,
@@ -206,7 +210,7 @@ def _decode_layer(cfg, blk, x, kc, vc, kp, ck, cv, pos: int):
     vv = torch.einsum("bsd,dhk->bshk", xn, p["wv"])
     kc[:, slot] = kk[:, 0].to(kc.dtype)
     vc[:, slot] = vv[:, 0].to(vc.dtype)
-    kp[:, slot] = pos
+    kp[:, slot].fill_(pos)
     out = L.decode_attention(q.reshape(b, 1, kvh, g, hd), kc, vc, kp, pos)
     x = x + torch.einsum("bshk,hkd->bsd", out.reshape(b, 1, cfg.n_heads, hd), p["wo"])
     # cross-attention over the fixed encoder cache: every frame valid
@@ -214,7 +218,7 @@ def _decode_layer(cfg, blk, x, kc, vc, kp, ck, cv, pos: int):
     pc = blk["cross"]
     qx = torch.einsum("bsd,dhk->bshk", xq, pc["wq"])
     f = ck.shape[1]
-    fpos = torch.arange(f, dtype=torch.int32, device=x.device).expand(b, f)
+    fpos = L.replicated_like(torch.arange(f, dtype=torch.int32, device=x.device).expand(b, f), ck)
     outx = L.decode_attention(qx.reshape(b, 1, kvh, g, hd), ck, cv, fpos, f)
     x = x + torch.einsum("bshk,hkd->bsd", outx.reshape(b, 1, cfg.n_heads, hd), pc["wo"])
     return x + _gelu_mlp(blk["mlp"], L.rms_norm(x, blk["ln2"], cfg.norm_eps))
@@ -223,10 +227,10 @@ def _decode_layer(cfg, blk, x, kc, vc, kp, ck, cv, pos: int):
 def decode_step(cfg, params, tokens, cache, pos):
     """One-token decode (tokens (B, 1)) at absolute position ``pos``."""
     pos = int(pos)
-    h = params["embed"][tokens]
-    h = h + _pos_embed_at(pos, cfg.d_model, h.device).to(h.dtype)
+    h = L.embed_lookup(params["embed"], tokens)
+    h = h + L.replicated_like(_pos_embed_at(pos, cfg.d_model, h.device).to(h.dtype), h)
     for i in range(cfg.n_layers):
-        blk = L.tree_map(lambda a, i=i: a[i], params["dec"])
+        blk = L.layer(params["dec"], i)
         h = _decode_layer(cfg, blk, h, cache["k"][i], cache["v"][i], cache["kpos"][i],
                           cache["cross_k"][i], cache["cross_v"][i], pos)  # fmt: skip
     h = L.rms_norm(h, params["ln_f"], cfg.norm_eps)

@@ -19,6 +19,16 @@ checkpoint written by either package restores in the other.  numpy has no
 bfloat16 without ``ml_dtypes``, which the port does not use: a bfloat16 leaf
 is stored as its raw bits in a ``uint16`` array, with ``"bfloat16"`` (the
 reference's dtype name) in the manifest; the digest reads the same bytes.
+
+A state of DTensors (a meshed run's) is saved whole, once for the world,
+and gathered nowhere: rank 0 writes each split leaf into a memory-mapped
+``.npy`` a shard at a time, its own and then each other rank's, which it
+receives from that rank (one copy of a replicated shard is sent), commits,
+and the others wait for it at a barrier.  ``restore(...,
+shardings=...)`` places each leaf by the ``launch.sharding.MeshSharding``
+in its place, onto whatever mesh those name, each rank reading only its
+own shard: the elastic restart onto another mesh that the reference does
+with ``jax.device_put``.
 """
 
 from __future__ import annotations
@@ -30,8 +40,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.models.layers import tree_leaves, tree_unflatten
+from repro_torch.models.layers import is_dtensor, settled, shard_box, tree_leaves, tree_unflatten
 
 _SAMPLED_BYTES = 4096  # of each leaf, in the manifest's content hash
 
@@ -50,6 +61,57 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _save_meshed(leaf, file: str, writer: bool) -> tuple[np.ndarray | None, str | None]:
+    """Write DTensor ``leaf`` (no ``Partial``) to ``file`` from the writer,
+    rank 0, with no rank holding more than its own shard: an unsplit leaf
+    is rank 0's copy; a split one goes into a memory-mapped array a shard
+    at a time, each rank that holds a counted shard (``shard_box``) sending
+    it to rank 0.  A collective over the leaf's mesh.  Returns the writer's
+    array (memory-mapped where split) and its dtype name."""
+    local = leaf.to_local()
+    if not any(p.is_shard() for p in leaf.placements):
+        if not writer:
+            return None, None
+        arr, dtype = _to_numpy(local)
+        np.save(file, arr)
+        return arr, dtype
+    mesh, me = leaf.device_mesh, dist.get_rank()
+    if not writer:
+        if shard_box(leaf.shape, leaf.placements, mesh, mesh.get_coordinate())[2]:
+            dist.send(local.contiguous(), dst=0)
+        return None, None
+    mine, dtype = _to_numpy(local)
+    out = np.lib.format.open_memmap(file, mode="w+", dtype=mine.dtype, shape=tuple(leaf.shape))
+    buf = torch.empty_like(local, memory_format=torch.contiguous_format)
+    for rank in mesh.mesh.flatten().tolist():
+        coord = [int(c) for c in (mesh.mesh == rank).nonzero()[0]]
+        offsets, _, counted = shard_box(leaf.shape, leaf.placements, mesh, coord)
+        if not counted:
+            continue
+        if rank == me:
+            arr = mine
+        else:
+            dist.recv(buf, src=rank)
+            arr = _to_numpy(buf)[0]
+        out[tuple(slice(o, o + n) for o, n in zip(offsets, arr.shape, strict=True))] = arr
+    out.flush()
+    return out, dtype
+
+
+def _restore_meshed(file: str, dtype: str, sharding) -> torch.Tensor:
+    """The leaf in ``file`` as a DTensor placed by ``sharding`` (a
+    ``MeshSharding``): each rank reads only its own shard, from the array
+    memory-mapped."""
+    from torch.distributed.tensor import DTensor
+
+    arr = np.load(file, mmap_mode="r")
+    mesh, places = sharding.mesh, list(sharding.placements)
+    offsets, size, _ = shard_box(arr.shape, places, mesh, mesh.get_coordinate())
+    block = np.array(arr[tuple(slice(o, o + n) for o, n in zip(offsets, size))], order="C")
+    local = _from_numpy(block, dtype).to(mesh.device_type)
+    return DTensor.from_local(local, mesh, places, run_check=False)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, paxos_ctx=None):
         self.dir = directory
@@ -58,21 +120,34 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
     def save(self, state: Any, step: int) -> str:
+        """Write ``state`` as step ``step`` and commit it.  A state with
+        DTensor leaves is a collective: every rank of their mesh calls it."""
         path = os.path.join(self.dir, f"step_{step:08d}")
-        os.makedirs(path, exist_ok=True)
         leaves = tree_leaves(state)
+        meshed = any(is_dtensor(leaf) for leaf in leaves)
+        writer = not meshed or dist.get_rank() == 0
+        if writer:
+            os.makedirs(path, exist_ok=True)
         manifest = {"step": step, "n_leaves": len(leaves), "leaves": []}
         h = hashlib.sha256()
         for i, leaf in enumerate(leaves):
-            arr, dtype = _to_numpy(leaf)
             fn = f"leaf_{i:05d}.npy"
-            np.save(os.path.join(path, fn), arr)
+            if is_dtensor(leaf):
+                arr, dtype = _save_meshed(settled(leaf), os.path.join(path, fn), writer)
+            elif writer:
+                arr, dtype = _to_numpy(leaf)
+                np.save(os.path.join(path, fn), arr)
+            if not writer:
+                continue
             h.update(np.ascontiguousarray(arr).reshape(-1).view(np.uint8)[:_SAMPLED_BYTES])
             manifest["leaves"].append({"file": fn, "shape": list(arr.shape), "dtype": dtype})
-        manifest["digest"] = h.hexdigest()[:16]
-        with open(os.path.join(path, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-        self._commit(path, manifest)
+        if writer:
+            manifest["digest"] = h.hexdigest()[:16]
+            with open(os.path.join(path, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            self._commit(path, manifest)
+        if meshed:
+            dist.barrier()
         return path
 
     def _commit(self, path: str, manifest: dict) -> None:
@@ -98,17 +173,11 @@ class CheckpointManager:
         return os.path.join(self.dir, steps[-1]) if steps else None
 
     def restore(self, like: Any, path: str | None = None, shardings: Any = None) -> tuple[Any, int]:
-        """Restore into the structure of ``like``, each leaf on the device of
-        ``like``'s leaf in its place, in the dtype it was saved in.
-
-        ``shardings`` (restoring onto another mesh) waits for the port's
-        meshes over several devices, ``ROADMAP.md`` queue 1, item 9: anything
-        but ``None`` raises ``NotImplementedError``."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore onto other shardings waits for the port's meshes: ROADMAP.md queue 1, "
-                "item 9"
-            )
+        """Restore into the structure of ``like``, in the dtype each leaf was
+        saved in: each leaf on the device of ``like``'s leaf in its place,
+        or, with ``shardings`` (a tree like ``like`` of
+        ``launch.sharding.MeshSharding``), placed as a DTensor by the one in
+        its place, on every rank of its mesh."""
         path = path or self.latest_committed()
         if path is None:
             raise FileNotFoundError("no committed checkpoint")
@@ -120,8 +189,19 @@ class CheckpointManager:
                 f"structure mismatch: {manifest['n_leaves']} leaves saved, {len(leaves_like)} "
                 "to restore into"
             )
-        out = [
-            _from_numpy(np.load(os.path.join(path, meta["file"])), meta["dtype"]).to(ref.device)
-            for meta, ref in zip(manifest["leaves"], leaves_like, strict=True)
-        ]
+        files = [(os.path.join(path, meta["file"]), meta["dtype"]) for meta in manifest["leaves"]]
+        if shardings is None:
+            out = [_from_numpy(np.load(f), dtype).to(ref.device)
+                   for (f, dtype), ref in zip(files, leaves_like, strict=True)]  # fmt: skip
+        else:
+            shard_leaves = tree_leaves(shardings)
+            if len(shard_leaves) != len(leaves_like) or not all(
+                hasattr(s, "mesh") and hasattr(s, "placements") for s in shard_leaves
+            ):
+                raise TypeError(
+                    f"shardings must be a tree of {len(leaves_like)} MeshSharding leaves like the "
+                    f"state, got {type(shardings).__name__}"
+                )
+            out = [_restore_meshed(f, dtype, s)
+                   for (f, dtype), s in zip(files, shard_leaves, strict=True)]  # fmt: skip
         return tree_unflatten(like, out), manifest["step"]

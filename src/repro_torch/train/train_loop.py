@@ -23,7 +23,16 @@ import numpy as np
 import torch
 
 from repro_torch.models import registry
-from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.layers import (
+    gathered,
+    is_dtensor,
+    settled,
+    shard_box,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+    whole,
+)
 
 from . import optimizer as opt
 
@@ -56,13 +65,46 @@ def state_axes(cfg) -> TrainState:
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    logits = logits.float()
+    logits = gathered(logits.float(), -1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.mean(logz - gold)
 
 
 _DIGEST_CHUNK = 1 << 26  # elements a pass: 512 MiB of int64 products at most
+
+
+def _leaf_sum(leaf: torch.Tensor, box: tuple | None = None) -> torch.Tensor:
+    """``sum(bits[i] * (2 * i + 1))`` mod 2^32 over ``leaf``'s elements, as
+    an int64 in [0, 2^32): ``i`` the row-major index in the whole tensor,
+    of which ``leaf`` is the block at ``box = (offsets, whole shape)``
+    (``None``: ``leaf`` is the whole tensor)."""
+    if leaf.element_size() == 2:
+        bits = leaf.view(torch.int16)
+    elif leaf.element_size() == 4:
+        bits = leaf.view(torch.int32)
+    else:
+        bits = leaf.float().view(torch.int32)
+    flat = bits.contiguous().reshape(-1)
+    total = torch.zeros((), dtype=torch.int64, device=leaf.device)
+    for start in range(0, flat.numel(), _DIGEST_CHUNK):
+        chunk = flat[start : start + _DIGEST_CHUNK].to(torch.int64)
+        lin = torch.arange(start, start + chunk.numel(), dtype=torch.int64, device=leaf.device)
+        if box is not None:
+            lin = _global_index(lin, tuple(leaf.shape), *box)
+        total += torch.sum(chunk * (lin * 2 + 1))
+    return total & 0xFFFFFFFF
+
+
+def _global_index(k: torch.Tensor, local: tuple, offsets: tuple, shape: tuple) -> torch.Tensor:
+    """The row-major index in a tensor of ``shape`` of the elements at flat
+    indices ``k`` of its block of shape ``local`` at ``offsets``."""
+    out, stride = torch.zeros_like(k), 1
+    for d in reversed(range(len(local))):
+        out += (k % local[d] + offsets[d]) * stride
+        k = k // local[d]
+        stride *= shape[d]
+    return out
 
 
 def _grad_digest(grads) -> torch.Tensor:
@@ -77,21 +119,38 @@ def _grad_digest(grads) -> torch.Tensor:
     2^32) and are reduced mod 2^32 to the signed value, which is the same
     number.  A leaf is taken a chunk at a time, so its int64 products never
     exist whole beside it.
+
+    A DTensor leaf is never gathered: each rank sums its own shard at the
+    shard's global indices, only one copy of a replicated shard counts, and
+    one all-reduce over the mesh adds the leaves' sums up, which splits the
+    sum mod 2^32 exactly.  So the digest is the one of the gathered grads,
+    bit for bit, and the same on every rank of the mesh, which is what the
+    quorum commit relies on.  It need not equal the unmeshed step's digest
+    bit for bit: a meshed step's reduce-scatters and all-reduces sum the
+    gradients in another order.
     """
+    sums: list[torch.Tensor] = []
+    meshed: dict[Any, list[int]] = {}  # mesh -> indices of its leaves in ``sums``
+    for leaf in map(settled, tree_leaves(grads)):
+        if not is_dtensor(leaf):
+            sums.append(_leaf_sum(leaf))
+            continue
+        mesh = leaf.device_mesh
+        local = leaf.to_local()
+        offsets, _, counted = shard_box(leaf.shape, leaf.placements, mesh, mesh.get_coordinate())
+        whole_leaf = tuple(local.shape) == tuple(leaf.shape)
+        total = _leaf_sum(local, None if whole_leaf else (offsets, tuple(leaf.shape)))
+        sums.append(total if counted else torch.zeros_like(total))
+        meshed.setdefault(mesh, []).append(len(sums) - 1)
+    for mesh, idx in meshed.items():
+        from torch.distributed.tensor import DTensor, Partial
+
+        part = DTensor.from_local(torch.stack([sums[i] for i in idx]), mesh,
+                                  [Partial()] * mesh.ndim, run_check=False)  # fmt: skip
+        for i, total in zip(idx, part.full_tensor() & 0xFFFFFFFF, strict=True):
+            sums[i] = total
     acc = 0
-    for leaf in tree_leaves(grads):
-        if leaf.element_size() == 2:
-            bits = leaf.view(torch.int16)
-        elif leaf.element_size() == 4:
-            bits = leaf.view(torch.int32)
-        else:
-            bits = leaf.float().view(torch.int32)
-        flat = bits.reshape(-1)
-        total = torch.zeros((), dtype=torch.int64, device=leaf.device)
-        for start in range(0, flat.numel(), _DIGEST_CHUNK):
-            chunk = flat[start : start + _DIGEST_CHUNK].to(torch.int64)
-            lin = torch.arange(start, start + chunk.numel(), dtype=torch.int64, device=leaf.device)
-            total += torch.sum(chunk * (lin * 2 + 1))
+    for total in sums:
         acc = (acc * 1000003 + total) & 0xFFFFFFFF
     acc = torch.as_tensor(acc)
     return torch.where(acc >= 1 << 31, acc - (1 << 32), acc).to(torch.int32)
@@ -111,16 +170,25 @@ def make_loss_fn(cfg) -> Callable:
 def value_and_grad(loss_fn: Callable) -> Callable:
     """``jax.value_and_grad`` of ``loss_fn(params, batch)``: returns
     ``(loss, grads)``, the grads a tree like the params, each in its
-    param's dtype.  The params themselves are left as they are."""
+    param's dtype and, for a DTensor param, its placements (a partial sum
+    reduced or scattered onto them).  The params themselves are left as
+    they are."""
 
     def vg(params, batch):
         watched = [p.detach().requires_grad_() for p in tree_leaves(params)]
         with torch.enable_grad():
             loss = loss_fn(tree_unflatten(params, watched), batch)
             grads = torch.autograd.grad(loss, watched)
-        return loss.detach(), tree_unflatten(params, list(grads))
+        grads = [_as_param(g, p) for g, p in zip(grads, watched, strict=True)]
+        return loss.detach(), tree_unflatten(params, grads)
 
     return vg
+
+
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(
@@ -139,8 +207,8 @@ def make_train_step(
             loss, grads = vg(state.params, batch)
         else:
             # the micro-gradients summed in float32, as the reference's scan does
-            grads = tree_map(lambda p: torch.zeros(p.shape, device=p.device), state.params)
-            loss = torch.zeros((), device=state.step.device)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), state.params)
+            loss = torch.zeros_like(state.step, dtype=torch.float32)
             for i in range(grad_accum):
                 mb = {k: v.reshape((grad_accum, -1) + v.shape[1:])[i] for k, v in batch.items()}
                 l, g = vg(state.params, mb)
@@ -151,7 +219,7 @@ def make_train_step(
             loss = loss / grad_accum
 
         new_params, new_opt, gnorm = opt.update(grads, state.opt, state.params, ocfg)
-        metrics = {"loss": loss, "grad_norm": gnorm}
+        metrics = {"loss": whole(loss), "grad_norm": whole(gnorm)}
         if with_digest:
             metrics["digest"] = _grad_digest(grads)
         return TrainState(new_params, new_opt, state.step + 1), metrics
@@ -181,6 +249,7 @@ def run_loop(
     paxos_ctx=None,
     checkpoint_mgr=None,
     rng_seed: int = 0,
+    batch_shardings: dict | None = None,
 ) -> tuple[TrainState, dict[str, list]]:
     """Drive training with quorum-committed steps.
 
@@ -188,7 +257,9 @@ def run_loop(
     the step is durable once the consensus layer delivers a quorum agreement.
     A simulated straggler group abstains — the quorum still commits, which is
     the straggler-mitigation property inherited from the paper's f-of-2f+1
-    resilience.  Batches (numpy) go to the state's device here.
+    resilience.  Batches (numpy) go to the state's device here, or, with
+    ``batch_shardings`` (``launch.sharding.batch_shardings``), onto its mesh
+    as DTensors.
     """
     step_fn = train_step or make_train_step(cfg)
     device = state.step.device
@@ -197,6 +268,8 @@ def run_loop(
 
     for i in range(loop.steps):
         batch = {k: torch.from_numpy(v).to(device) for k, v in next(data_iter).items()}
+        if batch_shardings is not None:
+            batch = {k: batch_shardings[k].place(v) for k, v in batch.items()}
         state, metrics = step_fn(state, batch)
         digest = int(metrics["digest"]) if "digest" in metrics else 0
 
@@ -213,7 +286,7 @@ def run_loop(
         if paxos_ctx is not None and committed:
             paxos_ctx.submit(
                 b"step:"
-                + int(state.step).to_bytes(4, "little")
+                + int(whole(state.step)).to_bytes(4, "little")
                 + digest.to_bytes(4, "little", signed=True)
             )
             paxos_ctx.pump(2)
@@ -227,6 +300,6 @@ def run_loop(
             and loop.checkpoint_every
             and (i + 1) % loop.checkpoint_every == 0
         ):
-            checkpoint_mgr.save(state, step=int(state.step))
+            checkpoint_mgr.save(state, step=int(whole(state.step)))
 
     return state, history

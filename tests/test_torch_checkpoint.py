@@ -177,10 +177,31 @@ def test_bf16_leaves_round_trip_through_uint16(tmp_path):
 
 
 def test_restore_onto_other_shardings_raises(tmp_path):
-    _, state = _state()
+    """``shardings`` that are not a tree of ``MeshSharding`` like the state
+    are refused; a (1, 1) mesh's round-trips every leaf."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg, state = _state()
     mgr = ckpt_mod.CheckpointManager(str(tmp_path))
     mgr.save(state, step=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
+    with pytest.raises(TypeError, match="shardings must be a tree of"):
         mgr.restore(state, shardings=object())
     with pytest.raises(ValueError, match="structure mismatch"):
         mgr.restore(state.params)
+    owned = not dist.is_initialized()
+    try:
+        mesh = make_host_mesh(device="cpu")
+        shardings = sh.tree_shardings(
+            train_loop.state_shapes(cfg), train_loop.state_axes(cfg), sh.BASE_RULES, mesh
+        )
+        back, step = mgr.restore(state, shardings=shardings)
+        assert step == 1 and tuple(mesh.shape) == (1, 1)
+        for leaf, s in zip(tree_leaves(back), tree_leaves(shardings), strict=True):
+            assert tuple(leaf.placements) == s.placements
+        _equal(tuple(leaf.full_tensor() for leaf in tree_leaves(back)), state)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()

@@ -2114,3 +2114,51 @@ def test_contracts_hold_on_the_card(cuda):
     assert violations == [] and ran == 8, violations
     after = [getattr(k_wirepath, n) for n in names] + [k_acceptor.launches]
     assert all(x > y for x, y in zip(after, before, strict=True)), (before, after)
+
+
+def test_meshed_train_step_on_the_card_matches_the_unmeshed(full_f32):
+    """Two train steps of the reduced qwen3-4b (float32) on a (1, 1)
+    ``make_host_mesh()`` over NCCL in a world of one, state and batches
+    placed as DTensors by ``BASE_RULES`` and the activation sharder
+    installed, against the same steps unmeshed: losses within 1e-3
+    relative, the sharder taken, K9 launched through ``local_map``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import train_loop
+
+    cfg = get_config("qwen3-4b").reduced()
+    toks = np.random.default_rng(21).integers(0, cfg.vocab, (2, 4, 65)).astype(np.int32)
+    batches = [{"tokens": torch.from_numpy(t[:, :-1]).to(full_f32),
+                "labels": torch.from_numpy(t[:, 1:]).to(full_f32)} for t in toks]  # fmt: skip
+
+    def losses(place=lambda t: t, place_batch=lambda b: b):
+        state = place(train_loop.init_state(cfg, torch.Generator(device=full_f32).manual_seed(3)))
+        step, out = train_loop.make_train_step(cfg), []
+        for batch in batches:
+            state, m = step(state, place_batch(batch))
+            out.append(float(m["loss"]))
+        return out
+
+    want = losses()
+    owned = not dist.is_initialized()
+    try:
+        mesh = make_host_mesh(device=full_f32)
+        rules = sh.BASE_RULES
+        ssh = sh.tree_shardings(train_loop.state_shapes(cfg), train_loop.state_axes(cfg), rules,
+                                mesh)  # fmt: skip
+        bsh = sh.batch_shardings(batches[0], cfg, rules, mesh)
+        sh.calls, before = 0, k_flash.launches
+        with sh.use_rules(mesh, rules):
+            got = losses(lambda s: sh.place_tree(s, ssh),
+                         lambda b: {k: bsh[k].place(v) for k, v in b.items()})  # fmt: skip
+        assert tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+        assert sh.calls > 0 and k_flash.launches - before >= 2 * cfg.n_layers
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+    for a, b in zip(got, want, strict=True):
+        assert abs(a - b) <= 1e-3 * abs(b), (got, want)

@@ -45,7 +45,8 @@ for name in ("kernels.wirepath", "core.api", "core.fabric", "launch", "launch.me
              "launch.serve", "serve.service", "serve.kv", "core.log", "core.baseline",
              "train.elastic", "train.optimizer", "train.data", "train.train_loop",
              "train.checkpoint", "launch.train", "models.convert", "models.griffin",
-             "models.rwkv6", "models.whisper", "kernels.ref", "analysis.contracts"):
+             "models.rwkv6", "models.whisper", "kernels.ref", "analysis.contracts",
+             "launch.sharding", "launch.dryrun"):
     assert "repro_torch." + name in names, names
 """
 

@@ -461,9 +461,14 @@ def test_launch_train_runs_on_the_cpu(tmp_path, capsys):
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000002", "step_00000004"]
     launch_train.main(args + ["--resume"])
     assert "resumed from committed step 4" in capsys.readouterr().out
-    for mesh in ("prod", "prod-multi"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
+    # the default --mesh host ran above, a (1, 1) mesh in this world of one;
+    # the production meshes refuse it, naming both sizes
+    for mesh, ranks in (("prod", 256), ("prod-multi", 512)):
+        with pytest.raises(ValueError, match=f"needs a world of {ranks} ranks, this one has 1"):
             launch_train.main(["--arch", "qwen3-4b", "--smoke", "--mesh", mesh, "--device", "cpu"])
+    launch_train.main(["--arch", "qwen3-4b", "--smoke", "--steps", "1", "--batch", "2",
+                       "--seq", "16", "--device", "cpu", "--mesh", "host"])  # fmt: skip
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith("1 steps in")
 
 
 def test_launch_train_means_the_card_by_default(monkeypatch):
