@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --prefill-decode-gap   # the witness of prefill_decode_gap alone
+    python3 chip_smoke.py --fabric-ranks DIR      # run_fabric's three ranks (its subprocess)
 
 The quickest proof that the PyTorch port starts and is right on the card.
 It needs one CUDA card and the CUDA toolkit (``nvcc``), and builds the
@@ -52,7 +53,17 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
 6. the per-role path: one ring walk of bursts through the sequencer, each
    acceptor alone and the learner (K3, K7 x A, K8, the last two on their
    team body in its vector variant), held against the same bursts through
-   the acceptor array's vote (K2) and K8's plain version;
+   the acceptor array's vote (K2) and K8's plain version; then the fabric
+   consensus (``run_fabric``): ``core.fabric.make_fabric_consensus`` at the
+   paper's deployment, one rank an acceptor, 128 proposals a rank, 512
+   rounds, in a world of one on NCCL in this process on a (1,) mesh, then
+   three ranks on the one card over gloo in a subprocess (B = 384, three
+   ring laps; one acceptor dead for 100 rounds, two for 10), each rank on a
+   ``cuda`` mesh and then on a ``cpu`` one; every round's ``decided``,
+   ``inst`` and ``value`` and the final registers bit-equal to the CPU run
+   and to a replay through the plain ``batched`` functions, acceptor by
+   acceptor, with no collective; one K3 and one K7 launch a round on
+   every rank, and each part's round p50 and p99 on the host clock;
 7. the multi-group path: ``PaxosContext(PaxosConfig(n_groups=8,
    persistent_rounds=1, realign_after=4), use_kernels=True, snapshots=True)``
    under a lossy ``SimNet``, uniform then skewed load, per-group failover,
@@ -201,8 +212,9 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    ``t_bound``), beside the phase's measured p50 (``bound_share``,
    ``mfu``).  Every kernel's bound comes from ``analysis.bounds``;
 18. the ``kernels`` JSON line (K9's launches: the LM, MoE, griffin and
-   whisper prefill paths' and the mesh phase's), then the ``ok`` JSON line
-   last.
+   whisper prefill paths' and the mesh phase's; K3's the staged path's and
+   the fabric's, K7's the per-role path's and the fabric's), then the
+   ``ok`` JSON line last.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a kernel of the path that never launched fails the run, and
@@ -264,7 +276,12 @@ from repro_torch.analysis.roofline import PEAK_FLOPS, Roofline  # noqa: E402
 from repro_torch.core import FaultSpec, PaxosConfig, PaxosContext, SimNet  # noqa: E402
 from repro_torch.core import batched  # noqa: E402
 from repro_torch.core.bridge import export_state  # noqa: E402
-from repro_torch.core.types import AcceptorState, CoordinatorState, MsgBatch  # noqa: E402
+from repro_torch.core.types import (  # noqa: E402
+    MSG_P2B,
+    AcceptorState,
+    CoordinatorState,
+    MsgBatch,
+)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import acceptor as k_acceptor  # noqa: E402
 from repro_torch.kernels import coordinator as k_coordinator  # noqa: E402
@@ -1970,6 +1987,291 @@ def run_per_role_path(dev) -> dict:
     if n_delivered != walk * b:
         raise AssertionError("the per-role path did not decide every lane")
     return dict(max_abs_err=worst, bursts=walk, wall=wall)
+
+
+# ---------------------------------------------------------------------------
+# fabric consensus: one rank an acceptor, over torch.distributed
+# ---------------------------------------------------------------------------
+FABRIC_ROUNDS = 512  # at B = 384 the three-rank run laps the 65,536-slot ring three times
+FABRIC_RANKS = 3  # the paper's acceptors, three processes on the one card over gloo
+
+
+def fabric_schedule(n_acc: int, b_local: int, v: int, seed: int) -> dict[str, np.ndarray]:
+    """``FABRIC_ROUNDS`` rounds of proposals from every rank: seeded values,
+    90% of them active; the last acceptor dead for rounds 100-199 (with
+    three, a quorum still decides), all but acceptor 0 dead for rounds
+    200-209 (no decision), then all alive."""
+    rng = np.random.default_rng(seed)
+    b = b_local * n_acc
+    alive = np.ones((FABRIC_ROUNDS, n_acc), bool)
+    alive[100:200, -1] = False
+    alive[200:210, 1:] = False
+    return dict(
+        values=rng.integers(-(2**31), 2**31, (FABRIC_ROUNDS, b, v)).astype(np.int32),
+        active=rng.random((FABRIC_ROUNDS, b)) < 0.9,
+        alive=alive,
+    )
+
+
+def fabric_rounds(mesh, sched: dict[str, np.ndarray], n: int) -> dict:
+    """Drive ``make_fabric_consensus`` over ``mesh``'s ``acc`` axis through
+    the schedule, each rank proposing its own rows of every round (uploaded
+    once, in bulk).  Returns every round's ``decided``, ``inst`` and
+    ``value``, this rank's final registers (a list of its one shard, whose
+    leading dim is 1) and the watermark, on the host, and each round's host time (the card
+    synchronised around it).  The registers are read shard by shard, never
+    by ``full_tensor``: DTensor's functional all-gather over gloo on CUDA
+    tensors dies of a segmentation fault in torch 2.11."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.core.fabric import make_fabric_consensus
+
+    dev = torch.device(mesh.device_type)
+    me, n_acc = mesh.get_local_rank("acc"), mesh.size(0)
+    rounds, b, v = sched["values"].shape
+    bl = b // n_acc
+    init_fn, step = make_fabric_consensus(mesh, axis="acc", n_instances=n, value_words=v)
+    astate, cstate = init_fn()
+    rows = slice(me * bl, (me + 1) * bl)
+    values = torch.from_numpy(sched["values"][:, rows].copy()).to(dev)
+    active = torch.from_numpy(sched["active"][:, rows].copy()).to(dev)
+    alive = torch.from_numpy(sched["alive"][:, me : me + 1].copy()).to(dev)
+    outs, round_s = [], []
+
+    def local(x):
+        return DTensor.from_local(x, mesh, (Shard(0),), run_check=False)
+
+    for r in range(rounds):
+        sync(dev)
+        t = time.perf_counter()
+        astate, cstate, *out = step(astate, cstate, local(values[r]), local(active[r]),
+                                    local(alive[r]))  # fmt: skip
+        sync(dev)
+        round_s.append(time.perf_counter() - t)
+        outs.append([x.to_local() for x in out])
+    decided, inst, value = (torch.stack(x).cpu().numpy() for x in zip(*outs, strict=True))
+    regs = [{k: x.to_local().cpu().numpy() for k, x in vars(astate).items()}]
+    return dict(decided=decided, inst=inst, value=value, registers=regs,
+                next_inst=int(cstate.next_inst.to_local()), round_s=round_s)  # fmt: skip
+
+
+def fabric_breakdown(mesh, n: int, v: int, b: int, reps: int = 200) -> dict[str, float]:
+    """Where a world-of-one round's host time goes, p50 ms over ``reps``
+    calls each, the card synchronised around every call: ``step_fn`` on
+    DTensors, ``consensus_round`` on the local tensors, K3 and K7 alone, and
+    the round's three collectives alone.  Run after the phase's launches are
+    read, on a register file of its own."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.core import fabric
+
+    dev = torch.device(mesh.device_type)
+    init_fn, step = fabric.make_fabric_consensus(mesh, axis="acc", n_instances=n, value_words=v)
+    astate, cstate = init_fn()
+    vals = torch.ones((b, v), dtype=torch.int32, device=dev)
+    act = torch.ones(b, dtype=torch.bool, device=dev)
+    alive = torch.ones(1, dtype=torch.bool, device=dev)
+    dv, da, dl = (DTensor.from_local(x, mesh, (Shard(0),), run_check=False)
+                  for x in (vals, act, alive))  # fmt: skip
+    loc, lc = AcceptorState.init(n, v, dev), CoordinatorState.init(device=dev)
+    group = mesh.get_group("acc")
+    count = torch.ones(b, dtype=torch.int32, device=dev)
+    parts = {
+        "step_fn": lambda: step(astate, cstate, dv, da, dl),
+        "consensus_round": lambda: fabric.consensus_round(loc, lc, vals, act, alive[0],
+                                                          axis="acc", quorum=1, mesh=mesh),
+        "K3 + K7": lambda: ops.acceptor_phase2(loc, ops.coordinator_sequence(lc, vals, act)[1], 0),
+        "collectives": lambda: (fabric._gather(vals, group), fabric._gather(act, group),
+                                dist.all_reduce(count, group=group)),
+    }  # fmt: skip
+    out = {}
+    for name, fn in parts.items():
+        for _ in range(20):
+            fn()
+        times = []
+        for _ in range(reps):
+            sync(dev)
+            t = time.perf_counter()
+            fn()
+            sync(dev)
+            times.append(time.perf_counter() - t)
+        out[name] = percentiles(times)[0]
+    return out
+
+
+def fabric_replay(sched: dict[str, np.ndarray], n: int) -> dict:
+    """The same rounds on one process with no collective: the plain
+    ``batched`` sequencer on the whole burst, then each acceptor's plain
+    vote on its own register file in turn (a dead one's too), its agree
+    bits counted where it is alive."""
+    rounds, b, v = sched["values"].shape
+    n_acc = sched["alive"].shape[1]
+    q = n_acc // 2 + 1
+    files = [AcceptorState.init(n, v, "cpu") for _ in range(n_acc)]
+    cstate = CoordinatorState.init()
+    decided, inst = [], []
+    for r in range(rounds):
+        vals, act = torch.from_numpy(sched["values"][r]), torch.from_numpy(sched["active"][r])
+        cstate, p2a = batched.coordinator_sequence(cstate, vals, act)
+        count = torch.zeros(b, dtype=torch.int32)
+        for a in range(n_acc):
+            _, votes = batched.acceptor_phase2(files[a], p2a, a)
+            if sched["alive"][r, a]:
+                count += (votes.msgtype == MSG_P2B).to(torch.int32)
+        decided.append((count >= q).numpy())
+        inst.append(p2a.inst.numpy())
+    regs = [{k: x[None].numpy() for k, x in vars(f).items()} for f in files]
+    return dict(decided=np.stack(decided), inst=np.stack(inst), value=sched["values"],
+                registers=regs, next_inst=int(cstate.next_inst))
+
+
+def same_fabric(what: str, got: dict, want: dict) -> None:
+    """Every round's outputs, the final registers and watermark equal; a
+    run's registers are its acceptors' shards, in rank order."""
+    for key in ("decided", "inst", "value"):
+        if got[key].shape != want[key].shape or not np.array_equal(got[key], want[key]):
+            bad = np.nonzero((got[key] != want[key]).reshape(len(want[key]), -1).any(1))[0]
+            raise AssertionError(f"the fabric's {key} differs from {what} in rounds {bad[:8]}")
+    for key in want["registers"][0]:
+        regs = [np.concatenate([x[key] for x in run_["registers"]]) for run_ in (got, want)]
+        if not np.array_equal(*regs):
+            raise AssertionError(f"the fabric's final {key} registers differ from {what}")
+    if got["next_inst"] != want["next_inst"]:
+        raise AssertionError(f"the fabric's watermark {got['next_inst']} is not {what}'s")
+
+
+def fabric_rank(rank: int, world: int, out: str) -> None:
+    """One rank of the three-rank run (``--fabric-ranks``): a process on the
+    one card, joined to the others over gloo; the schedule on a ``cuda``
+    mesh (K3 and K7, the collectives over gloo on CUDA tensors), then on a
+    ``cpu`` mesh (the plain route).  Writes its results and launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(1)  # three ranks and their parent share the host's cores
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out, "store"), world),
+                            rank=rank, world_size=world)  # fmt: skip
+    try:
+        cfg = PaxosConfig()
+        sched = fabric_schedule(world, cfg.batch, cfg.value_words, SEED + 35)
+        res = {}
+        for kind in ("cuda", "cpu"):
+            mesh = init_device_mesh(kind, (world,), mesh_dim_names=("acc",))
+            reset_launches()
+            res[kind] = fabric_rounds(mesh, sched, cfg.n_instances)
+            res[kind]["launches"] = read_launches()
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def fabric_ranks(out: str) -> None:
+    """Start ``FABRIC_RANKS`` ranks on the one card and wait for them all."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(fabric_rank, args=(FABRIC_RANKS, out), nprocs=FABRIC_RANKS)
+
+
+def fabric_launches(what: str, launches: dict[str, int], rounds: int) -> None:
+    """One K3 and one K7 launch a round, K7 in its vector variant."""
+    want = {"coordinator_sequence": rounds, "acceptor_phase2": rounds}
+    require_launched(what, launches, list(want))
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"the {what}'s launches are not {want}: {launches}")
+    require_variant(what, launches, ["acceptor_phase2"])
+
+
+def fabric_decisions(what: str, run_: dict, sched: dict[str, np.ndarray]) -> None:
+    """A round decides every proposal where a quorum is alive, none where
+    not: the schedule's faults show."""
+    n_acc = sched["alive"].shape[1]
+    quorate = sched["alive"].sum(1) >= n_acc // 2 + 1
+    if not (run_["decided"].all(1) == quorate).all() or run_["decided"][~quorate].any():
+        raise AssertionError(f"the {what} did not decide exactly the quorate rounds")
+
+
+def run_fabric(dev) -> dict:
+    """``core.fabric.make_fabric_consensus`` at the paper's deployment (N =
+    65,536, V = 16, 128 proposals a rank): a world of one on NCCL in this
+    process on a (1,) mesh, then ``FABRIC_RANKS`` ranks on the one card
+    over gloo in a subprocess, each against the plain replay (and the
+    ranks also against their own run on the CPU), bit for bit in every
+    round and in the final registers."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import ensure_process_group
+
+    t0 = time.perf_counter()
+    cfg = PaxosConfig()
+    n = cfg.n_instances
+    one = fabric_schedule(1, cfg.batch, cfg.value_words, SEED + 34)
+    owned = not dist.is_initialized()
+    ensure_process_group(dev)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("acc",))
+        reset_launches()
+        solo = fabric_rounds(mesh, one, n)
+        solo_launches = read_launches()
+        parts = fabric_breakdown(mesh, n, cfg.value_words, cfg.batch)
+        reset_launches()
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    fabric_launches("fabric, world of one", solo_launches, FABRIC_ROUNDS)
+    same_fabric("the plain replay", solo, fabric_replay(one, n))
+    fabric_decisions("fabric, world of one", solo, one)
+    solo_s = time.perf_counter() - t0
+    p50, p99 = percentiles(solo["round_s"])
+    print(f"  world of one on NCCL, (1,) mesh: {FABRIC_ROUNDS} rounds of {cfg.batch}, "
+          f"{int(solo['decided'].sum())} decided, equal to the plain replay; launches "
+          f"{solo_launches}; round ms p50 {p50}, p99 {p99}; {solo_s:.3f} s")  # fmt: skip
+    print(f"  world of one, a round's parts, p50 ms: {parts}")
+
+    t1 = time.perf_counter()
+    sched = fabric_schedule(FABRIC_RANKS, cfg.batch, cfg.value_words, SEED + 35)
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as d:
+        out = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--fabric-ranks", d],
+                             cwd=root, capture_output=True, text=True, timeout=600)  # fmt: skip
+        if out.returncode:
+            raise AssertionError(f"the fabric's ranks failed (exit {out.returncode}): "
+                                 f"{out.stdout[-2000:]}{out.stderr[-4000:]}")  # fmt: skip
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                 for r in range(FABRIC_RANKS)]  # fmt: skip
+    replay = fabric_replay(sched, n)
+    shards = {kind: [res[kind]["registers"][0] for res in ranks] for kind in ("cuda", "cpu")}
+    for r, res in enumerate(ranks):
+        fabric_launches(f"fabric, rank {r} on the card", res["cuda"]["launches"], FABRIC_ROUNDS)
+        if any(res["cpu"]["launches"].values()):
+            raise AssertionError(f"the fabric's CPU run launched kernels: {res['cpu']['launches']}")
+        card, cpu = (dict(res[kind], registers=shards[kind]) for kind in ("cuda", "cpu"))
+        same_fabric(f"rank {r}'s CPU run", card, cpu)
+        same_fabric("the plain replay", card, replay)
+    fabric_decisions(f"fabric on {FABRIC_RANKS} ranks", ranks[0]["cuda"], sched)
+    ranks_s = time.perf_counter() - t1
+    card = percentiles([x for res in ranks for x in res["cuda"]["round_s"]])
+    cpu = percentiles([x for res in ranks for x in res["cpu"]["round_s"]])
+    laps = FABRIC_ROUNDS * cfg.batch * FABRIC_RANKS / n
+    launches = {k: sum(res["cuda"]["launches"][k] for res in ranks) for k in LAUNCHES}
+    decided = int(ranks[0]["cuda"]["decided"].sum())
+    print(f"  {FABRIC_RANKS} ranks on the one card over gloo: {FABRIC_ROUNDS} rounds of "
+          f"{cfg.batch * FABRIC_RANKS} ({laps:.3f} ring laps), {decided} decided, every rank "
+          f"equal to its CPU run and to the plain replay; launches {launches}; round ms p50 "
+          f"{card[0]}, p99 {card[1]} (CPU run: p50 {cpu[0]}, p99 {cpu[1]}); {ranks_s:.3f} s; "
+          f"the phase {time.perf_counter() - t0:.3f} s")  # fmt: skip
+    return dict(
+        launches={k: solo_launches[k] + launches[k] for k in LAUNCHES},
+        solo=dict(rounds=FABRIC_ROUNDS, burst=cfg.batch, round_ms_p50=p50, round_ms_p99=p99,
+                  decided=int(solo["decided"].sum()), wall_s=solo_s,
+                  parts_ms_p50=parts),
+        ranks=dict(ranks=FABRIC_RANKS, rounds=FABRIC_ROUNDS, burst=cfg.batch * FABRIC_RANKS,
+                   ring_laps=laps, round_ms_p50=card[0], round_ms_p99=card[1],
+                   cpu_round_ms_p50=cpu[0], cpu_round_ms_p99=cpu[1], decided=decided,
+                   wall_s=ranks_s),
+    )  # fmt: skip
 
 
 # ---------------------------------------------------------------------------
@@ -4891,6 +5193,9 @@ def main() -> None:
     global CARD
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA card: torch.cuda.is_available() is false")
+    if sys.argv[1:2] == ["--fabric-ranks"]:  # run_fabric's subprocess
+        fabric_ranks(sys.argv[2])
+        return
     CARD = card_line()
     print(CARD)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
@@ -5016,6 +5321,11 @@ def run(dev: torch.device) -> None:
     require_variant("per-role path", role_launches,
                     ["acceptor_vote_all", "acceptor_phase2", "learner_quorum"])  # fmt: skip
     errs["learner_quorum"] = max(errs["learner_quorum"], roles["max_abs_err"])
+
+    print(f"fabric consensus: make_fabric_consensus at the paper's deployment, one rank an "
+          f"acceptor; a world of one on NCCL, then {FABRIC_RANKS} ranks on the card over "
+          f"gloo")  # fmt: skip
+    fabric = run_fabric(dev)
 
     print("multi-group path: PaxosContext(PaxosConfig(n_groups=8, persistent_rounds=1, "
           "realign_after=4), use_kernels=True, snapshots=True)")  # fmt: skip
@@ -5288,6 +5598,8 @@ def run(dev: torch.device) -> None:
     path_metrics["training example"] = dict(card=CARD, **trained["convergence"])
     path_metrics["training checkpoints"] = dict(card=CARD, **trained["checkpoints"])
     path_metrics["mesh"] = dict(card=CARD, **{k: v for k, v in meshed.items() if k != "dryrun"})
+    path_metrics["fabric, world of one"] = dict(card=CARD, **fabric["solo"])
+    path_metrics[f"fabric, {FABRIC_RANKS} ranks on one card"] = dict(card=CARD, **fabric["ranks"])
     family_k9 = 0
     for arch, fam in families.items():
         pre = {k: v for k, v in fam["prefill"].items() if k not in ("launches", "call_s")}
@@ -5312,9 +5624,12 @@ def run(dev: torch.device) -> None:
         ("wirepath_round", "wirepath.cu", "src/repro/kernels/wirepath.py:228", launches),
         ("digest", "digest.cu", "src/repro/kernels/digest.py:45", launches),
         ("coordinator_sequence", "coordinator.cu", "src/repro/kernels/coordinator.py:46",
-         staged_launches),
+         {"coordinator_sequence": staged_launches["coordinator_sequence"]
+          + fabric["launches"]["coordinator_sequence"]}),
         ("acceptor_vote_all", "vote.cu", "src/repro/kernels/wirepath.py:1034", staged_launches),
-        ("acceptor_phase2", "vote.cu", "src/repro/kernels/acceptor.py:92", role_launches),
+        ("acceptor_phase2", "vote.cu", "src/repro/kernels/acceptor.py:92",
+         {"acceptor_phase2": role_launches["acceptor_phase2"]
+          + fabric["launches"]["acceptor_phase2"]}),
         ("learner_quorum", "learner.cu", "src/repro/kernels/learner.py:56", role_launches),
         ("K1-cohort", "wirepath.cu", "src/repro/kernels/wirepath.py:228", mg_launches),
         ("K5", "wirepath.cu", "src/repro/kernels/wirepath.py:524", dflt_launches),

@@ -7,7 +7,8 @@ Layers:
   * ``plan``      — the cohort dispatch planner, burst quantization, packing
   * ``api``       — drop-in submit / deliver / recover (paper Fig. 4), single-,
                     multi-group and groups-sharded dataplanes
-  * ``fabric``    — the groups-sharded round, shard by shard over a mesh
+  * ``fabric``    — the acceptor-sharded consensus and the step commit on a
+                    ``DeviceMesh``; the groups-sharded round, shard by shard
   * ``log``       — replicated log, gaps, quorum trim (a copy of the reference's)
   * ``snapshot``  — sealed snapshot store + ring reclamation
   * ``failover``  — coordinator takeover and acceptor restore

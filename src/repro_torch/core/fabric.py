@@ -1,27 +1,48 @@
-"""The groups-sharded multi-group round: G group slabs partitioned over the
-shards of a ``groups`` mesh.
+"""The fabric: the acceptor-sharded consensus and the training commit on
+``torch.distributed``, and the groups-sharded multi-group round.
 
-The counterpart of the groups-sharded half of ``repro.core.fabric``:
-``make_sharded_multigroup_round`` (the full-width dispatch) and
-``make_packed_sharded_round`` (the packed cohort dispatch).  The reference
-runs its shard body under ``shard_map``; nothing crosses the mesh axis
-during a round, because groups share no state, and every per-group scalar
-is host-authoritative and enters the dispatch replicated.  So here a
-dispatch is a single-controller loop over the shards, in shard order, each
-shard's body on its contiguous ``(Gl, ...)`` slab view of the slot-indexed
-``(G, ...)`` state: rows ``[s*Gl, (s+1)*Gl)`` are shard ``s``.  All shards
-of a ``launch.mesh.GroupMesh`` sit on one device.
+The counterpart of ``repro.core.fabric``, in two halves.
+
+**Acceptor-sharded consensus** (``consensus_round``,
+``make_fabric_consensus``), the paper's claim in the reference's words:
+consensus runs on the interconnect.  One rank is one acceptor on an axis of
+a ``DeviceMesh``, and a round is one collective program that every rank
+runs:
+
+  1. all-gather the proposals over the axis (proposers -> coordinator);
+  2. sequence them on every rank, identically (K3 on the card);
+  3. this rank's acceptor votes on its own register file (K7 on the card);
+  4. sum the live agree bits over the axis (acceptors -> learners);
+  5. every rank learns the same ``decided``, ``inst`` and ``value``.
+
+The reference's round calls its jnp ``batched`` sequencer and vote, and
+reaches no Pallas kernel; the port runs K3 and K7 in their place, with
+their plain versions on the CPU.  The reference runs the round under
+``shard_map``; here it runs under ``local_map`` on each rank's local
+tensors, its collectives on the axis's process group: NCCL between cards,
+gloo between CPU processes or between processes that share one card.  As
+in the reference, ``alive`` gates only an acceptor's count: a dead
+acceptor's registers take the vote too.
+``quorum_commit_digest`` decides a training step by digest agreement over
+an axis, as the reference's does; no training path calls it, as none of the
+reference's does.
+
+**Groups-sharded round** (``make_sharded_multigroup_round``, the
+full-width dispatch, and ``make_packed_sharded_round``, the packed cohort
+dispatch).  The reference runs its shard body under ``shard_map``; nothing
+crosses the mesh axis during a round, because groups share no state, and
+every per-group scalar is host-authoritative and enters the dispatch
+replicated.  So here a dispatch is a single-controller loop over the
+shards, in shard order, each shard's body on its contiguous ``(Gl, ...)``
+slab view of the slot-indexed ``(G, ...)`` state: rows ``[s*Gl,
+(s+1)*Gl)`` are shard ``s``.  All shards of a ``launch.mesh.GroupMesh`` sit
+on one device.
 
 With ``use_kernels`` a full-width shard body is K1's shard slice
 (``kernels.ops.shard_slab_round``) and a packed one K6
 (``kernels.ops.packed_shard_round``), on the card, with their plain versions
 on the CPU; without, the plain engine.  Each dispatch moves its host tables
 (per-group or per-lane scalars and the burst) to the device in one copy.
-
-Not ported: the acceptor-sharded consensus (``consensus_round``,
-``make_fabric_consensus``) and the training commit
-(``quorum_commit_digest``), whose ``psum`` needs a mesh over several cards
-(ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -31,12 +52,179 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels import ops as kops
 from . import batched
-from .types import AcceptorState
+from .types import MSG_P2B, AcceptorState, CoordinatorState
 
 INT32_MAX = 2**31 - 1
+
+
+def _axis_dim(mesh, axis: str) -> int:
+    """The index of ``axis`` among a ``DeviceMesh``'s dims."""
+    names = mesh.mesh_dim_names or ()
+    if axis not in names:
+        raise ValueError(f"mesh has no {axis!r} axis: {names}")
+    return names.index(axis)
+
+
+def _gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` of ``group``, in the axis's order, concatenated
+    along dim 0: the reference's ``all_gather(tiled=True)``."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def consensus_round(
+    astate: AcceptorState,
+    cstate: CoordinatorState,
+    values: torch.Tensor,  # int32[b_local, V]  this rank's proposals
+    active: torch.Tensor,  # bool[b_local]
+    alive: torch.Tensor,  # bool[]  this rank's acceptor is alive
+    *,
+    axis: str,
+    quorum: int,
+    mesh,
+) -> tuple[AcceptorState, CoordinatorState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One round of the acceptor-sharded consensus on this rank's local
+    tensors, as the reference's runs inside ``shard_map``: ``astate`` is
+    this rank's register file ``(N,)``, ``(N,)``, ``(N, V)``, updated in
+    place by the vote of acceptor ``mesh.get_local_rank(axis)``; ``cstate``
+    is replicated.
+
+    Returns ``(astate, cstate', decided[B], inst[B], value[B, V])`` with
+    ``B = b_local * n_acc``, the same on every rank.  A round must address
+    distinct ring slots, so ``B > N`` raises ``ValueError`` on every route
+    (the reference's scatter would race in silence)."""
+    group = mesh.get_group(axis)
+    b = values.shape[0] * mesh.size(_axis_dim(mesh, axis))
+    if b > astate.n_instances:
+        raise ValueError(
+            f"a round of {b} proposals over a ring of {astate.n_instances} instances: "
+            "its slots would not be distinct (B must not exceed N)"
+        )
+    all_values = _gather(values, group)  # [B, V]
+    all_active = _gather(active, group)  # [B]
+    cstate, p2a = kops.coordinator_sequence(cstate, all_values, all_active)
+    astate, votes = kops.acceptor_phase2(astate, p2a, mesh.get_local_rank(axis))
+    # a dead acceptor still votes into its registers (the reference's order);
+    # only its agree bit is left out of the count
+    count = ((votes.msgtype == MSG_P2B) & alive).to(torch.int32)
+    dist.all_reduce(count, op=dist.ReduceOp.SUM, group=group)
+    return astate, cstate, count >= quorum, p2a.inst, p2a.value
+
+
+def make_fabric_consensus(
+    mesh,
+    *,
+    axis: str = "data",
+    quorum: int | None = None,
+    n_instances: int = 4096,
+    value_words: int = 16,
+) -> tuple[Callable[[], tuple[AcceptorState, CoordinatorState]], Callable[..., Any]]:
+    """The acceptor-sharded consensus over ``mesh[axis]`` of a
+    ``DeviceMesh``: ``(init_fn, step_fn)``, the reference's contract.
+
+      * ``init_fn()`` -> ``(astate, cstate)``: ``AcceptorState`` DTensors
+        of global shape ``(n_acc, N)``, ``(n_acc, N)``, ``(n_acc, N, V)``,
+        ``Shard(0)`` on ``axis`` and replicated on every other mesh dim
+        (``vrnd`` at ``NO_ROUND``), and a replicated ``CoordinatorState``;
+      * ``step_fn(astate, cstate, values[B, V], active[B], alive[n_acc])``
+        -> ``(astate', cstate', decided[B], inst[B], value[B, V])``, the
+        proposals and ``alive`` sharded on ``axis``, the last three
+        replicated.
+
+    The registers must be the DTensors that ``init_fn`` (or an earlier
+    ``step_fn``) gave, and a plain tensor among them raises ``TypeError``:
+    a round votes into their local shards in place, and the registers it
+    returns share that storage.  So, unlike the reference's, whose ``jit``
+    donates nothing, the state from before a round does not survive it.
+    Any other plain tensor given to ``step_fn`` is taken as the global
+    tensor, the same on every rank, and cut to this rank's share.  The
+    quorum defaults
+    to ``n_acc // 2 + 1``.  The mesh's device decides the route: on
+    ``cuda`` the round runs K3 and K7, on ``cpu`` their plain versions."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dim = _axis_dim(mesh, axis)
+    n_acc = mesh.size(dim)
+    q = quorum if quorum is not None else n_acc // 2 + 1
+    dev = torch.device(mesh.device_type)
+    rep = tuple(Replicate() for _ in range(mesh.ndim))
+    shard = tuple(Shard(0) if i == dim else Replicate() for i in range(mesh.ndim))
+
+    def placed(x, placements):
+        return DTensor.from_local(x, mesh, placements, run_check=False)
+
+    def init_fn() -> tuple[AcceptorState, CoordinatorState]:
+        local = AcceptorState.init(n_instances, value_words, dev, n_acceptors=1)
+        coord = CoordinatorState.init(device=dev)
+        return (
+            AcceptorState(*(placed(x, shard) for x in vars(local).values())),
+            CoordinatorState(*(placed(x, rep) for x in vars(coord).values())),
+        )
+
+    def local_round(rnd, vrnd, value, next_inst, crnd, values, active, alive):
+        # strip the per-acceptor dim: views, so the vote lands in the shard
+        a = AcceptorState(rnd[0], vrnd[0], value[0])
+        c = CoordinatorState(next_inst, crnd)
+        _, c, decided, inst, val = consensus_round(
+            a, c, values, active, alive[0], axis=axis, quorum=q, mesh=mesh
+        )
+        return rnd, vrnd, value, c.next_inst, c.crnd, decided, inst, val
+
+    round_fn = local_map(
+        local_round,
+        out_placements=(shard,) * 3 + (rep,) * 5,
+        in_placements=(shard,) * 3 + (rep,) * 2 + (shard,) * 3,
+        redistribute_inputs=True,
+        device_mesh=mesh,
+    )
+
+    def step_fn(astate, cstate, values, active, alive):
+        if not all(isinstance(x, DTensor) for x in vars(astate).values()):
+            raise TypeError("the registers must be init_fn's DTensors, updated in place")
+        if values.shape[0] % n_acc:
+            raise ValueError(f"{values.shape[0]} proposals do not split over {n_acc} acceptors")
+        args = [
+            x if isinstance(x, DTensor) else placed(torch.as_tensor(x, device=dev), rep)
+            for x in (*vars(astate).values(), *vars(cstate).values(), values, active, alive)
+        ]
+        rnd, vrnd, value, next_inst, crnd, decided, inst, val = round_fn(*args)
+        return (
+            AcceptorState(rnd, vrnd, value),
+            CoordinatorState(next_inst, crnd),
+            decided,
+            inst,
+            val,
+        )
+
+    return init_fn, step_fn
+
+
+def quorum_commit_digest(
+    digest: torch.Tensor,  # int32[] or int32[k]  this rank's digest
+    healthy: torch.Tensor,  # bool[]  this rank voted in time
+    *,
+    axis: str,
+    quorum: int,
+    mesh,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decide a training step's commit by digest agreement over
+    ``mesh[axis]``, on this rank's local tensors: the step commits iff at
+    least ``quorum`` healthy ranks hold the same digest, so a straggling or
+    dead rank (``healthy`` false) cannot block it.  Returns ``(commit
+    bool[], win int32[])``, the same on every rank; ``win`` is the largest
+    number of healthy ranks that agree on one digest."""
+    group = mesh.get_group(axis)
+    all_d = _gather(digest.reshape(1, -1), group)  # [G, k]
+    all_h = _gather(healthy.reshape(1), group)  # [G]
+    eq = (all_d[:, None, :] == all_d[None, :, :]).all(-1) & all_h[None, :] & all_h[:, None]
+    win = eq.sum(1, dtype=torch.int32).max()
+    return win >= quorum, win
 
 
 def _check_axis(mesh, axis: str) -> int:

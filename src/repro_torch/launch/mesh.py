@@ -28,9 +28,12 @@ All shards of a ``GroupMesh`` sit on one device: ``make_group_mesh()`` gives
 one shard per visible card, which on a one-card machine is a (1,) mesh, and
 ``make_group_mesh(n_shards=S)`` puts S logical shards on one device, the
 port's counterpart of the reference's forced host device count.  A mesh over
-several distinct cards raises ``NotImplementedError``: it waits for the
-slice that runs the fabric consensus on ``torch.distributed`` (ROADMAP.md
-queue 1, item 6).
+several distinct cards raises ``NotImplementedError`` (ROADMAP.md queue 1,
+item 6(a)): the reference's is one controller over the process's local
+devices, with no collective, which the port would write as one process
+driving each card's slab, with no ``torch.distributed``; that is not
+written yet.  (The acceptor-sharded consensus, which does have
+collectives, runs on a ``DeviceMesh``: ``core.fabric.make_fabric_consensus``.)
 
 Capacity planning is the reference's: G is the capacity of the group axis,
 fixed at construction and divisible by the shard count; tenants come and go
@@ -46,7 +49,10 @@ import os
 import torch
 import torch.distributed as dist
 
-_MULTI_CARD = "ROADMAP.md queue 1, item 6 (meshes over several cards)"
+_MULTI_CARD = (
+    "ROADMAP.md queue 1, item 6 (a groups mesh over several cards: one controller over "
+    "the process's cards, with no collective)"
+)
 
 
 @dataclasses.dataclass(frozen=True)

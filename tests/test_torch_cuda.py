@@ -2116,6 +2116,69 @@ def test_contracts_hold_on_the_card(cuda):
     assert all(x > y for x, y in zip(after, before, strict=True)), (before, after)
 
 
+def test_fabric_consensus_on_the_card_equals_the_plain_rounds(cuda):
+    """``core.fabric.make_fabric_consensus`` in a world of one on NCCL, a
+    (1,) mesh, over 48 rounds of 128 on a 4,096-slot ring (it laps): every
+    round launches K3 and K7 once, and its ``decided``, ``inst`` and
+    ``value`` and the final registers equal the same rounds through the
+    plain sequencer and vote on the CPU, with a dead stretch, rounds at a
+    lower ``crnd`` than the slots' promise (rejected) and a higher one
+    after; ``quorum_commit_digest`` on the card too."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.fabric import make_fabric_consensus, quorum_commit_digest
+    from repro_torch.core.types import MSG_P2B
+    from repro_torch.launch.mesh import ensure_process_group
+
+    n, v, b, rounds = 4096, 16, 128, 48
+    rng = np.random.default_rng(35)
+    values = rng.integers(I32_MIN, I32_MAX, (rounds, b, v), endpoint=True).astype(np.int32)
+    active = rng.random((rounds, b)) < 0.8
+    alive = np.ones(rounds, bool)
+    alive[10:14] = False
+    crnd = [2] * 32 + [1] * 8 + [3] * 8  # the second lap meets promises of round 2
+    owned = not dist.is_initialized()
+    ensure_process_group(cuda)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("acc",))
+        init_fn, step = make_fabric_consensus(mesh, axis="acc", n_instances=n, value_words=v)
+        astate, cstate = init_fn()
+        before = (k_coordinator.launches, k_acceptor.launches)
+        got = []
+        for r in range(rounds):
+            c = torch.tensor(crnd[r], dtype=torch.int32, device=cuda)
+            astate, cstate, *out = step(
+                astate, CoordinatorState(cstate.next_inst, c),
+                torch.from_numpy(values[r]).to(cuda), torch.from_numpy(active[r]).to(cuda),
+                torch.tensor([bool(alive[r])], device=cuda),
+            )  # fmt: skip
+            got.append([x.to_local().cpu().numpy() for x in out])
+        launches = (k_coordinator.launches - before[0], k_acceptor.launches - before[1])
+        regs = [x.to_local()[0].cpu().numpy() for x in vars(astate).values()]
+        d = torch.tensor([7, -8], dtype=torch.int32, device=cuda)
+        commit, win = quorum_commit_digest(d, torch.tensor(True, device=cuda), axis="acc",
+                                           quorum=1, mesh=mesh)  # fmt: skip
+        commit, win = bool(commit), int(win)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+    assert launches == (rounds, rounds) and (commit, win) == (True, 1)
+    st, cs = AcceptorState.init(n, v, "cpu"), CoordinatorState.init()
+    for r in range(rounds):
+        cs = CoordinatorState(cs.next_inst, torch.tensor(crnd[r], dtype=torch.int32))
+        cs, p2a = batched.coordinator_sequence(
+            cs, torch.from_numpy(values[r]), torch.from_numpy(active[r])
+        )
+        _, votes = batched.acceptor_phase2(st, p2a, 0)
+        decided = ((votes.msgtype == MSG_P2B) & bool(alive[r])).numpy()
+        for x, y in zip(got[r], (decided, p2a.inst.numpy(), values[r]), strict=True):
+            np.testing.assert_array_equal(x, y, err_msg=f"round {r}")
+        assert decided.all() if alive[r] and crnd[r] != 1 else not decided.any(), r
+    for x, y in zip(regs, vars(st).values(), strict=True):
+        np.testing.assert_array_equal(x, y.numpy())
+
+
 def test_meshed_train_step_on_the_card_matches_the_unmeshed(full_f32):
     """Two train steps of the reduced qwen3-4b (float32) on a (1, 1)
     ``make_host_mesh()`` over NCCL in a world of one, state and batches
