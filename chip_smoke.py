@@ -80,9 +80,11 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    wave depths and plan; K5 must run once per wave and K1's cohort form once
    per single-round dispatch;
 9. the groups-sharded path: the service of 8, at the reference's
-   defaults, on ``PaxosContext(..., mesh=make_group_mesh(2))`` (two shards
-   of four groups on the card), on the schedule of 7, then
-   ``retire_group(5)`` on shard 1, ``migrate_group(0, 1)`` and more
+   defaults, on ``PaxosContext(..., mesh=group_mesh(dev))``: two logical
+   shards of four groups on the one card, each slab an allocation of its
+   own, or one shard per card (``make_group_mesh()``) where several cards
+   split the 8 groups; on the schedule of 7, then a retire on the last
+   shard (group 5 on two shards), ``migrate_group(0, S - 1)`` and more
    traffic.  A sharded context plans no persistent waves (the reference's
    clamp), so before the move its group logs, dispatch count and plan must
    equal path 7's; the plain engine's run must give the same group logs,
@@ -102,7 +104,7 @@ kernels from ``src/repro_torch/csrc`` on first use.  It prints, in order:
    ``benchmarks/bench_wirepath.py``'s KV row (128 puts a round trip, 4,096
    leased gets); every get must equal the session's last write and the
    decoded chain, a leased get must dispatch nothing, and both read paths
-   must run; then the same tier on ``make_group_mesh(2)`` with one
+   must run; then the same tier on ``group_mesh(dev)`` with one
    ``plan_placement`` and a ``migrate_group`` (``run_kv_sharded``), the
    moved group's sessions reading the same values after the move.  Each
    against the plain engine's run (logs, archives, replicas, answers,
@@ -291,7 +293,7 @@ from repro_torch.kernels import ref as k_ref  # noqa: E402
 from repro_torch.kernels import wirepath as k_wirepath  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as k_flash  # noqa: E402
-from repro_torch.launch.mesh import make_group_mesh  # noqa: E402
+from repro_torch.launch.mesh import GroupMesh, make_group_mesh  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import registry as lm_registry  # noqa: E402
 from repro_torch.models import rwkv6  # noqa: E402
@@ -499,7 +501,7 @@ def max_abs_err(xs, ys) -> int:
 
 def sync(dev) -> None:
     if dev.type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
 
 
 def off16(x: torch.Tensor) -> torch.Tensor:
@@ -2290,8 +2292,109 @@ def default_multigroup_config() -> PaxosConfig:
     return PaxosConfig(n_groups=8, realign_after=4)
 
 
+def group_mesh(dev) -> GroupMesh:
+    """The groups mesh of the sharded phases: one shard per card where the
+    machine has several and they split the 8 groups of
+    ``default_multigroup_config``, else two logical shards of ``dev``, each
+    slab an allocation of its own."""
+    cards = torch.cuda.device_count()
+    if cards > 1 and default_multigroup_config().n_groups % cards == 0:
+        return make_group_mesh()
+    return make_group_mesh(2, dev)
+
+
+def mesh_line(mesh: GroupMesh) -> str:
+    return (f"groups mesh: {mesh.n_shards} shards on {[str(d) for d in mesh.devices]}, "
+            f"torch.cuda.device_count() {torch.cuda.device_count()}")  # fmt: skip
+
+
+def check_slabs(hw, mesh: GroupMesh) -> None:
+    """Every shard's slab tensors lie on its device of ``mesh``, and no two
+    slab tensors share an allocation."""
+    ptrs = set()
+    for s_, (st, ls) in enumerate(zip(hw.stacks, hw.lstates, strict=True)):
+        want = mesh.devices[s_]
+        for x in (*vars(st).values(), *vars(ls).values()):
+            if x.device.type != want.type or want.index not in (None, x.device.index):
+                raise AssertionError(f"shard {s_}'s slab is on {x.device}, not {want}")
+            ptrs.add(x.untyped_storage().data_ptr())
+    if len(ptrs) != 6 * mesh.n_shards:
+        raise AssertionError("two shards' slab tensors share an allocation")
+
+
+def sharded_dispatch_parts(dev, mesh: GroupMesh, reps: int = 150) -> dict:
+    """Where a sharded dispatch's host time goes, p50 ms over ``reps``
+    dispatches of each kind (after 20 unmeasured), on a service of its own
+    at the defaults' widths over ``mesh``: a full-width ``pipeline`` (K1's
+    shard slice on every shard) and a ``pipeline_cohort`` of three groups
+    (K6 on every shard).  The card is synchronised before each dispatch, not
+    inside it.  ``uploads`` times ``fabric._upload``, ``launches`` the
+    kernels' wrappers, ``read_back`` ``fabric._read_back`` (which waits for
+    the shards' kernels), ``host`` the rest of ``total``.  Run after the
+    phase's launches are read."""
+    from repro_torch.core import ShardedMultiGroupDataplane, fabric
+
+    cfg = default_multigroup_config()
+    g, b, v = cfg.n_groups, cfg.batch, cfg.value_words
+    hw = ShardedMultiGroupDataplane(cfg, mesh=mesh, use_kernels=True)
+    rng = np.random.default_rng(SEED + 41)
+    vals = rng.integers(-(2**31), 2**31 - 1, (g, b, v), dtype=np.int32)
+    act = np.ones((g, b), bool)
+    gids = [0, 3, g - 2]
+    kinds = {
+        "full_width": lambda: hw.pipeline(vals, act),
+        "cohort_of_3": lambda: hw.pipeline_cohort(gids, vals[: len(gids)], act[: len(gids)]),
+    }
+    spent: dict[str, float] = {}
+
+    def timer(name: str, fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+
+        return call
+
+    patches = [
+        (fabric, "_upload", "uploads"),
+        (fabric, "_read_back", "read_back"),
+        (ops, "shard_slab_round", "launches"),
+        (ops, "packed_shard_round", "launches"),
+    ]
+    saved = [getattr(mod, attr) for mod, attr, _ in patches]
+    out = {}
+    try:
+        for mod, attr, name in patches:
+            setattr(mod, attr, timer(name, getattr(mod, attr)))
+        for kind, fn in kinds.items():
+            rows: dict[str, list[float]] = {}
+            for i in range(20 + reps):
+                spent.clear()
+                for d in mesh.devices:
+                    sync(d)
+                t = time.perf_counter()
+                fn()
+                total = time.perf_counter() - t
+                if i < 20:
+                    continue
+                parts = {k: spent.get(k, 0.0) for k in ("uploads", "launches", "read_back")}
+                parts["host"] = total - sum(parts.values())
+                for k, x in (("total", total), *parts.items()):
+                    rows.setdefault(k, []).append(x)
+            out[kind] = {k: percentiles(x)[0] for k, x in rows.items()}
+    finally:
+        for (mod, attr, _), fn in zip(patches, saved, strict=True):
+            setattr(mod, attr, fn)
+    return out
+
+
 def run_multigroup_path(
-    use_kernels: bool, dev, cfg: PaxosConfig | None = None, shards: int = 0,
+    use_kernels: bool,
+    dev,
+    cfg: PaxosConfig | None = None,
+    mesh: GroupMesh | None = None,
     deep: bool | None = None,
 ) -> dict:
     """The multi-group service on the card under a seeded lossy ``SimNet``:
@@ -2315,9 +2418,9 @@ def run_multigroup_path(
     ``deep`` (default: whether ``cfg`` has persistent waves) gives group 0
     its 2 to 12 batches per pump in the skewed phase; otherwise 8.
 
-    ``shards=S`` runs the groups-sharded service instead, on
-    ``make_group_mesh(S)`` on the card, and ends the schedule with a live
-    migration: ``retire_group`` of a group on the last shard,
+    ``mesh`` (a ``GroupMesh`` of S shards) runs the groups-sharded service
+    instead, each shard's slab on its device, and ends the schedule with a
+    live migration: ``retire_group`` of a group on the last shard,
     ``migrate_group(0, S - 1)``, then traffic to every live group and a
     snapshot of each (``before_move`` holds the group logs, dispatch count
     and planner report before it).  A sharded context plans no persistent
@@ -2327,7 +2430,7 @@ def run_multigroup_path(
     g, n, b = cfg.n_groups, cfg.n_instances, cfg.batch
     net = SimNet(FaultSpec(drop=0.01, dup=0.01, reorder=0.01), seed=SEED + 13)
     order: list[tuple[int, bytes]] = []
-    mesh = make_group_mesh(shards, dev) if shards else None
+    shards = mesh.n_shards if mesh is not None else 0
     ctx = PaxosContext(cfg, net=net, use_kernels=use_kernels, snapshots=True, device=dev,
                        mesh=mesh,
                        deliver=lambda payload, _size, inst: order.append((inst, payload)))
@@ -2469,9 +2572,10 @@ def run_multigroup_path(
         report=ctx.planner.report(),
     )
     if shards:
+        check_slabs(hw, mesh)
         # live migration: vacate a slot on the last shard, move group 0
         # there while the service runs, and serve on
-        gone = g - 3
+        gone = next(h for h in (g - 3, g - 1) if hw.shard_of_group(h) == shards - 1)
         retired.append((gone, ctx.retire_group(gone)))
         if sorted(p for _, p in retired[-1][1]) != sorted(sent[gone]):
             raise AssertionError(f"retired group {gone} did not deliver each payload once")
@@ -2900,12 +3004,12 @@ def kv_metrics(run_: dict, counts: dict | None = None) -> dict:
     return out
 
 
-def run_kv_sharded(use_kernels: bool, dev) -> dict:
-    """The KV tier on the defaults' service sharded over ``make_group_mesh(2)``
-    (two shards of four groups on the card): three waves of puts from every
-    session, the sessions of one group writing four times as much; one
-    ``plan_placement`` of the loads; a retire on the shard the plan gives
-    the hot group (the other shard if the plan keeps it) and
+def run_kv_sharded(use_kernels: bool, dev, mesh: GroupMesh) -> dict:
+    """The KV tier on the defaults' service sharded over ``mesh``
+    (``group_mesh``: two shards of four groups on the card): three waves of
+    puts from every session, the sessions of one group writing four times
+    as much; one ``plan_placement`` of the loads; a retire on the shard the
+    plan gives the hot group (the next shard if the plan keeps it) and
     ``migrate_group`` of the hot group there, from a burst-aligned drain
     watermark (the move re-seats the sequencer, realigned only under
     ``use_kernels``).  The hot group's sessions read the same values after
@@ -2914,7 +3018,7 @@ def run_kv_sharded(use_kernels: bool, dev) -> dict:
     cfg = default_multigroup_config()
     b = cfg.batch
     ctx = PaxosContext(cfg, use_kernels=use_kernels, snapshots=True, device=dev,
-                       mesh=make_group_mesh(2, dev))  # fmt: skip
+                       mesh=mesh)  # fmt: skip
     hw = ctx.hw
     svc = ConsensusService(ctx)
     kv = ReplicatedKV(svc)
@@ -2936,7 +3040,7 @@ def run_kv_sharded(use_kernels: bool, dev) -> dict:
     plan = svc.plan_placement()
     dst = plan.shard_of(hot)
     if dst == svc.shard_of(clients.sids[0]):
-        dst = 1 - dst
+        dst = (dst + 1) % mesh.n_shards
     gone = next(h for h in ctx.live_groups() if h != hot and svc.group_placement()[h] == dst)
     svc.retire_group(gone)
     movers = [i for i, sid in enumerate(clients.sids) if svc.group_of(sid) == hot]
@@ -5146,17 +5250,19 @@ def run_replicated_kv(dev) -> dict:
           f"{kvp['report']}; twins' replicas equal at the retirement and at the end; no "
           f"stale read; no leased get dispatched")  # fmt: skip
 
-    print("replicated KV, sharded: the same tier over make_group_mesh(2), one plan_placement "
+    mesh = group_mesh(dev)
+    print("replicated KV, sharded: the same tier over group_mesh(dev), one plan_placement "
           "and a migrate_group")  # fmt: skip
+    print(f"  {mesh_line(mesh)}")
     reset_launches()
     with SealCalls() as seals:
-        kvs = run_kv_sharded(True, dev)
+        kvs = run_kv_sharded(True, dev, mesh)
     kvs_launches = read_launches()
     print(f"  launches: {kvs_launches}, seals: {seals.calls}")
     require_launched("sharded replicated KV", kvs_launches, ["K6", "K1-shard", "digest"])
     require_seals("sharded replicated KV", kvs_launches, seals)
     print("  the same schedule on the plain engine (use_kernels=False) on the card")
-    kvs_plain = run_kv_sharded(False, dev)
+    kvs_plain = run_kv_sharded(False, dev, mesh)
     for key in ("logs", "signatures", "answers", "stats", "dispatch_count", "seals",
                 "placement", "plan", "moved", "report"):  # fmt: skip
         if kvs[key] != kvs_plain[key]:
@@ -5417,15 +5523,17 @@ def run(dev: torch.device) -> None:
           f"group 0 ring laps {dflt['ring_laps']:.3f}, stats {dflt['stats']}")  # fmt: skip
 
     print("sharded multi-group path: PaxosContext(PaxosConfig(n_groups=8, realign_after=4), "
-          "mesh=make_group_mesh(2), use_kernels=True, snapshots=True) on the multi-group "
+          "mesh=group_mesh(dev), use_kernels=True, snapshots=True) on the multi-group "
           "path's schedule, then a live migration")  # fmt: skip
+    mesh = group_mesh(dev)
+    print(f"  {mesh_line(mesh)}")
     reset_launches()
     with (
         PlainCalls() as plain_votes,
         PlainCalls("_rows_round") as plain_rounds,
         SealCalls() as seals,
     ):
-        shd = run_multigroup_path(True, dev, default_multigroup_config(), shards=2, deep=False)
+        shd = run_multigroup_path(True, dev, default_multigroup_config(), mesh=mesh, deep=False)
     sh_launches = read_launches()
     rounds = sum(k * c for k, c in shd["depths"].items())
     print(f"  launches: {sh_launches}, dispatches {len(shd['dispatch_s'])} (single rounds "
@@ -5436,7 +5544,7 @@ def run(dev: torch.device) -> None:
     require_launched("sharded multi-group path", sh_launches,
                      ["K6", "K1-shard", "digest", "acceptor_vote_all"])  # fmt: skip
     if (
-        sh_launches["K6"] + sh_launches["K1-shard"] != 2 * rounds
+        sh_launches["K6"] + sh_launches["K1-shard"] != mesh.n_shards * rounds
         or sh_launches["K5"]
         or sh_launches["K1-cohort"]
         or plain_votes.calls
@@ -5456,9 +5564,9 @@ def run(dev: torch.device) -> None:
             raise AssertionError(f"the sharded path differs from the multi-group path in {key}")
     print("  the same schedule on the plain engine (use_kernels=False) on the card")
     with PlainCalls("_rows_round") as plain_rounds:
-        shd_plain = run_multigroup_path(False, dev, default_multigroup_config(), shards=2,
+        shd_plain = run_multigroup_path(False, dev, default_multigroup_config(), mesh=mesh,
                                         deep=False)  # fmt: skip
-    if not 0 < plain_rounds.calls <= 2 * rounds:
+    if not 0 < plain_rounds.calls <= mesh.n_shards * rounds:
         raise AssertionError("the plain sharded run did not run the plain engine")
     for key in ("logs", "retired", "seals", "order", "depths", "folds", "dispatch_count",
                 "last_gb", "report", "placement"):  # fmt: skip
@@ -5476,6 +5584,8 @@ def run(dev: torch.device) -> None:
           f"report equal the multi-group path's")  # fmt: skip
     print(f"  fold widths seen (width: dispatches): {dict(sorted(shd['folds'].items()))}, "
           f"stats {shd['stats']}")  # fmt: skip
+    shd["parts"] = sharded_dispatch_parts(dev, mesh)
+    print(f"  a dispatch's parts, p50 ms: {shd['parts']}")
 
     kvr = run_replicated_kv(dev)
     # each ReplicatedKV and its KVSessions refer to each other, so the KV phase's four
@@ -5570,6 +5680,8 @@ def run(dev: torch.device) -> None:
             plain_dispatch_ms_p50=plain_p50,
             plain_dispatch_ms_p99=plain_p99,
         )
+    path_metrics["sharded multi-group path"]["shard_devices"] = [str(d) for d in mesh.devices]
+    path_metrics["sharded multi-group path"]["dispatch_parts_ms_p50"] = shd["parts"]
     for name, run_, base, counts in (
         ("replicated KV", kvr["kvp"], kvr["kvp_plain"], kvr["kv_launches"]),
         ("sharded replicated KV", kvr["kvs"], kvr["kvs_plain"], kvr["kvs_launches"]),

@@ -27,6 +27,7 @@ from .api import (  # noqa: F401
 from .baseline import SoftwarePaxos  # noqa: F401
 from .log import ReplicatedLog  # noqa: F401
 from .network import FaultSpec, SimNet  # noqa: F401
+from .plan import Cohort, DispatchPlanner, RoundPlan  # noqa: F401
 from .snapshot import GroupSnapshot, RingOverflowError, SnapshotStore  # noqa: F401
 from .types import (  # noqa: F401
     AcceptorState,

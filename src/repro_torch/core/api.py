@@ -35,8 +35,9 @@ A sharded context (``mesh=``) runs every packed cohort dispatch on the
 packed shard round kernel K6 and every full-width one on the round kernel's
 shard slice, shard by shard.  It plans no persistent waves (the reference's
 planner clamp: its dataplane would run a K-round wave as K single-round
-dispatches).  ``migrate_group`` moves a tenant's slab between shards.  All
-shards sit on one device.
+dispatches).  ``migrate_group`` moves a tenant's slab between shards.  Each
+shard keeps its slab on its own device of the mesh (``mesh.devices[s]``),
+and one controller, this process, drives them all.
 """
 
 from __future__ import annotations
@@ -305,17 +306,18 @@ class _GroupView:
 
     @property
     def device(self) -> torch.device:
-        return self.mg.device
+        """The device of the group's slab: its shard's on a sharded
+        dataplane."""
+        return self.mg.device_of(self.gid)
 
     def _rows(self) -> tuple[AcceptorState, torch.Tensor]:
         mg = self.mg
-        row = mg._slab_row(self.gid)
-        stack = AcceptorState(mg.stack.rnd[row], mg.stack.vrnd[row], mg.stack.value[row])
+        stack, _ = mg._rows(self.gid)
         # the slabs are slot-indexed, the liveness mask gid-indexed (a host
         # array on the sharded dataplane)
         alive = mg.alive_mask[self.gid]
         if not isinstance(alive, torch.Tensor):
-            alive = torch.from_numpy(alive != 0).to(mg.device)
+            alive = torch.from_numpy(alive != 0).to(self.device)
         return stack, alive
 
     def vote(self, p2a: MsgBatch) -> list[MsgBatch | None]:
@@ -377,11 +379,8 @@ class MultiGroupDataplane(RingReclamationMixin):
         self.cfg = cfg
         self.device = resolve_device(device)
         g, a = cfg.n_groups, cfg.n_acceptors
-        self.cstate, self.stack, self.lstate = batched.init_multigroup_state(
-            g, a, cfg.n_instances, cfg.value_words, self.device
-        )
+        self._init_state()
         self.alive = [[True] * a for _ in range(g)]  # host mirror
-        self.alive_mask = torch.ones((g, a), dtype=torch.bool, device=self.device)
         # membership: every slot starts live; the free-list (sorted, lowest
         # first: deterministic allocation) holds vacant slots
         self.live_host: list[bool] = [True] * g
@@ -394,6 +393,15 @@ class MultiGroupDataplane(RingReclamationMixin):
         self.dispatch_count = 0  # monotone count of device programs
         self.last_gb: int | None = None  # fold width of the last dispatch
         self._vote_all = (kops if use_kernels else batched).acceptor_phase2_all
+
+    def _init_state(self) -> None:
+        """The device state: ``(G,)`` watermarks and rounds, the slot-indexed
+        ``(G, ...)`` slabs and the ``(G, A)`` liveness mask."""
+        g, a = self.cfg.n_groups, self.cfg.n_acceptors
+        self.cstate, self.stack, self.lstate = batched.init_multigroup_state(
+            g, a, self.cfg.n_instances, self.cfg.value_words, self.device
+        )
+        self.alive_mask = torch.ones((g, a), dtype=torch.bool, device=self.device)
 
     # -- ring reclamation: RingReclamationMixin per group --------------------
     def _seq_marks(self) -> list[int]:
@@ -685,10 +693,10 @@ class MultiGroupDataplane(RingReclamationMixin):
         """Crash with state loss: reset one acceptor's registers of one
         group in place; ``core.failover.restore_acceptor`` rebuilds them."""
         self._check_gid(gid)
-        row = self._slab_row(gid)
-        self.stack.rnd[row, aid] = 0
-        self.stack.vrnd[row, aid] = NO_ROUND
-        self.stack.value[row, aid] = 0
+        stack, _ = self._rows(gid)
+        stack.rnd[aid] = 0
+        stack.vrnd[aid] = NO_ROUND
+        stack.value[aid] = 0
 
     @mirror_guard
     def freeze_group(self, gid: int) -> None:
@@ -734,15 +742,29 @@ class MultiGroupDataplane(RingReclamationMixin):
         dataplane translates through its placement."""
         return gid
 
+    def _rows(self, gid: int) -> tuple[AcceptorState, batched.LearnerState]:
+        """Group ``gid``'s rows of the slabs, ``(A, N[, V])`` and ``(N[,
+        V])`` views on ``device_of(gid)``: every read or write of one
+        group's registers goes through them."""
+        row = self._slab_row(gid)
+        return (
+            AcceptorState(*(x[row] for x in vars(self.stack).values())),
+            batched.LearnerState(*(x[row] for x in vars(self.lstate).values())),
+        )
+
+    def device_of(self, gid: int) -> torch.device:
+        """The device that holds group ``gid``'s slab rows."""
+        return self.device
+
     def _reset_group_slab(self, gid: int) -> None:
         """Reset one group's acceptor and learner rows to a fresh tenant's."""
-        row = self._slab_row(gid)
-        self.stack.rnd[row] = 0
-        self.stack.vrnd[row] = NO_ROUND
-        self.stack.value[row] = 0
-        self.lstate.delivered[row] = 0
-        self.lstate.inst[row] = -1
-        self.lstate.value[row] = 0
+        stack, lstate = self._rows(gid)
+        stack.rnd.fill_(0)
+        stack.vrnd.fill_(NO_ROUND)
+        stack.value.fill_(0)
+        lstate.delivered.fill_(0)
+        lstate.inst.fill_(-1)
+        lstate.value.fill_(0)
 
     @mirror_guard
     def create_group(self) -> int:
@@ -781,10 +803,7 @@ class MultiGroupDataplane(RingReclamationMixin):
         and free its slot.  No slab row moves; the slot is reset at the
         next ``create_group``."""
         self._check_live(gid)
-        row = self._slab_row(gid)
-        ld = self.lstate.delivered[row].cpu().numpy()
-        li = self.lstate.inst[row].cpu().numpy()
-        lv = self.lstate.value[row].cpu().numpy()
+        ld, li, lv = (x.cpu().numpy() for x in vars(self._rows(gid)[1]).values())
         slots = np.nonzero(ld != 0)[0]
         order = slots[np.argsort(li[slots], kind="stable")]
         drained = [(int(li[s]), lv[s].tobytes()) for s in order]
@@ -792,6 +811,19 @@ class MultiGroupDataplane(RingReclamationMixin):
         self.freeze_group(gid)
         bisect.insort(self._free, gid)
         return drained
+
+
+_PER_SHARD = (
+    "a sharded dataplane keeps one slab per shard (stacks[s], lstates[s]): read or write "
+    "a group's rows through _rows(gid), read the whole through gather()"
+)
+
+
+def _same_device(asked: torch.device, home: torch.device) -> bool:
+    """A caller's ``asked`` device names the mesh's ``home`` device: an
+    ``asked`` without an index (``"cuda"``) names any card, an index only
+    its own card, and a mesh on the current card (no index) only ``"cuda"``."""
+    return asked.type == home.type and (asked.index is None or asked.index == home.index)
 
 
 def _i32(xs) -> np.ndarray:
@@ -803,10 +835,15 @@ class ShardedMultiGroupDataplane(MultiGroupDataplane):
     """``MultiGroupDataplane`` with the group axis partitioned over the
     shards of a ``groups`` mesh (``launch.mesh.GroupMesh``): shard ``s``
     owns slots ``[s*Gl, (s+1)*Gl)`` of the ``(G, A, N)`` acceptor rings and
-    ``(G, N)`` learner rings, ``Gl = G / n_shards``.  All shards sit on the
-    mesh's one device, so the slabs stay the parent's slot-indexed tensors
-    and a shard's slab is a view of its rows; a dispatch runs each shard's
-    body on its view, in shard order (``core.fabric``).
+    ``(G, N)`` learner rings, ``Gl = G / n_shards``, as a slab of its own on
+    ``mesh.devices[s]``: ``stacks[s]`` and ``lstates[s]``, ``(Gl, ...)``.
+    One controller, this process, drives them all: a dispatch launches each
+    shard's body on its own slab and device, in shard order, and reads the
+    outputs back after the last launch (``core.fabric``).  There is no
+    ``(G, ...)`` tensor: ``stack`` and ``lstate`` raise, every row read or
+    write goes through ``_rows``, and ``gather()`` reads the slabs back to
+    the host in slot order.  The controller's own tensors (the snapshot
+    seals) live on the home device ``device``, ``mesh.devices[0]``.
 
     Per-group control state, the watermark and round vectors (``cstate``)
     and the ``(G, A)`` liveness mask (``alive_mask``), is host-authoritative
@@ -834,7 +871,7 @@ class ShardedMultiGroupDataplane(MultiGroupDataplane):
             from ..launch.mesh import make_group_mesh
 
             mesh = make_group_mesh(device=device)
-        elif device is not None and resolve_device(device) != mesh.device:
+        elif device is not None and not _same_device(resolve_device(device), mesh.device):
             raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
         if axis not in mesh.shape:
             raise ValueError(f"mesh has no {axis!r} axis: {mesh.axis_names}")
@@ -844,19 +881,84 @@ class ShardedMultiGroupDataplane(MultiGroupDataplane):
                 f"n_groups={cfg.n_groups} must be divisible by the {axis!r} "
                 f"mesh axis size {n_sh}"
             )
-        super().__init__(cfg, use_kernels=use_kernels, device=mesh.device)
         self.mesh = mesh
         self.axis = axis
         self.n_shards = n_sh
         self.groups_per_shard = cfg.n_groups // n_sh
-        g, a = cfg.n_groups, cfg.n_acceptors
+        super().__init__(cfg, use_kernels=use_kernels, device=mesh.device)
+        self._dispatches: dict[tuple[bool, int], Any] = {}
+        self._packed_dispatches: dict[bool, Any] = {}
+        self._placement = plan_mod.PlacementMap.identity(cfg.n_groups, self.groups_per_shard)
+
+    def _init_state(self) -> None:
+        """Host-authoritative control state, the watermark and round vectors
+        and the liveness mask, and one ``(Gl, ...)`` slab per shard on its
+        device, each an allocation of its own."""
+        g, a, gl = self.cfg.n_groups, self.cfg.n_acceptors, self.groups_per_shard
         self.cstate = CoordinatorState(
             next_inst=np.zeros((g,), np.int32), crnd=np.zeros((g,), np.int32)
         )
         self.alive_mask = np.ones((g, a), np.int32)
-        self._dispatches: dict[tuple[bool, int], Any] = {}
-        self._packed_dispatches: dict[bool, Any] = {}
-        self._placement = plan_mod.PlacementMap.identity(g, self.groups_per_shard)
+        slabs = [
+            batched.init_multigroup_state(gl, a, self.cfg.n_instances, self.cfg.value_words, dev)
+            for dev in self.mesh.devices
+        ]
+        self.stacks = tuple(st for _, st, _ in slabs)
+        self.lstates = tuple(ls for _, _, ls in slabs)
+
+    @property
+    def stack(self):
+        raise AttributeError(_PER_SHARD)
+
+    @property
+    def lstate(self):
+        raise AttributeError(_PER_SHARD)
+
+    def _rows(self, gid: int) -> tuple[AcceptorState, batched.LearnerState]:
+        s, row = divmod(self._slab_row(gid), self.groups_per_shard)
+        return (
+            AcceptorState(*(x[row] for x in vars(self.stacks[s]).values())),
+            batched.LearnerState(*(x[row] for x in vars(self.lstates[s]).values())),
+        )
+
+    def device_of(self, gid: int) -> torch.device:
+        return self.mesh.devices[self.shard_of_group(gid)]
+
+    def gather(self) -> dict[str, np.ndarray]:
+        """The slabs read back to the host as ``(G, ...)`` numpy arrays in
+        slot order, under ``core.bridge``'s names (``stack.rnd``, ...,
+        ``lstate.value``): the reference's global arrays.  A copy: writes
+        go through ``_rows``."""
+        out = {}
+        for name, parts in (("stack", self.stacks), ("lstate", self.lstates)):
+            for field in vars(parts[0]):
+                out[f"{name}.{field}"] = np.concatenate(
+                    [getattr(p, field).cpu().numpy() for p in parts]
+                )
+        return out
+
+    def scatter(self, arrays: dict[str, np.ndarray]) -> None:
+        """``gather``'s inverse: load ``(G, ...)`` arrays in slot order onto
+        every shard's slab in place, with the host-held state that comes
+        with them: ``cstate.next_inst``, ``cstate.crnd``, ``alive`` and the
+        placement ``slot_of`` (the identity without it, as in an unsharded
+        dataplane's state)."""
+        g, gl = self.cfg.n_groups, self.groups_per_shard
+        for name, parts in (("stack", self.stacks), ("lstate", self.lstates)):
+            for field in vars(parts[0]):
+                key = f"{name}.{field}"
+                src = torch.from_numpy(np.asarray(arrays[key], np.int32))
+                want = (g, *getattr(parts[0], field).shape[1:])
+                if tuple(src.shape) != want:
+                    raise ValueError(f"{key}: shape {tuple(src.shape)} != {want}")
+                for p, rows in zip(parts, src.split(gl), strict=True):
+                    getattr(p, field).copy_(rows)
+        self.cstate = CoordinatorState(
+            *(np.array(arrays[k], np.int32) for k in ("cstate.next_inst", "cstate.crnd"))
+        )
+        self.alive_mask = np.asarray(arrays["alive"]).astype(np.int32)
+        slot_of = arrays.get("slot_of", range(g))
+        self._placement = plan_mod.PlacementMap(tuple(int(x) for x in slot_of), gl)
 
     def _fold_width(self) -> int:
         # a fold never crosses a shard's slab
@@ -930,9 +1032,9 @@ class ShardedMultiGroupDataplane(MultiGroupDataplane):
         lim = self._reclaim_limits_np()
         fn = self._dispatch(use_k, plan_gb if use_k else 1)
         self.dispatch_count += 1
-        self.stack, self.lstate, fresh, inst, _win, value = fn(
+        _st, _ls, fresh, inst, _win, value = fn(
             _i32(self.next_inst_host)[perm], eff_crnd, en, self.alive_mask[perm],
-            self.stack, self.lstate, np.asarray(values)[perm], np.asarray(active)[perm],
+            self.stacks, self.lstates, np.asarray(values)[perm], np.asarray(active)[perm],
             reclaim_limit=None if lim is None else lim[perm],
         )  # fmt: skip
         for gid in range(g):
@@ -941,7 +1043,7 @@ class ShardedMultiGroupDataplane(MultiGroupDataplane):
         self._sync_cstate()
         self.last_gb = plan_gb  # reported engine-agnostically
         inv = list(pm.slot_of)  # gid -> slot: gather back to gid order
-        return fresh.cpu().numpy()[inv], inst[inv], value.cpu().numpy()[inv]
+        return fresh[inv], inst[inv], value[inv]
 
     # -- cohort dispatch, packed per shard ---------------------------------------
     @mirror_guard
@@ -999,11 +1101,11 @@ class ShardedMultiGroupDataplane(MultiGroupDataplane):
                 lane_of[gid] = (s, j)
         fn = self._packed_dispatch(use_k)
         self.dispatch_count += 1
-        self.stack, self.lstate, fresh, _inst_d, _win, value = fn(
-            seg, nip, crp, enp, alp, self.stack, self.lstate, valsp, reclaim_limit=limp
+        _st, _ls, fresh, _inst, _win, value = fn(
+            seg, nip, crp, enp, alp, self.stacks, self.lstates, valsp, reclaim_limit=limp
         )
-        fresh = fresh.cpu().numpy().reshape(n_sh, c, be)
-        value = value.cpu().numpy().reshape(n_sh, c, be, v)
+        fresh = fresh.reshape(n_sh, c, be)
+        value = value.reshape(n_sh, c, be, v)
         fresh = np.stack([fresh[lane_of[gid]] for gid in gids])
         value = np.stack([value[lane_of[gid]] for gid in gids])
         for gid in gids:
@@ -1034,13 +1136,13 @@ class ShardedMultiGroupDataplane(MultiGroupDataplane):
         lim = self._reclaim_limits_np()
         fn = self._dispatch(use_k, plan_gb if use_k else 1)
         self.dispatch_count += 1
-        self.stack, self.lstate, fresh, _inst_d, _win, value = fn(
-            _i32(marks)[perm], eff_crnd, memp, self.alive_mask[perm], self.stack, self.lstate,
+        _st, _ls, fresh, _inst, _win, value = fn(
+            _i32(marks)[perm], eff_crnd, memp, self.alive_mask[perm], self.stacks, self.lstates,
             vals_f[perm], act_f[perm], reclaim_limit=None if lim is None else lim[perm],
         )  # fmt: skip
         inv = list(pm.slot_of)  # gid -> slot: gather back to gid order
-        fresh = fresh.cpu().numpy()[inv][gids]
-        value = value.cpu().numpy()[inv][gids]
+        fresh = fresh[inv][gids]
+        value = value[inv][gids]
         for gid in gids:
             self.next_inst_host[gid] += be
         self._sync_cstate()
@@ -1245,6 +1347,7 @@ class PaxosContext:
                 raise ValueError(
                     "snapshots require the fused wire path (fused=True, or any grouped context)"
                 )
+            # seals run on the dataplane's (home) device
             self.snapshots = SnapshotStore(self.hw.device)
             self.hw.enable_reclamation()
         self.stats = {"submitted": 0, "delivered": 0, "retransmits": 0}
@@ -1610,9 +1713,8 @@ class PaxosContext:
         self._check_group(gid)
         hw = self.hw
         if self.grouped:
-            row = hw._slab_row(gid)
             seq_mark = hw.next_inst_host[gid]
-            ld, li, lv = (x[row].cpu().numpy() for x in vars(hw.lstate).values())
+            ld, li, lv = (x.cpu().numpy() for x in vars(hw._rows(gid)[1]).values())
         else:
             seq_mark = hw._next_inst_host
             ld, li, lv = (x.cpu().numpy() for x in vars(hw.lstate).values())
@@ -1827,9 +1929,10 @@ class PaxosContext:
         self, co: SoftCoordinator, vals: np.ndarray, active: np.ndarray, gid: int | None = None
     ) -> MsgBatch:
         """Software-coordinator sequencing: bind a burst to the coordinator's
-        next window; ``gid`` tags the batch with its group."""
+        next window; ``gid`` tags the batch with its group, which is built on
+        the device of the group's slab."""
         b = vals.shape[0]
-        dev = self.hw.device
+        dev = self.hw.device if gid is None else self.hw.device_of(gid)
         inst = np.arange(co.next_inst, co.next_inst + b, dtype=np.int32)
         co.next_inst += b
         return MsgBatch(
@@ -1857,14 +1960,15 @@ class PaxosContext:
         """Phase-1 scan one instance, choose the required value (a discovered
         vote, else the no-op), Phase-2 it, and return the per-acceptor vote
         batches (None = no quorum of promises).  ``surface`` is the
-        dataplane or one group's view; ``gid`` tags the batches."""
+        dataplane or one group's view; ``gid`` tags the batches, which are
+        built on the device of the group's slab."""
         from .failover import allocate_round
 
         epoch = self._next_epoch
         self._next_epoch += 1
         crnd = allocate_round(epoch, coordinator_id=2)
         b = self.cfg.batch
-        dev = self.hw.device
+        dev = self.hw.device if gid is None else self.hw.device_of(gid)
         # fillers carry a contiguous window starting at the target, so the
         # batch addresses distinct ring slots; at NO_ROUND they never accept
         window = torch.arange(inst, inst + b, dtype=I32, device=dev)

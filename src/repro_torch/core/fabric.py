@@ -32,17 +32,21 @@ full-width dispatch, and ``make_packed_sharded_round``, the packed cohort
 dispatch).  The reference runs its shard body under ``shard_map``; nothing
 crosses the mesh axis during a round, because groups share no state, and
 every per-group scalar is host-authoritative and enters the dispatch
-replicated.  So here a dispatch is a single-controller loop over the
-shards, in shard order, each shard's body on its contiguous ``(Gl, ...)``
-slab view of the slot-indexed ``(G, ...)`` state: rows ``[s*Gl,
-(s+1)*Gl)`` are shard ``s``.  All shards of a ``launch.mesh.GroupMesh`` sit
-on one device.
+replicated.  So here a dispatch is one controller's loop over the shards of
+a ``launch.mesh.GroupMesh``, in shard order, each shard's body on its own
+``(Gl, ...)`` slab on that shard's device, with no collective and no copy
+between devices.  Each device gets one upload, in one copy: the control
+tables, replicated to every device, and its shards' rows of the burst.
+Every shard's body is launched before any is read back, so several cards
+work at once; each device's outputs are then joined on it and read back in
+one copy, and gathered on the host in shard order.  Logical shards of one
+device thus cost one upload and one read-back a dispatch, as one slab
+would.
 
 With ``use_kernels`` a full-width shard body is K1's shard slice
 (``kernels.ops.shard_slab_round``) and a packed one K6
 (``kernels.ops.packed_shard_round``), on the card, with their plain versions
-on the CPU; without, the plain engine.  Each dispatch moves its host tables
-(per-group or per-lane scalars and the burst) to the device in one copy.
+on the CPU; without, the plain engine.
 """
 
 from __future__ import annotations
@@ -245,10 +249,44 @@ def _upload(dev: torch.device, *tables: np.ndarray) -> list[torch.Tensor]:
     return out
 
 
-def _shard(state, s: int, gl: int):
-    """Shard ``s``'s rows of a slab state: contiguous views, updated in
-    place by the shard body."""
-    return type(state)(*(x[s * gl : (s + 1) * gl] for x in vars(state).values()))
+def _slabs(stacks, lstates, n_sh: int) -> list[tuple[AcceptorState, batched.LearnerState]]:
+    """Every shard's ``(stack, lstate)`` slab, each ``(Gl, ...)`` on its
+    shard's device, in shard order."""
+    slabs = list(zip(stacks, lstates, strict=True))
+    if len(slabs) != n_sh or len({st.rnd.shape[0] for st, _ in slabs}) != 1:
+        raise ValueError(
+            f"{len(slabs)} slabs of {[st.rnd.shape[0] for st, _ in slabs]} groups "
+            f"for a {n_sh}-shard mesh"
+        )
+    return slabs
+
+
+def _by_device(slabs) -> dict[torch.device, list[int]]:
+    """The shards of each device, in shard order; devices in the order of
+    their first shard."""
+    out: dict[torch.device, list[int]] = {}
+    for s, (st, _ls) in enumerate(slabs):
+        out.setdefault(st.rnd.device, []).append(s)
+    return out
+
+
+def _read_back(outs: list[list[torch.Tensor]], by_dev: dict) -> list[np.ndarray]:
+    """Each output of every shard on the host, concatenated in shard order.
+    A device's outputs are joined on it into one int32 buffer (``fresh`` is
+    bool, read back as such) and come back in one copy, which waits only for
+    that device."""
+    host: list[list] = [[None] * len(outs) for _ in outs[0]]
+    for ss in by_dev.values():
+        parts = [outs[s][j] for j in range(len(host)) for s in ss]
+        flat = torch.cat([x.reshape(-1) for x in parts]).cpu().numpy()
+        at = 0
+        for j, col in enumerate(host):
+            for s in ss:
+                x = outs[s][j]
+                piece = flat[at : at + x.numel()].reshape(tuple(x.shape))
+                col[s] = piece != 0 if x.dtype == torch.bool else piece
+                at += x.numel()
+    return [np.concatenate(col) for col in host]
 
 
 def _windows(next_inst: np.ndarray, b: int) -> np.ndarray:
@@ -274,11 +312,13 @@ def make_sharded_multigroup_round(
     ``group_block`` (the reference kernel's fold) must divide the per-shard
     slab; it changes no result here.
 
-    Returns ``step(next_inst[G], crnd[G], enabled[G], alive[G, A], stack,
-    lstate, values[G, B, V], active[G, B], reclaim_limit=None) -> (stack,
-    lstate, fresh[G, B], inst[G, B], win[G, B], value[G, B, V])`` with the
-    state updated in place; ``inst`` is host int32, the rest device
-    tensors.  ``reclaim_limit=None`` is int32 max for every group."""
+    Returns ``step(next_inst[G], crnd[G], enabled[G], alive[G, A], stacks,
+    lstates, values[G, B, V], active[G, B], reclaim_limit=None) -> (stacks,
+    lstates, fresh[G, B], inst[G, B], win[G, B], value[G, B, V])``:
+    ``stacks`` and ``lstates`` are the S per-shard ``(Gl, ...)`` states in
+    shard order, each on its shard's device, and come back as given,
+    updated in place; the four outputs are host int32 (``fresh`` bool) in
+    slot order.  ``reclaim_limit=None`` is int32 max for every group."""
     n_sh = _check_axis(mesh, axis)
     if n_groups % n_sh:
         raise ValueError(
@@ -289,21 +329,13 @@ def make_sharded_multigroup_round(
         raise ValueError(f"group_block={group_block} must divide the per-shard slab {gl}")
     q = quorum
 
-    def step(
-        next_inst,
-        crnd,
-        enabled,
-        alive,
-        stack: AcceptorState,
-        lstate: batched.LearnerState,
-        values,
-        active,
-        reclaim_limit=None,
-    ):
+    def step(next_inst, crnd, enabled, alive, stacks, lstates, values, active, reclaim_limit=None):
         del active  # sequenced fillers vote like P2As
         g = n_groups
-        if stack.rnd.shape[0] != g:
-            raise ValueError(f"slabs of {stack.rnd.shape[0]} groups for a {g}-group dispatch")
+        slabs = _slabs(stacks, lstates, n_sh)
+        have = n_sh * slabs[0][0].rnd.shape[0]
+        if have != g:
+            raise ValueError(f"slabs of {have} groups for a {g}-group dispatch")
         ni = np.asarray(next_inst, np.int32).reshape((g,))
         if reclaim_limit is None:
             lim = np.full((g,), INT32_MAX, np.int32)
@@ -314,20 +346,23 @@ def make_sharded_multigroup_round(
             [ni, np.asarray(crnd, np.int32).reshape((g,)),
              np.asarray(enabled, np.int32).reshape((g,)), lim]
         )  # fmt: skip
-        ctl_d, al_d, vals_d = _upload(stack.rnd.device, ctl, np.asarray(alive, np.int32), vals)
-        al_d = al_d != 0
-        outs = []
-        for s in range(n_sh):
-            st, ls = _shard(stack, s, gl), _shard(lstate, s, gl)
-            args = (s * gl, ctl_d[0], ctl_d[1], al_d, q, st, ls, vals_d[s * gl : (s + 1) * gl],
-                    ctl_d[2], ctl_d[3])  # fmt: skip
-            if use_kernels:
-                _st, _ls, *out = kops.shard_slab_round(*args, group_block=group_block)
-            else:
-                _st, _ls, *out = batched.shard_slab_round(*args)
-            outs.append(out)
-        fresh, win, value = (torch.cat(x) for x in zip(*outs, strict=True))
-        return stack, lstate, fresh, _windows(ni, vals.shape[1]), win, value
+        al = np.asarray(alive, np.int32)
+        by_dev = _by_device(slabs)
+        outs: list = [None] * n_sh
+        for dev, ss in by_dev.items():
+            # one upload a device: the tables replicated, its shards' burst rows
+            rows = vals.reshape((n_sh, gl, *vals.shape[1:]))[ss]
+            ctl_d, al_d, vals_d = _upload(dev, ctl, al, rows)
+            al_d = al_d != 0
+            for k, s in enumerate(ss):
+                st, ls = slabs[s]
+                args = (s * gl, ctl_d[0], ctl_d[1], al_d, q, st, ls, vals_d[k], ctl_d[2], ctl_d[3])
+                if use_kernels:
+                    _st, _ls, *outs[s] = kops.shard_slab_round(*args, group_block=group_block)
+                else:
+                    _st, _ls, *outs[s] = batched.shard_slab_round(*args)
+        fresh, win, value = _read_back(outs, by_dev)
+        return stacks, lstates, fresh, _windows(ni, vals.shape[1]), win, value
 
     return step
 
@@ -348,38 +383,27 @@ def make_packed_sharded_round(
     packed by the caller in lane order:
 
         step(segids[S, C], next_inst[S, C], crnd[S, C], enabled[S, C],
-             alive[S, C, A], stack, lstate, values[S, C, B, V],
+             alive[S, C, A], stacks, lstates, values[S, C, B, V],
              reclaim_limit[S, C] | None)
-          -> (stack, lstate, fresh[S*C, B], inst[S*C, B], win[S*C, B],
+          -> (stacks, lstates, fresh[S*C, B], inst[S*C, B], win[S*C, B],
               value[S*C, B, V])
 
-    with shard ``s``'s lane ``j`` at packed row ``s*C + j``, the state
-    updated in place as the full-width dispatch would (pads and absent rows
-    untouched), ``inst`` host int32 and the rest device tensors.
-    ``block_b`` is the reference kernel's batch block, checked on the kernel
-    path only (None: 128); it changes no result."""
+    with shard ``s``'s lane ``j`` at packed row ``s*C + j``, ``stacks`` and
+    ``lstates`` as the full-width dispatch takes them, updated in place as
+    it would update them (pads and absent rows untouched), and the outputs
+    on the host.  ``block_b`` is the reference kernel's batch block,
+    checked on the kernel path only (None: 128); it changes no result."""
     n_sh = _check_axis(mesh, axis)
     q = quorum
 
     def packed_step(
-        segids,
-        next_inst,
-        crnd,
-        enabled,
-        alive,
-        stack: AcceptorState,
-        lstate: batched.LearnerState,
-        values,
-        reclaim_limit=None,
+        segids, next_inst, crnd, enabled, alive, stacks, lstates, values, reclaim_limit=None
     ):
         vals = np.asarray(values, np.int32)
         s_, c, b = vals.shape[:3]
-        if s_ != n_sh or stack.rnd.shape[0] % n_sh:
-            raise ValueError(
-                f"a packed table of {s_} shards and slabs of {stack.rnd.shape[0]} groups "
-                f"for a {n_sh}-shard mesh"
-            )
-        gl = stack.rnd.shape[0] // n_sh
+        if s_ != n_sh:
+            raise ValueError(f"a packed table of {s_} shards for a {n_sh}-shard mesh")
+        slabs = _slabs(stacks, lstates, n_sh)
         seg = np.asarray(segids, np.int32).reshape((n_sh, c))
         ni = np.asarray(next_inst, np.int32).reshape((n_sh, c))
         en = np.asarray(enabled, np.int32).reshape((n_sh, c))
@@ -389,22 +413,24 @@ def make_packed_sharded_round(
             lim = np.asarray(reclaim_limit, np.int32).reshape((n_sh, c))
         ctl = np.stack([seg, ni, np.asarray(crnd, np.int32).reshape((n_sh, c)), en, lim], axis=1)
         al = np.asarray(alive, np.int32).reshape((n_sh, c, -1))
-        ctl_d, al_d, vals_d = _upload(stack.rnd.device, ctl, al, vals)
-        outs = []
-        for s in range(n_sh):
-            st, ls = _shard(stack, s, gl), _shard(lstate, s, gl)
-            t = ctl_d[s]  # (5, C): segids, next_inst, crnd, enabled, limit
-            if use_kernels:
-                _st, _ls, *out = kops.packed_shard_round(
-                    st, ls, t[0], t[1], t[2], al_d[s], q, vals_d[s], t[3], t[4],
-                    block_b=block_b, lanes_host=(seg[s], en[s]),
-                )  # fmt: skip
-            else:
-                _st, _ls, *out = batched.packed_multigroup_round(
-                    st, ls, t[0], t[1], t[2], al_d[s], q, vals_d[s], t[3], t[4]
-                )
-            outs.append(out)
-        fresh, win, value = (torch.cat(x) for x in zip(*outs, strict=True))
-        return stack, lstate, fresh, _windows(ni.reshape(-1), b), win, value
+        by_dev = _by_device(slabs)
+        outs: list = [None] * n_sh
+        for dev, ss in by_dev.items():
+            # one upload a device, of its shards' lane tables
+            ctl_d, al_d, vals_d = _upload(dev, ctl[ss], al[ss], vals[ss])
+            for k, s in enumerate(ss):
+                st, ls = slabs[s]
+                t = ctl_d[k]  # (5, C): segids, next_inst, crnd, enabled, limit
+                if use_kernels:
+                    _st, _ls, *outs[s] = kops.packed_shard_round(
+                        st, ls, t[0], t[1], t[2], al_d[k], q, vals_d[k], t[3], t[4],
+                        block_b=block_b, lanes_host=(seg[s], en[s]),
+                    )  # fmt: skip
+                else:
+                    _st, _ls, *outs[s] = batched.packed_multigroup_round(
+                        st, ls, t[0], t[1], t[2], al_d[k], q, vals_d[k], t[3], t[4]
+                    )
+        fresh, win, value = _read_back(outs, by_dev)
+        return stacks, lstates, fresh, _windows(ni.reshape(-1), b), win, value
 
     return packed_step

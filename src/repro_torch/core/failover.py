@@ -12,7 +12,9 @@ live suffix of the learner ring before it rejoins the quorum.
 The batches go through the dataplane's staged ``prepare``/``vote``: the
 Phase-1 scan runs the plain engine on any device, and the re-proposals'
 Phase-2 vote runs the acceptor array's vote kernel on the card when the
-dataplane uses kernels.
+dataplane uses kernels.  On a multi-group dataplane every batch is built on
+the device of the group's slab (``group_view(gid).device``, its shard's on
+a sharded one), and every register row is reached through ``_rows(gid)``.
 """
 
 from __future__ import annotations
@@ -165,13 +167,13 @@ def restore_acceptor(hw, aid: int, *, gid: int | None = None, watermark: int = 0
     place and rejoin it to the quorum.  ``gid`` names the group on a
     multi-group dataplane (``hw`` is then a ``MultiGroupDataplane``).
     Returns the number of adopted (decided) instances."""
-    learner, acceptors = list(vars(hw.lstate).values()), list(vars(hw.stack).values())
     if gid is None:
+        stack, lstate = hw.stack, hw.lstate
         crnd, hi = int(hw.cstate.crnd), int(hw._next_inst_host)
-    else:  # the group's rows of the slabs, as views
-        row = hw._slab_row(gid)
-        learner, acceptors = [x[row] for x in learner], [x[row] for x in acceptors]
+    else:  # the group's rows of the slabs, as views on its shard's device
+        stack, lstate = hw._rows(gid)
         crnd, hi = int(hw.crnd_host[gid]), int(hw.next_inst_host[gid])
+    learner, acceptors = vars(lstate).values(), vars(stack).values()
     ld, li, lv = (x.cpu().numpy() for x in learner)
     rnd, vrnd, val = rebuild_acceptor_rows(ld, li, lv, crnd, watermark, hi)
     for dst, src in zip(acceptors, (rnd, vrnd, val), strict=True):

@@ -20,20 +20,20 @@ size is not the mesh's raises ``ValueError``, as ``jax.make_mesh`` refuses.
 ``repro.launch.mesh.make_group_mesh``.  The reference's sharded round has
 no collective: groups share no state, and every per-group
 scalar is host-authoritative and enters each dispatch replicated.  So its
-``shard_map`` is a single-controller loop over shards, and the port writes
-it as one (``core.fabric``).  A ``GroupMesh`` says how many shards the G
-group slabs partition into and on which device they live.
+``shard_map`` is one controller over the process's local devices, and the
+port writes it as one process that loops over the shards (``core.fabric``),
+with no ``torch.distributed`` and no copy between cards.  A ``GroupMesh``
+names one device per shard: shard ``s`` keeps its slab of the G groups on
+``devices[s]``, and ``devices[0]`` is the home device, where the controller
+keeps what is its own (the snapshot seals).
 
-All shards of a ``GroupMesh`` sit on one device: ``make_group_mesh()`` gives
-one shard per visible card, which on a one-card machine is a (1,) mesh, and
-``make_group_mesh(n_shards=S)`` puts S logical shards on one device, the
-port's counterpart of the reference's forced host device count.  A mesh over
-several distinct cards raises ``NotImplementedError`` (ROADMAP.md queue 1,
-item 6(a)): the reference's is one controller over the process's local
-devices, with no collective, which the port would write as one process
-driving each card's slab, with no ``torch.distributed``; that is not
-written yet.  (The acceptor-sharded consensus, which does have
-collectives, runs on a ``DeviceMesh``: ``core.fabric.make_fabric_consensus``.)
+``make_group_mesh()`` gives one shard per visible card (``cuda:0`` ...
+``cuda:C-1``; a (1,) mesh on a one-card machine), and ``make_group_mesh(S,
+device)`` S logical shards on one device, the port's counterpart of the
+reference's forced host device count, each with a slab of its own; any
+other layout is ``GroupMesh(devices)``.  (The acceptor-sharded consensus,
+which does have collectives, runs on a ``DeviceMesh``:
+``core.fabric.make_fabric_consensus``.)
 
 Capacity planning is the reference's: G is the capacity of the group axis,
 fixed at construction and divisible by the shard count; tenants come and go
@@ -49,25 +49,33 @@ import os
 import torch
 import torch.distributed as dist
 
-_MULTI_CARD = (
-    "ROADMAP.md queue 1, item 6 (a groups mesh over several cards: one controller over "
-    "the process's cards, with no collective)"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class GroupMesh:
-    """A 1-D mesh of ``n_shards`` group shards on ``device``.  ``shape``
-    maps each axis name to its size, as a ``jax.sharding.Mesh`` does, so the
-    dataplane validates it with the reference's checks and messages."""
+    """A 1-D mesh of group shards: shard ``s`` on ``devices[s]``, one device
+    type for all.  ``shape`` maps each axis name to its size, as a
+    ``jax.sharding.Mesh`` does, so the dataplane validates it with the
+    reference's checks and messages."""
 
-    n_shards: int
-    device: torch.device
+    devices: tuple[torch.device, ...]
     axis_names: tuple[str, ...] = ("groups",)
 
     def __post_init__(self) -> None:
-        if self.n_shards < 1:
-            raise ValueError(f"a mesh needs at least one shard, got {self.n_shards}")
+        devices = tuple(torch.device(d) for d in self.devices)
+        if not devices:
+            raise ValueError("a mesh needs at least one shard, got 0")
+        if len({d.type for d in devices}) > 1:
+            raise ValueError(f"a mesh's shards share one device type, got {devices}")
+        object.__setattr__(self, "devices", devices)
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        """The home device, shard 0's."""
+        return self.devices[0]
 
     @property
     def shape(self) -> dict[str, int]:
@@ -76,21 +84,18 @@ class GroupMesh:
 
 def make_group_mesh(n_shards: int = 0, device: torch.device | str | None = None) -> GroupMesh:
     """A 1-D mesh with one ``groups`` axis.  ``n_shards=0`` gives one shard
-    per visible card; ``device=None`` means the card, and asking for the
-    card where there is none raises.  ``n_shards=S`` puts S logical shards
-    on ``device``."""
+    per visible card when ``device`` is ``None`` or ``"cuda"``, else one
+    shard on ``device``; ``n_shards=S`` puts S logical shards on ``device``.
+    ``device=None`` means the card, and asking for the card where there is
+    none raises."""
     from ..core.device import resolve_device
 
     dev = resolve_device(device)
-    if n_shards == 0:
-        cards = torch.cuda.device_count() if dev.type == "cuda" and dev.index is None else 1
-        if cards > 1:
-            raise NotImplementedError(
-                f"a groups mesh over {cards} distinct cards is not ported yet: {_MULTI_CARD}; "
-                "pass n_shards and a device for logical shards on one card"
-            )
-        n_shards = 1
-    return GroupMesh(n_shards=n_shards, device=dev)
+    if n_shards:
+        return GroupMesh((dev,) * n_shards)
+    if dev.type == "cuda" and dev.index is None:
+        return GroupMesh(tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count())))
+    return GroupMesh((dev,))
 
 
 # ---------------------------------------------------------------------------

@@ -196,9 +196,9 @@ def test_export_state_copies():
 
 
 def test_grouped_and_sharded_contexts_are_not_ported_yet(monkeypatch):
-    """A ``groups`` mesh over several distinct cards, not ported yet, raises
-    when it is made; the sharded dataplane on one device is ported and a
-    ``mesh=`` context builds it.  Persistent waves are ported: a grouped
+    """Every context is ported now.  The sharded dataplane is built by a
+    ``mesh=`` context, and a context asked for the CPU on a mesh over
+    several cards refuses it.  Persistent waves are ported: a grouped
     context with ``persistent_rounds=2`` builds and runs a wave of two
     rounds."""
     ctx = T.PaxosContext(T.PaxosConfig(n_groups=2, persistent_rounds=2, **CFG), device="cpu")
@@ -220,7 +220,7 @@ def test_grouped_and_sharded_contexts_are_not_ported_yet(monkeypatch):
     assert isinstance(sharded.hw, T.ShardedMultiGroupDataplane) and sharded.grouped
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not the mesh's device cuda:0"):
         T.PaxosContext(T.PaxosConfig(), mesh=make_group_mesh(), device="cpu")
 
 

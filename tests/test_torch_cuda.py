@@ -964,6 +964,55 @@ def test_sharded_context_on_the_card_matches_the_cpu(cuda):
     assert on_card.hw.dispatch_count == on_cpu.hw.dispatch_count
 
 
+def test_eight_shard_mesh_on_the_card_equals_the_cpu(cuda):
+    """An 8-shard groups mesh on the card at the paper's widths (A=3,
+    N=65,536, V=16, bursts of 128, G=8: one group a shard): each shard's
+    slab an allocation of its own on the card, K1's shard slice launched
+    once a shard a dispatch, and full-width rounds and cohorts, through a
+    dead acceptor, a frozen group and a crash and restore, equal to the
+    same dataplane on the CPU in outputs and gathered slabs."""
+    from repro_torch.core import ShardedMultiGroupDataplane
+    from repro_torch.core.failover import restore_acceptor
+    from repro_torch.launch.mesh import make_group_mesh
+
+    cfg = PaxosConfig(n_groups=8)
+    g, b, v = cfg.n_groups, cfg.batch, cfg.value_words
+    hws = [
+        ShardedMultiGroupDataplane(cfg, mesh=make_group_mesh(8, dev), device=dev)
+        for dev in (cuda, torch.device("cpu"))
+    ]
+    ptrs = set()
+    for st, ls in zip(hws[0].stacks, hws[0].lstates, strict=True):
+        for x in (*vars(st).values(), *vars(ls).values()):
+            assert x.device.type == "cuda" and x.shape[0] == 1
+            ptrs.add(x.untyped_storage().data_ptr())
+    assert len(ptrs) == 6 * 8
+    rng = np.random.default_rng(36)
+    for hw in hws:
+        hw.kill_acceptor(6, 2)
+        hw.freeze_group(3)
+    for r in range(4):
+        vals = rng.integers(I32_MIN, I32_MAX, (g, b, v), dtype=np.int32, endpoint=True)
+        act = np.ones((g, b), bool)
+        before = k_wirepath.shard_launches
+        outs = [hw.pipeline(vals, act) for hw in hws]
+        assert k_wirepath.shard_launches == before + 8
+        for x, y in zip(*outs, strict=True):
+            np.testing.assert_array_equal(x, y)
+        gids = [[0, 5], [1, 2, 7], [4], [0, 1, 2, 4, 5, 6, 7]][r]
+        cv = rng.integers(I32_MIN, I32_MAX, (len(gids), b, v), dtype=np.int32, endpoint=True)
+        outs = [hw.pipeline_cohort(gids, cv, np.ones((len(gids), b), bool)) for hw in hws]
+        for x, y in zip(*outs, strict=True):
+            np.testing.assert_array_equal(x, y)
+        if r == 1:
+            for hw in hws:
+                hw.wipe_acceptor(5, 1)
+                restore_acceptor(hw, 1, gid=5)
+    want, have = export_state(hws[1]), export_state(hws[0])
+    for key in want:
+        np.testing.assert_array_equal(have[key], want[key], err_msg=key)
+
+
 # ---------------------------------------------------------------------------
 # K1 and K6: the team lane body, both variants
 # ---------------------------------------------------------------------------

@@ -73,7 +73,12 @@ class _ScalarGroup:
 
 
 def _leaves(hw, rows=None) -> list[np.ndarray]:
-    out = [np.asarray(x) for x in (*vars(hw.stack).values(), *vars(hw.lstate).values())]
+    """The slabs in slot order: the port's sharded dataplane through its
+    gather, any other through its ``(G, ...)`` state."""
+    if isinstance(hw, T.ShardedMultiGroupDataplane):
+        out = list(hw.gather().values())
+    else:
+        out = [np.asarray(x) for x in (*vars(hw.stack).values(), *vars(hw.lstate).values())]
     return out if rows is None else [x[rows] for x in out]
 
 
@@ -155,7 +160,8 @@ def test_sharded_matches_unsharded_and_scalar_oracle(shards, use_kernels):
         assert sh.dispatch_count == ref.dispatch_count
     for hw in twins:
         _same(_leaves(hw), _leaves(sh))
-    h_rnd, h_vrnd = np.asarray(sh.stack.rnd), np.asarray(sh.stack.vrnd)
+    slabs = sh.gather()
+    h_rnd, h_vrnd = slabs["stack.rnd"], slabs["stack.vrnd"]
     for gid, oracle in enumerate(oracles):
         for aid, acc in enumerate(oracle.acceptors):
             for slot, (rnd, vrnd, _val) in acc.slots.items():
@@ -174,11 +180,16 @@ def test_packed_dispatch_equals_full_width(use_kernels):
     gl = g // 2
     mesh = make_group_mesh(2, "cpu")
     _cs, stack, lstate = batched.init_multigroup_state(g, a, n, v)
+
+    def halves(st):  # each shard's slab: its rows of the (G, ...) state, as views
+        return [type(st)(*(x[s * gl : (s + 1) * gl] for x in vars(st).values())) for s in (0, 1)]
+
     full = fabric.make_sharded_multigroup_round(mesh, n_groups=g, quorum=2, use_kernels=False)
     ni = np.zeros((g,), np.int32)
     for _ in range(2):  # prime every ring with two full-width rounds
         vals = rng.integers(0, 100, (g, b, v)).astype(np.int32)
-        full(ni, np.full((g,), 7), np.ones((g,)), np.ones((g, a)), stack, lstate, vals, None)
+        full(ni, np.full((g,), 7), np.ones((g,)), np.ones((g, a)), halves(stack), halves(lstate),
+             vals, None)  # fmt: skip
         ni = ni + b
     gids, c = [1, 2, 6], 2
     seg, enp, nip = (np.zeros((2, c), np.int32) for _ in range(3))
@@ -205,11 +216,12 @@ def test_packed_dispatch_equals_full_width(use_kernels):
         return type(st)(*(x.clone() for x in vars(st).values()))
 
     st, ls = copy(stack), copy(lstate)
-    _, _, fresh_r, _i, win_r, val_r = full(ni, cr_r, en_r, alive_full, st, ls, vals_r, None)
+    _, _, fresh_r, _i, win_r, val_r = full(ni, cr_r, en_r, alive_full, halves(st), halves(ls),
+                                           vals_r, None)  # fmt: skip
     ref = (*vars(st).values(), *vars(ls).values())
     packed = fabric.make_packed_sharded_round(mesh, quorum=2, use_kernels=use_kernels)
     st, ls = copy(stack), copy(lstate)
-    _, _, fresh, inst, win, val = packed(seg, nip, crp, enp, alp, st, ls, valsp)
+    _, _, fresh, inst, win, val = packed(seg, nip, crp, enp, alp, halves(st), halves(ls), valsp)
     _same((*vars(st).values(), *vars(ls).values()), ref)
     fresh, win, val = (x.reshape((2, c, *x.shape[1:])) for x in (fresh, win, val))
     for gid in gids:
@@ -265,7 +277,7 @@ def test_placement_and_validation():
         sh.shard_of_group(4)
     with pytest.raises(ValueError, match="must be divisible by the 'groups' mesh axis size 2"):
         T.ShardedMultiGroupDataplane(_cfg(T, 3), mesh=make_group_mesh(2, "cpu"))
-    bad_axis = GroupMesh(1, torch.device("cpu"), axis_names=("data",))
+    bad_axis = GroupMesh((torch.device("cpu"),), axis_names=("data",))
     with pytest.raises(ValueError, match="mesh has no 'groups' axis"):
         T.ShardedMultiGroupDataplane(cfg, mesh=bad_axis)
     with pytest.raises(ValueError, match="mesh has no 'groups' axis"):
@@ -298,11 +310,28 @@ def test_placement_and_validation():
 
 
 def test_mesh_over_several_cards_is_not_ported(monkeypatch):
+    """``make_group_mesh()`` over C visible cards is a C-shard ``groups``
+    mesh, shard ``s`` on ``cuda:s`` and ``cuda:0`` its home; a card index
+    or ``n_shards`` gives logical shards on one device, ``GroupMesh`` any
+    layout, and a mesh mixes no device types."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        make_group_mesh()
+    mesh = make_group_mesh()
+    assert mesh.shape == {"groups": 4} and mesh.n_shards == 4
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(4))
+    assert mesh.device == torch.device("cuda", 0)
+    assert make_group_mesh(device="cuda").devices == mesh.devices
+    assert make_group_mesh(device="cuda:2").devices == (torch.device("cuda", 2),)
+    assert make_group_mesh(2).devices == (torch.device("cuda"),) * 2
     assert make_group_mesh(2, "cpu").shape == {"groups": 2}
+    assert make_group_mesh(2, "cpu").devices == (torch.device("cpu"),) * 2
+    pair = GroupMesh(("cuda:1", "cuda:3"))
+    assert pair.devices == (torch.device("cuda", 1), torch.device("cuda", 3))
+    assert pair.n_shards == 2 and pair.device == torch.device("cuda", 1)
+    with pytest.raises(ValueError, match="one device type"):
+        GroupMesh(("cpu", "cuda:1"))
+    with pytest.raises(ValueError, match="at least one shard"):
+        GroupMesh(())
 
 
 def _ctx_trio(g, shards, use_kernels, seed):
