@@ -1,0 +1,6 @@
+"""``torch.cuda.max_memory_allocated()`` over set-up and window, in GiB: what
+the run left a training user for batch or depth."""
+
+
+def read(run):
+    return run.peak_bytes / 2**30 if run.peak_bytes else None
